@@ -5,8 +5,10 @@ layout so each module has a counterpart there. It imports torch and numpy
 only. Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU request they raise.
 
-This first part of the port carries the 9x9 self-play actor step: the Hex
-env, the ReZero FCModel, the K-leaf grow-pass MCTS with its two hand-written
-kernels (`mcts/kernels.py`, `csrc/`), `learning.mix` and
-`train.actor_record`.
+The port carries the learner's `train.train_step` for `train.run`'s
+configurations: the Hex env, the ReZero FCModel, the sequential K=1 MCTS
+(boards below 7) and the K-leaf grow-pass MCTS (7 and up) with their six
+hand-written kernels (`mcts/kernels.py`, `csrc/`), the returns, entropy and
+noise-scale utilities of `learning`, and the circular buffer, losses and Adam
+step of `train`. `train.make_config`/`best_config` give `run`'s configs.
 """

@@ -6,14 +6,17 @@ for. The default implementation uses an explicit `torch.Generator`; the
 parity tests subclass it and return the arrays that the JAX package's key
 tree produces, which makes the port comparable draw for draw.
 
-The draws of the self-play actor step:
+The draws of a train step:
 
 * `dirichlet(shape, rounds)`: the normals and uniforms of the fixed-round
   Marsaglia-Tsang gamma sampler, plus the boost uniforms used when the
   Dirichlet concentration is below 1 (`search._log_gamma_fixed`).
 * `pass_rands(p, shape)`: the per-node uniforms of grow pass `p`, (K,B,R).
+* `sim_rands(i, shape)`: the per-node uniforms of K=1 sim `i`, (B,T).
 * `gumbel(shape)`: Gumbel noise for a categorical draw; `argmax(logits +
   gumbel)` is the draw (the actor's action, and each step of `mix`).
+* `slots(B, T)`: the learner's timestep per env, uniform in [0, T), (B,)
+  int64.
 """
 from __future__ import annotations
 
@@ -44,6 +47,12 @@ class Draws:
 
     def pass_rands(self, p, shape):
         return self.uniform(tuple(shape))
+
+    def sim_rands(self, i, shape):
+        return self.uniform(tuple(shape))
+
+    def slots(self, B, T):
+        return torch.randint(0, T, (B,), generator=self.generator, device=self.device)
 
     def gumbel(self, shape):
         u = self.uniform(tuple(shape), minval=torch.finfo(torch.float32).tiny)

@@ -1,4 +1,4 @@
-"""The search's two hand-written CUDA kernels, their wrappers, their plain
+"""The search's hand-written CUDA kernels, their wrappers, their plain
 PyTorch twins and their launch counts.
 
 * `walk` (csrc/walk.cu) replaces the Pallas `walk` of
@@ -8,7 +8,21 @@ PyTorch twins and their launch counts.
   `node_actions_multi`: every node's regularized-policy solve, the log-shift
   prefix sum and K inverse-CDF draws with their child lookups.
   Twin: `node_actions_multi_ref`, which is `search.node_probs` +
-  `search._sample_children_multi(cum_mode='shift')`.
+  `search._sample_children_multi`.
+* `node_actions` (csrc/node_actions.cu) replaces the Pallas `node_actions`:
+  the K=1 pass, 16 Newton steps and one draw per node. Twin:
+  `search.node_actions`.
+* `descend` (csrc/descend.cu) replaces the Pallas `descend`: each env's
+  root->leaf walk, solving and sampling only the rows it visits. Twin:
+  `search.descend_reference`.
+* `backup` (csrc/backup.cu) replaces the Pallas `backup`: the leaf->root
+  chase into dense node deltas, which the wrapper routes onto the edges with
+  `search._apply_deltas`. Twin: `search.backup`.
+* `backup_dense` (csrc/backup_dense.cu) replaces the Pallas `backup_dense`:
+  the same chase updating n, w, n_edge and w_edge in place. Twin:
+  `search.backup`.
+
+The three row kernels share one device solve and draw (csrc/row_solve.cuh).
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches the
 kernel or raises, with no fallback. Each launch adds one to the wrapper's
@@ -34,7 +48,9 @@ import torch
 from . import search
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = ("walk.cu", "node_actions_multi.cu")
+_SOURCES = ("walk.cu", "node_actions_multi.cu", "node_actions.cu", "descend.cu", "backup.cu",
+            "backup_dense.cu")
+_HEADERS = ("row_solve.cuh",)
 _BUILD_DIR = _PKG / "_build"
 # -fmad=false: no fused multiply-adds, so each element's float arithmetic
 # rounds like the plain twin's separate PyTorch ops
@@ -62,7 +78,7 @@ def build(verbose=False):
         return _lib
     srcs = [_PKG / "csrc" / s for s in _SOURCES]
     digest = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + [_PKG / "csrc" / h for h in _HEADERS]:
         digest.update(s.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     so = _BUILD_DIR / f"libboardlaw_kernels_{digest.hexdigest()[:16]}.so"
@@ -96,6 +112,14 @@ def build(verbose=False):
     lib.node_actions_multi_launch.argtypes = [
         p, p, p, p, i, i, i, i, i, p, p, p, i, i, p, p, p, p]
     lib.node_actions_multi_launch.restype = i
+    lib.node_actions_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p]
+    lib.node_actions_launch.restype = i
+    lib.descend_launch.argtypes = [p, p, p, p, p, i, i, i, p, p, p, p, p, p]
+    lib.descend_launch.restype = i
+    lib.backup_launch.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, p, p, p]
+    lib.backup_launch.restype = i
+    lib.backup_dense_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p]
+    lib.backup_dense_launch.restype = i
     _lib = lib
     return lib
 
@@ -113,6 +137,23 @@ def _check_rows(x, name, dtype, B, T, A):
     _check(tuple(x.shape) == (B, T, A), f"{name} must be {(B, T, A)}, got {tuple(x.shape)}")
     _check(x.stride(2) == 1 and x.stride(1) == A and x.stride(0) >= T * A,
            f"{name} must have contiguous (T,A) rows")
+
+
+def _check_solve_args(rands, c_puct, q_bounds, rands_shape):
+    _check(rands.is_cuda and rands.dtype == torch.float32 and rands.is_contiguous()
+           and tuple(rands.shape) == rands_shape, f"rands must be contiguous {rands_shape} f32")
+    _check(c_puct.is_cuda and c_puct.dtype == torch.float32 and c_puct.is_contiguous()
+           and tuple(c_puct.shape) == rands_shape[:1], "c_puct must be contiguous (B,) f32")
+    _check(q_bounds.is_cuda and q_bounds.dtype == torch.float32 and q_bounds.is_contiguous()
+           and q_bounds.numel() == 2, "q_bounds must be a (2,) f32 CUDA tensor")
+
+
+def _check_node(x, name, dtype, shape):
+    """A whole (B,T,...) tree tensor: CUDA, the storage type, contiguous."""
+    _check(x.is_cuda, f"{name} must be a CUDA tensor")
+    _check(x.dtype == dtype, f"{name} must be {dtype}, got {x.dtype}")
+    _check(tuple(x.shape) == tuple(shape) and x.is_contiguous(),
+           f"{name} must be contiguous {tuple(shape)}, got {tuple(x.shape)}")
 
 
 def _raise_on(err, name):
@@ -179,7 +220,7 @@ walk.launches = 0
 def node_actions_multi_ref(logits, n_edge, w_edge, children, rands, c_puct, q_bounds,
                            n_iters=6, accel=True, return_alpha=False):
     """Plain twin of `node_actions_multi`: `search.node_probs` then
-    `search._sample_children_multi(cum_mode='shift')`."""
+    `search._sample_children_multi` (the log-shift order)."""
     probs, alpha = search.node_probs(logits, n_edge, w_edge, c_puct, q_bounds,
                                      n_iters=n_iters, accel=accel, return_alpha=True)
     acts, childs = search._sample_children_multi(children, probs, rands.permute(1, 0, 2))
@@ -208,12 +249,7 @@ def node_actions_multi(logits, n_edge, w_edge, children, rands, c_puct, q_bounds
     _check_rows(children, "children", torch.int8, B, T, A)
     _check(logits.stride(0) == w_edge.stride(0) == n_edge.stride(0) == children.stride(0),
            "tree tensors must share one env stride")
-    _check(rands.is_cuda and rands.dtype == torch.float32 and rands.is_contiguous()
-           and tuple(rands.shape) == (B, K, T), f"rands must be contiguous (B,K,T)=({B},{K},{T}) f32")
-    _check(c_puct.is_cuda and c_puct.dtype == torch.float32 and c_puct.is_contiguous()
-           and tuple(c_puct.shape) == (B,), "c_puct must be contiguous (B,) f32")
-    _check(q_bounds.is_cuda and q_bounds.dtype == torch.float32 and q_bounds.is_contiguous()
-           and q_bounds.numel() == 2, "q_bounds must be a (2,) f32 CUDA tensor")
+    _check_solve_args(rands, c_puct, q_bounds, (B, K, T))
     lib = build()
     dev = logits.device
     actions = torch.empty((B, K, T), dtype=torch.int32, device=dev)
@@ -232,3 +268,149 @@ def node_actions_multi(logits, n_edge, w_edge, children, rands, c_puct, q_bounds
 
 
 node_actions_multi.launches = 0
+
+
+# --------------------------------------------------------------------------
+# node_actions (K=1)
+# --------------------------------------------------------------------------
+
+def node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds):
+    """The K=1 all-node solve (16 Newton steps, one-sided test) and one draw
+    per node.
+
+    logits f32, n_edge bf16, w_edge f32, children int8, each (B,T,A) with
+    contiguous (T,A) rows (a leading-T slice of a wider node axis is fine);
+    rands (B,T) f32; c_puct (B,) f32; q_bounds (2,) f32 on the device.
+    -> actions, children (B,T) int32."""
+    if logits.device.type == "cpu":
+        return search.node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds)
+    B, T, A = logits.shape
+    _check(A <= 128, f"node_actions supports at most 128 actions, got {A}")
+    _check_rows(logits, "logits", torch.float32, B, T, A)
+    _check_rows(n_edge, "n_edge", torch.bfloat16, B, T, A)
+    _check_rows(w_edge, "w_edge", torch.float32, B, T, A)
+    _check_rows(children, "children", torch.int8, B, T, A)
+    _check(logits.stride(0) == w_edge.stride(0) == n_edge.stride(0) == children.stride(0),
+           "tree tensors must share one env stride")
+    _check_solve_args(rands, c_puct, q_bounds, (B, T))
+    lib = build()
+    dev = logits.device
+    actions = torch.empty((B, T), dtype=torch.int32, device=dev)
+    childs = torch.empty((B, T), dtype=torch.int32, device=dev)
+    err = lib.node_actions_launch(
+        logits.data_ptr(), n_edge.data_ptr(), w_edge.data_ptr(), children.data_ptr(),
+        B, T, A, logits.stride(0), rands.data_ptr(), c_puct.data_ptr(), q_bounds.data_ptr(),
+        actions.data_ptr(), childs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "node_actions")
+    node_actions.launches += 1
+    return actions, childs
+
+
+node_actions.launches = 0
+
+
+# --------------------------------------------------------------------------
+# descend (K=1)
+# --------------------------------------------------------------------------
+
+def descend(tree, rands):
+    """Each env's root->leaf walk over `tree` (a `search.Tree`), solving and
+    sampling each visited row with rands (B,T) f32 -> (parents, actions)
+    (B,) int32. Bit-equal to `search.node_actions` + `walk` on the same tree
+    and rands."""
+    if rands.device.type == "cpu":
+        return search.descend_reference(tree, rands)
+    B, T, A = tree.logits.shape
+    _check(A <= 128, f"descend supports at most 128 actions, got {A}")
+    _check_node(tree.logits, "logits", torch.float32, (B, T, A))
+    _check_node(tree.n_edge, "n_edge", torch.bfloat16, (B, T, A))
+    _check_node(tree.w_edge, "w_edge", torch.float32, (B, T, A))
+    _check_node(tree.children, "children", torch.int8, (B, T, A))
+    _check_node(tree.terminal, "terminal", torch.bool, (B, T))
+    q_bounds = search._q_bounds(tree)
+    _check_solve_args(rands, tree.c_puct, q_bounds, (B, T))
+    lib = build()
+    dev = rands.device
+    parents = torch.empty((B,), dtype=torch.int32, device=dev)
+    actions = torch.empty((B,), dtype=torch.int32, device=dev)
+    err = lib.descend_launch(
+        tree.logits.data_ptr(), tree.n_edge.data_ptr(), tree.w_edge.data_ptr(),
+        tree.children.data_ptr(), tree.terminal.data_ptr(), B, T, A, rands.data_ptr(),
+        tree.c_puct.data_ptr(), q_bounds.data_ptr(), parents.data_ptr(), actions.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "descend")
+    descend.launches += 1
+    return parents, actions
+
+
+descend.launches = 0
+
+
+# --------------------------------------------------------------------------
+# backup and backup_dense (K=1)
+# --------------------------------------------------------------------------
+
+def _check_backup(tree, leaves):
+    B, T, S = tree.w.shape
+    _check(leaves.is_cuda and leaves.dtype == torch.int32 and tuple(leaves.shape) == (B,)
+           and leaves.is_contiguous(), "leaves must be contiguous (B,) int32 on the card")
+    _check_node(tree.v, "v", torch.float32, (B, T, S))
+    _check_node(tree.parents, "parents", torch.int32, (B, T))
+    _check_node(tree.terminal, "terminal", torch.bool, (B, T))
+    _check_node(tree.rewards, "rewards", torch.float32, (B, T, S))
+    _check(S <= 4, f"the backup kernels take at most 4 seats, got {S}")
+    return B, T, S
+
+
+def backup(tree, leaves, n_per_visit):
+    """Back up each env's leaf (B,) int32 to the root, in place: the kernel
+    chases parent pointers into dense node deltas dn (B,T) and dw (B,T,S),
+    then `search._apply_deltas` adds them to n/w and routes them onto the
+    parent edges with `index_put_(accumulate=True)`. Returns the tree."""
+    if leaves.device.type == "cpu":
+        return search.backup(tree, leaves, n_per_visit)
+    B, T, S = _check_backup(tree, leaves)
+    lib = build()
+    dev = leaves.device
+    dn = torch.empty((B, T), dtype=torch.float32, device=dev)
+    dw = torch.empty((B, T, S), dtype=torch.float32, device=dev)
+    err = lib.backup_launch(
+        tree.v.data_ptr(), leaves.data_ptr(), tree.parents.data_ptr(), tree.terminal.data_ptr(),
+        tree.rewards.data_ptr(), B, T, S, float(n_per_visit), dn.data_ptr(), dw.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "backup")
+    backup.launches += 1
+    return search._apply_deltas(tree, dn, dw)
+
+
+backup.launches = 0
+
+
+def backup_dense(tree, leaves, n_per_visit):
+    """`backup` with every statistic (n, w, n_edge, w_edge) updated in place
+    along each env's path by the kernel. Two-seat trees only: the edge value
+    is v[0] at seat 0 and v[S-1] otherwise, as in the Pallas kernel."""
+    _check(tree.w.shape[-1] == 2, f"backup_dense takes two-seat trees, got {tree.w.shape[-1]}")
+    if leaves.device.type == "cpu":
+        return search.backup(tree, leaves, n_per_visit)
+    B, T, S = _check_backup(tree, leaves)
+    A = tree.n_edge.shape[-1]
+    _check_node(tree.relation, "relation", torch.int32, (B, T))
+    _check_node(tree.seats, "seats", torch.int32, (B, T))
+    _check_node(tree.n, "n", torch.int32, (B, T))
+    _check_node(tree.w, "w", torch.float32, (B, T, S))
+    _check_node(tree.n_edge, "n_edge", torch.bfloat16, (B, T, A))
+    _check_node(tree.w_edge, "w_edge", torch.float32, (B, T, A))
+    lib = build()
+    dev = leaves.device
+    err = lib.backup_dense_launch(
+        tree.v.data_ptr(), leaves.data_ptr(), tree.parents.data_ptr(), tree.relation.data_ptr(),
+        tree.seats.data_ptr(), tree.terminal.data_ptr(), tree.rewards.data_ptr(), B, T, A, S,
+        int(n_per_visit), tree.n.data_ptr(), tree.w.data_ptr(), tree.n_edge.data_ptr(),
+        tree.w_edge.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "backup_dense")
+    backup_dense.launches += 1
+    return tree
+
+
+backup_dense.launches = 0

@@ -1,22 +1,33 @@
 """Batched regularized-policy MCTS with the tree held as dense (B, T, ...)
-tensors. Counterpart of boardlaw_tpu/mcts/search.py, for its production
-multi-leaf path: K leaves per pass, grow passes and the prefix backup.
+tensors. Counterpart of boardlaw_tpu/mcts/search.py, for its two searches:
 
-Each pass runs, over the first R = 1 + (p+1)K node rows of pass p:
-
-* the all-node solve of pi_bar(a) = lambda_N pi(a) / (alpha - q(a)) and K
-  inverse-CDF draws per node, in the `node_actions_multi` kernel;
-* the K*B root->leaf pointer chases, in the `walk` kernel;
-* dedup of walks that halt at one edge, the Hex step and the network eval of
-  the K*B leaf worlds, and the row writes, as index gathers and scatters;
-* the prefix backup (`backup_paths_prefix`).
+* K = 1 (`simulate`, the sequential reference search and the JAX package's
+  default): each sim solves pi_bar(a) = lambda_N pi(a) / (alpha - q(a)) on
+  every live node row and draws one action per node in the `node_actions`
+  kernel, chases root->leaf in the `walk` kernel, expands one leaf and backs
+  up along the recorded path (`backup_path`). `descend_kernel=True` swaps
+  the first two for the `descend` kernel, and `backup_kernel` then picks the
+  torch-ops chase (`backup`) or the `backup` / `backup_dense` kernels.
+* K > 1 with grow passes (`simulate_multi`, the production search for boards
+  of 7 and up): each pass runs, over the first R = 1 + (p+1)K node rows of
+  pass p, the all-node solve and K inverse-CDF draws per node in the
+  `node_actions_multi` kernel, the K*B root->leaf chases in the `walk`
+  kernel, dedup of walks that halt at one edge, the Hex step and the network
+  eval of the K*B leaf worlds, and the prefix backup (`backup_paths_prefix`).
 
 The JAX package routes its row reads and writes through one-hot einsums and
-grows the tree by slicing and padding (`_slice_tree`, `_pad_tree`); both are
-TPU formulations. Here the tree is allocated at its full T once and each
-pass hands the kernels the leading R rows as strided views; rows beyond R
-are still at their `build()` values, exactly what the JAX package pads in.
-The values are the same; the dataflow is not.
+blends, grows the tree by slicing and padding (`_slice_tree`, `_pad_tree`)
+and chases with `lax.while_loop`s; all are TPU formulations. Here the tree is
+allocated at its full T once, the kernels get the leading rows that can be
+live as strided views (rows beyond them are still at their `build()` values,
+exactly what the JAX package pads in), reads and writes are index gathers and
+scatters, and chases are loops bounded by the tree's depth, with masks and no
+host sync. The values are the same; the dataflow is not.
+
+Every sampler follows the log-shift prefix-sum order of the Pallas kernels
+(the JAX `sample_cum='shift'` order), also where the JAX package's XLA K=1
+sampler `_sample` uses `jnp.cumsum`: the two differ only where a uniform lies
+within roundoff of a CDF boundary.
 
 Known-bug policy as in the JAX package: `backup_n='seats'` counts each
 backup visit once per seat, as the reference implementation does.
@@ -35,17 +46,28 @@ from ..draws import Draws
 
 @dataclass(frozen=True)
 class MCTSConfig:
-    """Search configuration of the port.
+    """Search configuration of the port. The defaults are the JAX package's:
+    K=1, the sequential search.
 
     The knobs that describe only TPU dataflow are not carried: the
     `pallas_*` switches and block sizes, `use_pallas`, `write_mode`,
     `gather_mode`, `mesh`/`mesh_axis`, `tree_dtype` and `compact`. The port
-    always runs its two kernels on the card, stores logits in float32 and
-    keeps the compact tree (int8 children, bf16 edge counts), and samples
-    with the log-shift prefix sum (the JAX `sample_cum='shift'` order).
+    runs its kernels on the card, stores logits in float32, keeps the compact
+    tree (int8 children, bf16 edge counts) and samples with the log-shift
+    prefix sum (the JAX `sample_cum='shift'` order).
 
-    Configurations this slice does not carry raise a ValueError naming the
-    slice that brings them.
+    Two fields pick the kernel variants of the K=1 `simulate` and affect
+    nothing else:
+
+    * `descend_kernel`: the `descend` kernel (solve, draw and chase in one)
+      in place of `node_actions` + `walk`; the JAX `use_pallas=True`.
+    * `backup_kernel`, read only with `descend_kernel`: 'ops' backs up in
+      torch ops (`backup`; JAX `pallas_backup='xla'`), 'delta' through the
+      `backup` kernel, 'dense' through the `backup_dense` kernel (JAX
+      `pallas_backup='delta'` and `'dense'`).
+
+    Configurations this port does not carry yet raise a ValueError naming
+    the slice that brings them.
     """
 
     n_nodes: int = 64
@@ -53,31 +75,35 @@ class MCTSConfig:
     noise_eps: float = 0.25
     alpha_scale: float = 10.0
     backup_n: str = "seats"  # 'seats' = reference behaviour, 'visits' = fixed
-    leaves_per_pass: int = 8
-    solve_iters: int = 6
-    solve_accel: bool = True
+    leaves_per_pass: int = 1
+    solve_iters: int = 6  # K>1 solve budget; K=1 always runs 16 Newton steps
+    solve_accel: bool = True  # K>1 only, as solve_iters
     warm_solve: bool = False
-    grow_passes: bool = True
+    grow_passes: bool = False
     backup_mode: str = "prefix"
+    descend_kernel: bool = False
+    backup_kernel: str = "ops"
 
     def __post_init__(self):
-        if self.leaves_per_pass < 2:
-            raise ValueError(
-                "leaves_per_pass=1 (the sequential K=1 search) comes with the next "
-                "slice, which ports the node_actions kernel")
-        if not self.grow_passes:
-            raise ValueError("scan-mode passes (grow_passes=False) come in a later slice")
+        if self.leaves_per_pass < 1:
+            raise ValueError(f"leaves_per_pass must be >= 1, got {self.leaves_per_pass}")
+        if self.leaves_per_pass > 1 and not self.grow_passes:
+            raise ValueError("scan-mode passes (leaves_per_pass > 1 with grow_passes=False) "
+                             "come in a later slice")
         if self.backup_mode != "prefix":
             raise ValueError(f"backup_mode={self.backup_mode!r} (the einsum backup) comes "
-                             "in a later slice; this slice carries 'prefix'")
+                             "in a later slice; this port carries 'prefix'")
         if self.warm_solve:
             raise ValueError("warm_solve comes in a later slice")
         if self.backup_n not in ("seats", "visits"):
             raise ValueError(f"backup_n must be 'seats' or 'visits', got {self.backup_n!r}")
+        if self.backup_kernel not in ("ops", "delta", "dense"):
+            raise ValueError(f"backup_kernel must be 'ops', 'delta' or 'dense', "
+                             f"got {self.backup_kernel!r}")
         if tree_size(self) > 127:
             raise ValueError(
                 f"n_nodes={self.n_nodes} needs {tree_size(self)} node slots; the compact "
-                "tree (int8 children) of this slice holds at most 127")
+                "tree (int8 children) holds at most 127")
 
     @property
     def n_passes(self):
@@ -85,7 +111,7 @@ class MCTSConfig:
 
 
 def tree_size(cfg):
-    """Node slots: K per pass plus the root."""
+    """Node slots: K per pass plus the root (n_nodes at K=1)."""
     return 1 + cfg.leaves_per_pass * (-(-(cfg.n_nodes - 1) // cfg.leaves_per_pass))
 
 
@@ -110,7 +136,7 @@ class Tree:
     w_edge: torch.Tensor  # (B,T,A) f32 child value sums for the parent's seat
     c_puct: torch.Tensor  # (B,) f32
     sim: int  # next free node slot
-    prew: torch.Tensor  # (B,T,S) f32 cumulative rewards root->node inclusive
+    prew: torch.Tensor | None  # (B,T,S) f32 cumulative rewards root->node inclusive (K>1)
 
 
 def _map_world(world, fn):
@@ -148,7 +174,7 @@ def build(world, cfg: MCTSConfig):
         w_edge=zeros(B, T, A),
         c_puct=full((B,), cfg.c_puct, f32),
         sim=0,
-        prew=zeros(B, T, S),
+        prew=zeros(B, T, S) if cfg.leaves_per_pass > 1 else None,
     )
 
 
@@ -210,7 +236,7 @@ def initialize(tree, decisions, draws, cfg: MCTSConfig, valid):
 
 # --------------------------------------------------------------------------
 # The regularized-policy solve and the sampler (plain versions; the
-# node_actions_multi kernel computes both in one pass)
+# node_actions and node_actions_multi kernels compute both in one pass)
 # --------------------------------------------------------------------------
 
 def solve_policy(pi, q, lambda_n, tol=1e-3, n_iters=16, return_alpha=False, accel=False):
@@ -265,14 +291,18 @@ def _edge_q_counts(n_edge, w_edge, q_bounds):
     return q, counts
 
 
+def _rows(x, t):
+    """Per-env node rows x[b, t[b]] of a (B,T,...) tensor; t an int or (B,)."""
+    if isinstance(t, int):
+        return x[:, t]
+    return x[torch.arange(x.shape[0], device=x.device), t.long()]
+
+
 def _node_policy(tree, t, q_bounds):
-    """pi_bar of node row t of every env (the 16-step Newton solve)."""
-    q, counts = _edge_q_counts(tree.n_edge[:, t], tree.w_edge[:, t], q_bounds)
-    pi = torch.exp(tree.logits[:, t].float())
-    A = pi.shape[-1]
-    N = counts.sum(-1)
-    lambda_n = tree.c_puct * N / (N + A)
-    return solve_policy(pi, q, lambda_n)
+    """pi_bar of node row t (an int, or (B,) per-env rows) of every env, by
+    the 16-step Newton solve."""
+    rows = [_rows(x, t)[:, None] for x in (tree.logits, tree.n_edge, tree.w_edge)]
+    return node_probs(*rows, tree.c_puct, q_bounds)[:, 0]
 
 
 def _q_bounds(tree):
@@ -299,34 +329,66 @@ def node_probs(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=16, accel=False
     return (probs, alpha.reshape(B, T)) if return_alpha else probs
 
 
-def _sample_children_multi(children, probs, rands):
-    """K draws per node from solved probs (B,T,A) with rands (K,B,T) ->
-    (actions, child) (K,B,T) int32: the first lane with prob > 0 and
-    cum >= r, else the last positive lane (child 0 when a row has none),
-    with the inclusive prefix sum taken in the log-shift (Hillis-Steele)
-    order of the JAX package's `cum_mode='shift'`."""
-    K = rands.shape[0]
+def _shift_cumsum(probs):
+    """Inclusive prefix sum over the last axis in the log-shift
+    (Hillis-Steele) order of the Pallas kernels and the JAX package's
+    `cum_mode='shift'`."""
     A = probs.shape[-1]
-    lane = torch.arange(A, device=probs.device)
-    pos = probs > 0
-    last_pos = torch.where(pos, lane, -1).max(-1).values
-
     cum = probs
     shift = 1
     while shift < A:
         cum = cum + F.pad(cum, (shift, 0))[..., :A]
         shift *= 2
+    return cum
 
+
+def _draw(probs, cum, rand):
+    """Inverse-CDF draw over the last axis: the first lane with prob > 0 and
+    cum >= rand, else the last positive lane (-1 when a row has none)."""
+    A = probs.shape[-1]
+    lane = torch.arange(A, device=probs.device)
+    pos = probs > 0
+    last_pos = torch.where(pos, lane, -1).max(-1).values
     big = A + 1
+    first = torch.where(pos & (cum >= rand[..., None]), lane, big).min(-1).values
+    return torch.where(first < big, first, last_pos).to(torch.int32)
+
+
+def _sample(probs, rand):
+    """One draw per row: probs (..., A), rand (...) -> (...) int32."""
+    return _draw(probs, _shift_cumsum(probs), rand)
+
+
+def _sample_children_multi(children, probs, rands):
+    """K draws per node from solved probs (B,T,A) with rands (K,B,T) ->
+    (actions, child) (K,B,T) int32, child 0 where a row has no positive
+    lane; the prefix sum is taken once for all K draws."""
+    cum = _shift_cumsum(probs)
     acts, childs = [], []
-    for k in range(K):
-        ok = pos & (cum >= rands[k][..., None])
-        first = torch.where(ok, lane, big).min(-1).values
-        a_k = torch.where(first < big, first, last_pos)
+    for k in range(rands.shape[0]):
+        a_k = _draw(probs, cum, rands[k])
         c_k = torch.gather(children, -1, a_k.clamp_min(0)[..., None].long())[..., 0]
-        acts.append(a_k.to(torch.int32))
+        acts.append(a_k)
         childs.append(torch.where(a_k >= 0, c_k.to(torch.int32), 0))
     return torch.stack(acts), torch.stack(childs)
+
+
+def _sample_children(children, probs, rands):
+    """One draw per node, rands (B,T) -> (actions, child) (B,T) int32."""
+    acts, childs = _sample_children_multi(children, probs, rands[None])
+    return acts[0], childs[0]
+
+
+def node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds):
+    """The K=1 all-node pass: every node row's 16-step Newton solve (the
+    one-sided err < 1e-3 test, no acceleration) and one draw per node with
+    rands (B,T). (B,T,A) tree tensors -> (actions, child) (B,T) int32.
+
+    Each node has its own pre-drawn uniform (reference mcts/cpp/cuda.cu:
+    184-203), so a node's action does not depend on where the walk is and
+    all rows can be solved at once."""
+    probs = node_probs(logits, n_edge, w_edge, c_puct, q_bounds)
+    return _sample_children(children, probs, rands)
 
 
 def _walk(acts, nxt, halt, root_terminal, max_levels=None):
@@ -360,9 +422,174 @@ def _walk(acts, nxt, halt, root_terminal, max_levels=None):
     return parents, actions, halt_child, torch.stack(levels, 1)
 
 
+def _node_actions_any(tree, rands):
+    """acts, nxt (B,R) of the R = tree.sim live node rows, from the
+    `node_actions` kernel (its twin on the CPU); rands (B,T). Rows at and
+    beyond `sim` are unreachable: every child pointer is below it."""
+    R = tree.sim
+    return kernels.node_actions(
+        tree.logits[:, :R], tree.n_edge[:, :R], tree.w_edge[:, :R], tree.children[:, :R],
+        rands[:, :R].contiguous(), tree.c_puct, _q_bounds(tree))
+
+
+def _walk_any(tree, acts, nxt):
+    """The `walk` kernel over the R live rows: node ids strictly increase
+    along a path, so R levels bound every walk."""
+    R = acts.shape[1]
+    return kernels.walk(tree.terminal[:, :R], acts, nxt, max_levels=R)
+
+
+def descend(tree, rands):
+    """Walk each env's tree from the root until the sampled child is
+    unexpanded or terminal -> (parents, actions) (B,) int32: the node to
+    expand from and the action taken. All per-node work is the one
+    `node_actions` pass, the chase is `walk`; equal to `descend_reference`
+    and to the `descend` kernel."""
+    acts, nxt = _node_actions_any(tree, rands)
+    parents, actions, _, _ = _walk_any(tree, acts, nxt)
+    return parents, actions
+
+
+def descend_reference(tree, rands):
+    """Level-serial walk: at each visited node solve its row, draw with
+    rands[b, t] and step to the child, until the child is unexpanded or
+    terminal. The executable spec of `descend` and the plain twin of the
+    `descend` kernel. A loop of tree.sim masked levels (paths only visit
+    live rows), with no host sync."""
+    B, T, A = tree.children.shape
+    qb = _q_bounds(tree)
+    b = torch.arange(B, device=rands.device)
+    t = torch.zeros((B,), dtype=torch.long, device=rands.device)
+    parents = torch.zeros((B,), dtype=torch.int32, device=rands.device)
+    actions = torch.full((B,), -1, dtype=torch.int32, device=rands.device)
+    active = ~tree.terminal[:, 0]
+    for _ in range(min(T, tree.sim)):
+        a = _sample(_node_policy(tree, t, qb), rands[b, t])
+        child = torch.where(a >= 0, tree.children[b, t, a.long().clamp_min(0)].long(), 0)
+        parents = torch.where(active, t.to(torch.int32), parents)
+        actions = torch.where(active, a, actions)
+        active = active & (child >= 0) & ~tree.terminal[b, child.clamp_min(0)]
+        t = torch.where(active, child, t)
+    return parents, actions
+
+
 # --------------------------------------------------------------------------
 # Backup
 # --------------------------------------------------------------------------
+
+def backup(tree, leaves, n_per_visit):
+    """Propagate each env's leaf value to the root in place, zeroing it at
+    terminal nodes and adding each node's rewards on the way (reference
+    mcts/cpp/cuda.cu:205-236), then mirror the node deltas onto the parent
+    edges (`_apply_deltas`). The plain twin of the `backup` and
+    `backup_dense` kernels.
+
+    n_per_visit: what each visit adds to n; n_seats is the reference's
+    per-seat increment, 1 the fix. The chase is a loop of tree.sim masked
+    levels (node ids strictly decrease towards the root and every leaf is
+    below `sim`), not a `while any(active)` with a host sync per level."""
+    B, T, S = tree.w.shape
+    dev = tree.w.device
+    b = torch.arange(B, device=dev)
+    cur = leaves.long()
+    v = tree.v[b, cur]
+    dn = torch.zeros((B, T), dtype=torch.float32, device=dev)
+    dw = torch.zeros((B, T, S), dtype=torch.float32, device=dev)
+    for _ in range(min(T, tree.sim)):
+        active = cur >= 0
+        safe = cur.clamp_min(0)
+        v = torch.where((tree.terminal[b, safe] & active)[:, None], 0.0, v)
+        v = v + torch.where(active[:, None], tree.rewards[b, safe], 0.0)
+        # a path visits each node once, so these row updates do not collide
+        dn[b, safe] += torch.where(active, float(n_per_visit), 0.0)
+        dw[b, safe] += torch.where(active[:, None], v, 0.0)
+        cur = torch.where(active, tree.parents[b, safe].long(), -1)
+    return _apply_deltas(tree, dn, dw)
+
+
+def _apply_deltas(tree, dn, dw):
+    """Fold the node deltas dn (B,T), dw (B,T,S) into the node stats and
+    route them onto the parent edges, in place: an edge's stats are its
+    child's, so n_edge[p(c), rel(c)] += dn[c] and w_edge[p(c), rel(c)] +=
+    dw[c, seat(p(c))]."""
+    B, T, S = tree.w.shape
+    has_edge = tree.parents >= 0
+    safe_p = tree.parents.clamp_min(0).long()
+    safe_r = tree.relation.clamp_min(0).long()
+    seat_p = torch.gather(tree.seats, 1, safe_p).long().clamp(0, S - 1)
+    dw_parent = torch.gather(dw, 2, seat_p[..., None])[..., 0]
+    b = torch.arange(B, device=dn.device)[:, None].expand(B, T)
+    # rows without an edge add 0 at (b, 0, 0): accumulate, not overwrite
+    tree.n_edge.index_put_((b, safe_p, safe_r),
+                           torch.where(has_edge, dn, 0.0).to(tree.n_edge.dtype), accumulate=True)
+    tree.w_edge.index_put_((b, safe_p, safe_r), torch.where(has_edge, dw_parent, 0.0),
+                           accumulate=True)
+    tree.n += torch.round(dn).to(tree.n.dtype)
+    tree.w += dw
+    return tree
+
+
+def _path_deltas(tree, path, acts, leaves, n_per_visit):
+    """The stat deltas of backing up one recorded root->leaf path per env,
+    as per-position entries. path (B,L) the walk's interior nodes (-1 past
+    its depth), acts (B,R) the sampled action of each node row, leaves (B,).
+
+    Returns (nodes (B,L+1) the path with the leaf at position depth(b), -1
+    beyond; dn (B,L+1); dw (B,L+1,S); edge_a (B,L) the action taken at each
+    interior node; edge_w (B,L) the child's value at that node's seat).
+
+    Interior nodes are never terminal (the walk only steps into non-terminal
+    children), so the value backed up at position l is the leaf's value
+    (0 if terminal) plus the rewards of positions >= l: a reverse inclusive
+    cumsum, added leaf-first as `backup` adds them."""
+    B, L = path.shape
+    S = tree.w.shape[-1]
+    dev = path.device
+    b = torch.arange(B, device=dev)
+    depth = (path >= 0).sum(1)
+    nodes = torch.cat([path, torch.full((B, 1), -1, dtype=path.dtype, device=dev)], 1)
+    nodes[b, depth] = leaves.to(nodes.dtype)
+    on = nodes >= 0
+    safe = nodes.clamp_min(0).long()
+    ll = leaves.long()
+    base = torch.where(tree.terminal[b, ll][:, None], 0.0, tree.v[b, ll])
+    x = torch.where(on[..., None], tree.rewards[b[:, None], safe], 0.0)
+    x[b, depth] += base
+    dw = torch.where(on[..., None], x.flip(1).cumsum(1).flip(1), 0.0)
+    dn = on.to(torch.float32) * n_per_visit
+
+    parent = safe[:, :L]
+    edge_on = on[:, 1:]
+    # a new leaf (slot `sim`, past acts' rows) can sit at a parent position;
+    # it has no edge below it, so its clamped lookup is masked off
+    edge_a = torch.gather(acts, 1, parent.clamp_max(acts.shape[1] - 1))
+    seat = tree.seats[b[:, None], parent].long().clamp(0, S - 1)
+    edge_w = torch.gather(dw[:, 1:], 2, seat[..., None])[..., 0]
+    return nodes, dn, dw, torch.where(edge_on, edge_a, 0), torch.where(edge_on, edge_w, 0.0)
+
+
+def _apply_path_deltas(tree, nodes, dn, dw, edge_a, edge_w):
+    """Scatter `_path_deltas`' entries into the tree in place; an edge gets
+    its child's dn. Masked positions add 0 at node 0 / edge (0, 0), so the
+    scatters accumulate."""
+    B, L1 = nodes.shape
+    L = L1 - 1
+    b = torch.arange(B, device=nodes.device)[:, None]
+    safe = nodes.clamp_min(0).long()
+    tree.n.index_put_((b.expand(B, L1), safe), torch.round(dn).to(tree.n.dtype), accumulate=True)
+    tree.w.index_put_((b.expand(B, L1), safe), dw, accumulate=True)
+    idx = (b.expand(B, L), safe[:, :L], edge_a.long())
+    tree.n_edge.index_put_(idx, dn[:, 1:].to(tree.n_edge.dtype), accumulate=True)
+    tree.w_edge.index_put_(idx, edge_w, accumulate=True)
+    return tree
+
+
+def backup_path(tree, path, acts, leaves, n_per_visit):
+    """`backup`, along the path the walk recorded instead of re-chasing
+    parent pointers: the same results, n/n_edge exact and w/w_edge to
+    float32 roundoff (the suffix sums are a cumsum), with no loop."""
+    return _apply_path_deltas(tree, *_path_deltas(tree, path, acts, leaves, n_per_visit))
+
 
 def backup_paths_prefix(tree, paths, acts, leaves, n_per_visit):
     """Back up K recorded paths per env through the cumulative-reward
@@ -418,6 +645,57 @@ def backup_paths_prefix(tree, paths, acts, leaves, n_per_visit):
 # --------------------------------------------------------------------------
 # One pass and the search loop
 # --------------------------------------------------------------------------
+
+def simulate(tree, eval_fn, rands, cfg: MCTSConfig):
+    """One K=1 simulation for every env, in place: descend, expand slot
+    `sim` (or reuse the existing child where the walk halted at an expanded
+    terminal child, rewriting its row as the JAX package does), step the env,
+    evaluate the leaf, back up (reference mcts/__init__.py:108-140).
+    rands (B,T) are the per-node uniforms.
+
+    Routes, as `MCTSConfig` selects them: `node_actions` + `walk` +
+    `backup_path` (the default, the JAX package's chip route); with
+    `descend_kernel`, the `descend` kernel and then `backup` in torch ops or
+    the `backup` / `backup_dense` kernels."""
+    B, T, A = tree.children.shape
+    b = torch.arange(B, device=rands.device)
+    path = acts = None
+    if cfg.descend_kernel:
+        parents, actions = kernels.descend(tree, rands)
+        existing = tree.children[b, parents.long(), actions.long()].to(torch.int32)
+    else:
+        acts, nxt = _node_actions_any(tree, rands)
+        parents, actions, existing, path = _walk_any(tree, acts, nxt)
+    leaves = torch.where(existing == -1, tree.sim, existing)
+
+    pl, al, ll = parents.long(), actions.long(), leaves.long()
+    tree.children[b, pl, al] = leaves.to(tree.children.dtype)
+    old = _map_world(tree.worlds, lambda x: x[b, pl])
+    world, transition = old.step(actions)
+    decisions = eval_fn(world)
+
+    def set_row(full, new):
+        full[b, ll] = new.to(full.dtype)
+
+    set_row(tree.parents, parents)
+    set_row(tree.relation, actions)
+    for f in fields(world):
+        set_row(getattr(tree.worlds, f.name), getattr(world, f.name))
+    set_row(tree.seats, world.seats)
+    set_row(tree.terminal, transition.terminal)
+    set_row(tree.rewards, transition.rewards)
+    set_row(tree.logits, _clamp_logits(decisions["logits"]))
+    set_row(tree.v, decisions["v"])
+    tree.sim += 1
+
+    n_per_visit = tree.w.shape[-1] if cfg.backup_n == "seats" else 1
+    if cfg.descend_kernel and cfg.backup_kernel != "ops":
+        fn = kernels.backup_dense if cfg.backup_kernel == "dense" else kernels.backup
+        return fn(tree, leaves, n_per_visit)
+    if path is not None:
+        return backup_path(tree, path, acts, leaves, n_per_visit)
+    return backup(tree, leaves, n_per_visit)
+
 
 def simulate_multi(tree, eval_fn, rands, cfg: MCTSConfig, rows, max_levels):
     """One K-leaf pass over the first `rows` node rows, in place: K walks per
@@ -494,12 +772,17 @@ def simulate_multi(tree, eval_fn, rands, cfg: MCTSConfig, rows, max_levels):
 
 
 def mcts(world, eval_fn, draws: Draws, cfg: MCTSConfig):
-    """Full search: seed the root, then ceil((n_nodes-1)/K) grow passes, pass
-    p over the first 1 + (p+1)K node rows."""
+    """Full search: seed the root, then n_nodes-1 sequential sims (K=1), or
+    ceil((n_nodes-1)/K) grow passes, pass p over the first 1 + (p+1)K node
+    rows."""
     tree = build(world, cfg)
     tree = initialize(tree, eval_fn(world), draws, cfg, world.valid)
     K = cfg.leaves_per_pass
     B, T = tree.parents.shape
+    if K == 1:
+        for i in range(cfg.n_nodes - 1):
+            simulate(tree, eval_fn, draws.sim_rands(i, (B, T)), cfg)
+        return tree
     for p in range(cfg.n_passes):
         R = min(T, 1 + (p + 1) * K)
         rands = draws.pass_rands(p, (K, B, R))

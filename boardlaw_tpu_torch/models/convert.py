@@ -1,4 +1,5 @@
-"""Carry weights of the JAX package's flax `FCModel` into the port's.
+"""Carry weights, optimizer state and train state of the JAX package into
+the port's.
 
 `from_flax` takes the flax parameter tree as nested dicts of numpy arrays
 (`{'params': {'intake': {'Dense_0': {'kernel', 'bias'}}, 'block_i': {...,
@@ -7,6 +8,13 @@ returns a state dict for `networks.FCModel`. A flax Dense kernel is
 (in, out) and a torch Linear weight is (out, in), so kernels are transposed.
 The intake flattens the channels-last (B,S,S,2) observation in C order on
 both sides, so its kernel rows keep their order.
+
+`adam_from_optax` carries an `optax.adam` state (count, mu, nu) into a
+`torch.optim.Adam` (step, exp_avg, exp_avg_sq); `train_state_from_jax`
+carries a whole JAX `TrainState` (worlds, buffer, ptr, params, optimizer
+state, step) into a port `train.TrainState`. The JAX objects come in as they
+are or with their leaves turned into numpy arrays: only attributes and
+arrays are read, nothing is imported from JAX.
 """
 from __future__ import annotations
 
@@ -34,3 +42,67 @@ def from_flax(params):
     sd.update(_dense(tree["policy"], "policy"))
     sd.update(_dense(tree["value"], "value"))
     return sd
+
+
+def _tensor(x, device=None):
+    """A numpy (or numpy-convertible) array as a tensor; bf16 arrays go
+    through f32, which holds them exactly."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.tensor(x.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(x, device=device)
+
+
+def _adam_state(opt_state):
+    """The `ScaleByAdamState` (the element with `mu`) of an optax state."""
+    if hasattr(opt_state, "mu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_from_optax(opt_state, model, optimizer):
+    """Set `optimizer` (a torch Adam over `model.parameters()`) to the optax
+    adam state: optax `count`/`mu`/`nu` become torch `step`/`exp_avg`/
+    `exp_avg_sq`, with the moments laid out as `from_flax` lays out the
+    weights. Returns the optimizer."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no optax adam state (an element with mu/nu) in opt_state")
+    mu, nu = from_flax(adam.mu), from_flax(adam.nu)
+    step = float(np.asarray(adam.count))
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device).reshape(p.shape),
+            "exp_avg_sq": nu[name].to(p.device).reshape(p.shape),
+        }
+    return optimizer
+
+
+def train_state_from_jax(jstate, cfg, device=None):
+    """A port `train.TrainState` equal to the JAX package's `jstate` for
+    `cfg` (a port `train.TrainConfig`): the next `train_step` of each, fed
+    the same draws, computes the same step."""
+    from .. import train
+    from ..envs import hex
+    from ..utils import resolve_device
+
+    device = resolve_device(device)
+
+    def world(jw):
+        return hex.Hex(board=_tensor(jw.board, device), seats=_tensor(jw.seats, device))
+
+    buffer = {k: _tensor(v, device) for k, v in jstate.buffer.items() if k != "worlds"}
+    buffer["worlds"] = world(jstate.buffer["worlds"])
+    model = train.build_model(cfg, device=device)
+    model.load_state_dict(from_flax(jstate.params))
+    optimizer = adam_from_optax(jstate.opt_state, model,
+                                train.make_optimizer(cfg, model.parameters()))
+    return train.TrainState(worlds=world(jstate.worlds), buffer=buffer,
+                            ptr=int(np.asarray(jstate.ptr)), model=model, optimizer=optimizer,
+                            step=int(np.asarray(jstate.step)))

@@ -1,14 +1,22 @@
-"""The self-play actor step. Counterpart of the actor half of
-boardlaw_tpu/train.py: `actor_record` is one search per env, the improved
-root policy, a categorical draw from it and one `Hex.step`, returning the new
-worlds and the replay record of the pre-step state.
+"""The actor-learner self-play training step. Counterpart of
+boardlaw_tpu/train.py's `make_train`: a circular buffer of the last
+`buffer_len` self-play steps feeds a learner that each step samples one
+timestep per env and takes one Adam step on the policy cross-entropy against
+the search's root targets plus the value MSE against reward-to-go.
 
-The learner step (losses, Adam, the circular buffer, reward-to-go) comes
-with the next slice, and with it the learner's config fields.
+`train_step` is one `actor_record` (a search per env, a draw from the
+improved root policy, one `Hex.step`), the buffer push, reward-to-go over the
+time-ordered buffer, the per-env batch gather and the Adam step. The JAX
+package's state donation becomes in-place updates of the `TrainState`; its
+chunked warmup (a TPU runtime workaround) is a plain loop.
+
+`make_config`/`best_config` carry `run`/`run_best`'s configuration rules;
+the run directory, checkpoints and stats come with the run plumbing.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import copy
+from dataclasses import dataclass, fields
 from functools import partial
 
 import torch
@@ -17,29 +25,46 @@ from . import learning
 from .draws import Draws
 from .envs import hex
 from .mcts import MCTSConfig, mcts as run_mcts, root as mcts_root, n_leaves
+from .mcts.search import _map_world
 from .models.networks import FCModel, make_eval_fn
+from .utils import resolve_device
+
+# Best-known hyperparameters per boardsize (reference main.py:17-25):
+# boardsize -> (width, depth, nodes, c_puct)
+BEST = {
+    3: (2, 4, 64, 1 / 16),
+    4: (8, 2, 64, 1 / 16),
+    5: (16, 4, 64, 1 / 16),
+    6: (128, 1, 64, 1 / 16),
+    7: (128, 4, 64, 1 / 16),
+    8: (256, 4, 64, 1 / 16),
+    9: (512, 4, 64, 1 / 16),
+}
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields that change what the actor step computes. The defaults are
-    the JAX package's production settings for boards of 7 and up: K=8
-    leaves per pass, grow passes, the prefix backup."""
+    """The fields that change what a train step computes. The defaults are
+    the JAX package's (K=1, the sequential search); `make_config` applies
+    `run`'s switch to K=8 grow passes for boards of 7 and up."""
 
     boardsize: int
     width: int
     depth: int
     n_envs: int = 32 * 1024
+    buffer_len: int = 64
     n_nodes: int = 64
     c_puct: float = 1 / 16
     noise_eps: float = 0.25
+    lr: float = 1e-3
     mix_steps: int = 2500
+    seed: int = 0  # the initial weights
     # replay logits/prior storage; losses upcast to f32
     buffer_dtype: str = "bfloat16"
-    leaves_per_pass: int = 8
+    leaves_per_pass: int = 1
     solve_iters: int = 6
     solve_accel: bool = True
-    grow_passes: bool = True
+    grow_passes: bool = False
     backup_mode: str = "prefix"
 
     def mcts_config(self):
@@ -55,10 +80,33 @@ class TrainConfig:
         )
 
 
+def make_config(boardsize, width, depth, nodes=64, c_puct=1 / 16, lr=1e-3, n_envs=32 * 1024,
+                **overrides):
+    """The config `run` trains with: boards of 7 and up default to the
+    batched K=8 search with grow passes (boardlaw_tpu/train.py:451-465)."""
+    if boardsize >= 7:
+        overrides.setdefault("leaves_per_pass", 8)
+        if overrides["leaves_per_pass"] > 1:
+            overrides.setdefault("grow_passes", True)
+    return TrainConfig(boardsize=boardsize, width=width, depth=depth, n_envs=n_envs,
+                       n_nodes=nodes, c_puct=c_puct, lr=lr, **overrides)
+
+
+def best_config(boardsize, **overrides):
+    """`make_config` with the best-known hyperparameters of `BEST`."""
+    width, depth, nodes, c_puct = BEST[boardsize]
+    return make_config(boardsize, width, depth, nodes=nodes, c_puct=c_puct, **overrides)
+
+
 def build_model(cfg: TrainConfig, device=None, generator=None):
     world = hex.Hex.initial(1, cfg.boardsize, device="cpu")
     return FCModel(world.obs_space, world.action_space, width=cfg.width, depth=cfg.depth,
                    device=device, generator=generator)
+
+
+def make_optimizer(cfg: TrainConfig, params):
+    """`optax.adam(cfg.lr)`'s settings."""
+    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 def init_worlds(cfg: TrainConfig, draws: Draws):
@@ -94,3 +142,192 @@ def make_actor(cfg: TrainConfig, model):
     """`actor_record` closed over a config and a model:
     ``actor(worlds, draws) -> (new_worlds, record)``."""
     return partial(actor_record, cfg, model)
+
+
+# --------------------------------------------------------------------------
+# The learner
+# --------------------------------------------------------------------------
+
+@dataclass
+class TrainState:
+    worlds: object
+    buffer: dict  # tensors (buffer_len, n_envs, ...), circular over axis 0
+    ptr: int  # next write slot of the circular buffer
+    model: FCModel
+    optimizer: torch.optim.Adam
+    step: int  # learner steps taken
+
+
+def _masked_corr(x, y, m):
+    m = m.to(torch.float32)
+    n = m.sum() + 1e-6
+    mx = (x * m).sum() / n
+    my = (y * m).sum() / n
+    cov = ((x - mx) * (y - my) * m).sum() / n
+    vx = (torch.square(x - mx) * m).sum() / n
+    vy = (torch.square(y - my) * m).sum() / n
+    return cov / torch.sqrt(vx * vy + 1e-12)
+
+
+def empty_buffer(cfg: TrainConfig, worlds):
+    """The zeroed circular buffer: `cfg.buffer_len` slots of an
+    `actor_record` record, shaped and typed from the worlds and config."""
+    T, B = cfg.buffer_len, worlds.n_envs
+    A, S = worlds.action_space.dim, worlds.n_seats
+    dev = worlds.device
+    bdt = getattr(torch, cfg.buffer_dtype)
+
+    def zeros(shape, dtype):
+        return torch.zeros((T,) + tuple(shape), dtype=dtype, device=dev)
+
+    return {
+        "worlds": _map_world(worlds, lambda x: zeros(x.shape, x.dtype)),
+        "logits": zeros((B, A), bdt),
+        "prior": zeros((B, A), bdt),
+        "v": zeros((B, S), torch.float32),
+        "n_leaves": zeros((B,), torch.int32),
+        "terminal": zeros((B,), torch.bool),
+        "rewards": zeros((B, S), torch.float32),
+    }
+
+
+def push(buffer, ptr, record):
+    """Write one record into slot `ptr` of the buffer, in place."""
+    for f in fields(record["worlds"]):
+        getattr(buffer["worlds"], f.name)[ptr] = getattr(record["worlds"], f.name)
+    for k, buf in buffer.items():
+        if k != "worlds":
+            buf[ptr] = record[k]
+
+
+def ordered(tree, ptr):
+    """Time-ordered copies, oldest to newest (slot ptr is the oldest), of a
+    dict of buffer tensors. Only applied to the small leaves."""
+    T = next(iter(tree.values())).shape[0]
+    idx = (ptr + torch.arange(T)) % T
+    return {k: x.index_select(0, idx.to(x.device)) for k, x in tree.items()}
+
+
+def init(cfg: TrainConfig, model, draws: Draws):
+    """A fresh train state: `init_worlds` from `draws`, a copy of `model`'s
+    weights, its Adam optimizer and an empty buffer."""
+    model = copy.deepcopy(model)
+    worlds = init_worlds(cfg, draws)
+    return TrainState(worlds=worlds, buffer=empty_buffer(cfg, worlds), ptr=0, model=model,
+                      optimizer=make_optimizer(cfg, model.parameters()), step=0)
+
+
+def warmup(cfg: TrainConfig, state: TrainState, draws: Draws):
+    """Fill the buffer with `buffer_len` actor steps, no learning (reference
+    main.py:174), in place."""
+    for _ in range(cfg.buffer_len):
+        state.worlds, record = actor_record(cfg, state.model, state.worlds, draws)
+        push(state.buffer, state.ptr, record)
+        state.ptr = (state.ptr + 1) % cfg.buffer_len
+    return state
+
+
+def losses(model, batch):
+    """(loss, aux): policy cross-entropy against the stored root policy plus
+    the value MSE against reward-to-go, and the learner telemetry. The -inf
+    logits of invalid actions are masked to 0; bf16 targets are upcast."""
+    worlds = batch["worlds"]
+    d = model(worlds.obs, worlds.valid, worlds.seats)
+
+    zeros = torch.zeros_like(d["logits"])
+    l = torch.where(d["logits"] > -torch.inf, d["logits"], zeros)
+    targets = batch["logits"].float()
+    l0 = torch.where(targets > -torch.inf, targets, zeros)
+
+    policy_loss = -(torch.exp(l0) * l).sum(-1).mean()
+    target_v = batch["reward_to_go"]
+    value_loss = torch.square(target_v - d["v"]).mean()
+    loss = policy_loss + value_loss
+
+    prior = batch["prior"].float()
+    p0 = torch.where(prior > -torch.inf, prior, zeros)
+    ld, vd = l.detach(), d["v"].detach()
+    aux = {
+        "loss.policy": policy_loss.detach(),
+        "loss.value": value_loss.detach(),
+        "resid-var.num": torch.square(target_v - vd).mean(),
+        "resid-var.den": torch.square(target_v).mean(),
+        "kl-div.behaviour": ((p0 - l0) * torch.exp(p0)).sum(-1).mean(),
+        "kl-div.prior": ((p0 - ld) * torch.exp(p0)).sum(-1).mean(),
+        "rel-entropy.policy": learning.rel_entropy(d["logits"].detach())[0],
+        "rel-entropy.targets": learning.rel_entropy(targets)[0],
+        "v.target.mean": target_v.mean(),
+        "v.target.std": target_v.std(correction=0),
+        "v.outputs.mean": vd.mean(),
+        "v.outputs.std": vd.std(correction=0),
+        "policy-conc": torch.exp(l0).max(-1).values.mean(),
+    }
+    return loss, aux
+
+
+def train_step(cfg: TrainConfig, state: TrainState, draws: Draws):
+    """One actor step and one learner step (reference main.py:171-198), in
+    place. Returns (state, aux), aux a dict of 0-dim tensors on the state's
+    device; nothing here waits for the device."""
+    B, T = cfg.n_envs, cfg.buffer_len
+    worlds, record = actor_record(cfg, state.model, state.worlds, draws)
+    push(state.buffer, state.ptr, record)
+    ptr = (state.ptr + 1) % T
+
+    # value targets need only the small time-ordered leaves; the large ones
+    # are gathered per sampled slot below
+    osmall = ordered({k: state.buffer[k] for k in ("rewards", "v", "terminal")}, ptr)
+    terminal = osmall["terminal"][..., None].expand(osmall["rewards"].shape)
+    rtg = learning.reward_to_go(osmall["rewards"], osmall["v"], terminal)
+
+    # one timestep per env (reference main.py:169), read from its raw slot
+    t_idx = draws.slots(B, T).long()
+    envs = torch.arange(B, device=t_idx.device)
+    slot = (ptr + t_idx) % T
+    batch = {k: x[slot, envs] for k, x in state.buffer.items() if k != "worlds"}
+    batch["worlds"] = _map_world(state.buffer["worlds"], lambda x: x[slot, envs])
+    batch["reward_to_go"] = rtg[t_idx, envs]
+
+    params = list(state.model.parameters())
+    before = [p.detach().clone() for p in params]
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, aux = losses(state.model, batch)
+    loss.backward()
+    gflat = torch.cat([p.grad.reshape(-1) for p in params])
+    state.optimizer.step()
+    uflat = torch.cat([(p.detach() - b).reshape(-1) for p, b in zip(params, before)])
+
+    # chunk telemetry (reference main.py:28-59)
+    tb = osmall["terminal"][..., None]
+    aux.update({
+        "loss.total": loss.detach(),
+        "grad.norm": torch.sqrt(torch.square(gflat).sum()),
+        "grad.max": gflat.abs().max(),
+        "step.std": torch.sqrt(torch.square(uflat).mean()),
+        "step.max": uflat.abs().max(),
+        "n-trajs": record["terminal"].sum(),
+        "wins.seat-0": (record["rewards"][:, 0] == 1).sum(),
+        "wins.seat-1": (record["rewards"][:, 1] == 1).sum(),
+        "mcts-n-leaves": record["n_leaves"].float().mean(),
+        "corr.terminal": _masked_corr(osmall["v"], osmall["rewards"], tb),
+        "corr.penultimate": _masked_corr(osmall["v"][:-1], osmall["rewards"][1:], tb[1:]),
+        "noise-scale": learning.noise_scale(B, state.optimizer),
+    })
+    state.worlds = worlds
+    state.ptr = ptr
+    state.step += 1
+    return state, aux
+
+
+def make_train(cfg: TrainConfig, device=None):
+    """The learner's parts for a config, as the JAX package's `make_train`
+    returns them: ``(model, opt, init, warmup, train_step)``.
+
+    `model` holds the initial weights, made on the CPU from `cfg.seed` and
+    moved to `device`; `opt(params)` builds the Adam optimizer;
+    ``init(draws) -> state``, ``warmup(state, draws) -> state`` and
+    ``train_step(state, draws) -> (state, aux)`` update the state in place."""
+    device = resolve_device(device)
+    model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
+    return (model, partial(make_optimizer, cfg), partial(init, cfg, model),
+            partial(warmup, cfg), partial(train_step, cfg))

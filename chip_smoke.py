@@ -1,42 +1,67 @@
 """Smoke run of the PyTorch/CUDA port (boardlaw_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--envs 32768] [--steps 3] [--seed 0]
+    python3 chip_smoke.py [--envs 32768] [--steps 3] [--k1-learner-envs 32768] [--seed 0]
 
-Phases, each a hard failure with a non-zero exit:
+Phases, each a hard failure with a non-zero exit, each printing its seconds:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-  2. build the two CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch twin on the card, at the shapes
-     of the main path's last pass, on a real mid-search 9x9 tree: `walk` bit-exact,
+  2. build the six CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a);
+  3. the K=8 kernels against their plain PyTorch twins at the shapes of the
+     9x9 main path's last pass, on a real mid-search tree: `walk` bit-exact,
      `node_actions_multi` draw for draw up to roundoff at CDF boundaries and
-     its solved alpha to rtol 1e-5; median times of kernel and twin; a small
-     search on the card held against the same search on the CPU (twins);
-  4. the main path: `init_worlds` (mix), a random 512x4 FCModel, then
-     `--steps` calls of `train.actor_record` at 9x9, 64 nodes, K=8 grow
-     passes, prefix backup; both kernels' launch counts must rise by 8 per
-     step, every root must hold 2*K*n_passes = 128 visits, the outputs must be
-     finite and the root logits -inf exactly at invalid actions;
-  5. a JSON line of kernel numbers, the card line, and the last line
+     its alpha to rtol 1e-5; a small 9x9 search on the card against the same
+     search on the CPU (twins);
+  4. the K=1 kernels at the 6x6 path's shapes (`best_config(6)`, 32,768
+     envs, T=64, A=36) on a real tree after 30 sims: `node_actions` draw for
+     draw up to CDF boundaries, `descend` equal to `node_actions` + `walk`,
+     `backup` and `backup_dense` against `search.backup` (n, n_edge exact,
+     w, w_edge to atol 1e-5); a small 6x6 search on the card against the CPU;
+  5. the paths, each driven with every launch count set to 0 just before and
+     read just after, failing unless each of its kernels ran the expected
+     number of times:
+     a. 9x9 actor steps (`make_config(9, 512, 4)`: K=8 grow passes), 8
+        launches of `walk` and `node_actions_multi` per step, 128 root visits;
+     b. 2 K=1 actor steps at 6x6, 63 launches of `node_actions` and `walk`
+        per step, 126 root visits;
+     c. one K=1 search per kernel variant (`descend_kernel` with
+        `backup_kernel` 'ops', 'delta', 'dense') from the same worlds and
+        draws, 63 launches of each of its kernels, trees held against the
+        default route's (equal on all but 0.1% of envs, w to atol 1e-4);
+     d. the 9x9 learner: `make_train`, `init`, a full warmup (64 actor steps)
+        and `--steps` train steps, all aux finite, parameters moved;
+     e. one 6x6 K=1 train step after its warmup, at `--k1-learner-envs`;
+     f. a tiny train step on the card against the same step on the CPU:
+        losses to rtol 1e-4;
+  6. a JSON line of kernel numbers, and the last line
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+DEV = "cuda"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor-core f32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# float operations per (node row, action lane) of node_actions_multi: q (4),
-# exp, count, lambda*pi, the initial bound (3), 8 per solver step, probs (2),
-# 7 prefix-sum adds and 2 compares per draw
+# bytes the backups need per visited level: parent 4, terminal 1, rewards 8,
+# relation 4, the parent's seat 4, and read+write of n 8, w 16, n_edge 4,
+# w_edge 8
+BACKUP_BYTES_PER_LEVEL = 57
+
+
 def _solve_ops_per_lane(n_iters, K):
+    """float operations per (node row, action lane) of the row solve: q (4),
+    exp, count, lambda*pi, the initial bound (3), 8 per solver step, probs
+    (2), 7 prefix-sum adds and 2 compares per draw."""
     return 10 + 8 * n_iters + 2 + 7 + 2 * K
 
 
@@ -48,12 +73,18 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
 def time_ms(fn, reps):
     """Median CUDA-event time of one call, after one warm-up call."""
     import torch
 
     fn()
-    torch.cuda.synchronize()
+    sync()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -70,26 +101,65 @@ def fail(msg):
     raise SystemExit(f"FAILED: {msg}")
 
 
-def shift_cumsum(probs):
-    """The twin's log-shift inclusive prefix sum over the last axis."""
-    import torch.nn.functional as F
+class Phase:
+    """Prints a phase's wall seconds when it ends."""
 
-    A = probs.shape[-1]
-    cum, shift = probs, 1
-    while shift < A:
-        cum = cum + F.pad(cum, (shift, 0))[..., :A]
-        shift *= 2
-    return cum
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.time()
+        print(f"== {self.name}", flush=True)
+
+    def __exit__(self, *exc):
+        print(f"== {self.name}: {time.time() - self.t0:.2f} s", flush=True)
 
 
-def mid_search_tree(cfg, model, draws, n_envs, passes):
-    """A real 9x9 tree after `passes` grow passes of the port's search."""
+def reset_counts():
+    from boardlaw_tpu_torch.mcts import kernels
+
+    for name in KERNELS:
+        getattr(kernels, name).launches = 0
+
+
+def read_counts():
+    from boardlaw_tpu_torch.mcts import kernels
+
+    return {name: getattr(kernels, name).launches for name in KERNELS}
+
+
+def run_path(name, expected, fn):
+    """Drive one path with every count at 0 before; fail unless each kernel
+    launched exactly `expected[name]` times (0 for kernels not listed)."""
+    reset_counts()
+    sync()
+    out = fn()
+    sync()
+    counts = read_counts()
+    want = {k: expected.get(k, 0) for k in KERNELS}
+    print(f"launches on {name}: {counts} (expected {want})", flush=True)
+    if counts != want:
+        fail(f"{name}: kernel launches {counts}, expected {want}")
+    return counts, out
+
+
+def mix_worlds(boardsize, n_envs, draws, steps):
     from boardlaw_tpu_torch import learning
     from boardlaw_tpu_torch.envs import hex
+
+    return learning.mix(hex.Hex.initial(n_envs, boardsize, device=DEV), draws, steps)
+
+
+# --------------------------------------------------------------------------
+# K=8 kernels
+# --------------------------------------------------------------------------
+
+def mid_search_tree(cfg, model, draws, n_envs, passes):
+    """A real tree after `passes` grow passes of the port's K=8 search."""
     from boardlaw_tpu_torch.mcts import search
     from boardlaw_tpu_torch.models.networks import make_eval_fn
 
-    worlds = learning.mix(hex.Hex.initial(n_envs, cfg.boardsize, device="cuda"), draws, 40)
+    worlds = mix_worlds(cfg.boardsize, n_envs, draws, 40)
     mcfg = cfg.mcts_config()
     eval_fn = make_eval_fn(model)
     tree = search.build(worlds, mcfg)
@@ -103,7 +173,30 @@ def mid_search_tree(cfg, model, draws, n_envs, passes):
     return tree
 
 
-def check_node_actions(tree, cfg, draws, report):
+def boundary_counts(tree, q_bounds, mism, rands_at, ka, ra, alphas):
+    """For each mismatched draw (indices `mism` into (B,[K,]T)): how many lie
+    within 1e-5 of the CDF at the boundary lane min(ka, ra) for the first
+    alpha, and how many between the CDFs of all given alphas (+-1e-5) there."""
+    import torch
+    from boardlaw_tpu_torch.mcts import search
+
+    b, t = mism[0], mism[-1]
+    A = tree.logits.shape[-1]
+    q, counts = search._edge_q_counts(tree.n_edge[b, t], tree.w_edge[b, t], q_bounds)
+    N = counts.sum(-1)
+    lampi = (tree.c_puct[b] * N / (N + A))[:, None] * torch.exp(tree.logits[b, t])
+    lane = torch.minimum(ka, ra).long().clamp_min(0)[:, None]
+    r = rands_at[:, None]
+    cums = [search._shift_cumsum(lampi / (alpha[b, t][:, None] - q)).gather(1, lane)
+            for alpha in alphas]
+    lo = torch.stack(cums).amin(0)
+    hi = torch.stack(cums).amax(0)
+    within_1e5 = int(((cums[0] - r).abs() <= 1e-5).sum())
+    within_cdfs = int(((r >= lo - 1e-5) & (r <= hi + 1e-5)).sum())
+    return within_1e5, within_cdfs
+
+
+def check_node_actions_multi(tree, cfg, draws, report):
     import torch
     from boardlaw_tpu_torch.mcts import kernels, search
 
@@ -116,7 +209,7 @@ def check_node_actions(tree, cfg, draws, report):
     kw = dict(n_iters=mcfg.solve_iters, accel=mcfg.solve_accel)
     ka, kc, kalpha = kernels.node_actions_multi(*args, return_alpha=True, **kw)
     ra, rc, ralpha = kernels.node_actions_multi_ref(*args, return_alpha=True, **kw)
-    torch.cuda.synchronize()
+    sync()
 
     rel = ((kalpha - ralpha).abs() / ralpha.abs()).flatten()
     alpha_ok = float((rel <= 1e-5).float().mean())
@@ -124,24 +217,11 @@ def check_node_actions(tree, cfg, draws, report):
     n_mism = int(mism.sum())
     frac_equal = 1.0 - n_mism / ka.numel()
     child_ok = bool(((kc == rc) | mism).all())
-    # each mismatched draw: where does its rand sit against the twin's CDF,
-    # and against the CDF of the kernel's own alpha?
     within_1e5 = within_cdfs = 0
     if n_mism:
-        # both CDFs of the mismatched rows, from the twin's and the kernel's alpha
         b, k, t = mism.nonzero(as_tuple=True)
-        q, counts = search._edge_q_counts(tree.n_edge[b, t], tree.w_edge[b, t], args[-1])
-        N = counts.sum(-1)
-        lampi = (tree.c_puct[b] * N / (N + A))[:, None] * torch.exp(tree.logits[b, t])
-        cum_r = shift_cumsum(lampi / (ralpha[b, t][:, None] - q))
-        cum_k = shift_cumsum(lampi / (kalpha[b, t][:, None] - q))
-        r = rands[b, k, t][:, None]
-        lane = torch.minimum(ka[b, k, t], ra[b, k, t]).long().clamp_min(0)[:, None]
-        c_r = cum_r.gather(1, lane)
-        c_k = cum_k.gather(1, lane)
-        within_1e5 = int(((c_r - r).abs() <= 1e-5).sum())
-        within_cdfs = int(((r >= torch.minimum(c_r, c_k) - 1e-5)
-                           & (r <= torch.maximum(c_r, c_k) + 1e-5)).sum())
+        within_1e5, within_cdfs = boundary_counts(tree, args[-1], (b, t), rands[b, k, t],
+                                                  ka[b, k, t], ra[b, k, t], (ralpha, kalpha))
     print(f"node_actions_multi vs twin at (B,K,T,A)=({B},{K},{T},{A}): draws equal "
           f"{frac_equal:.8f} ({n_mism} differ; {within_1e5} within 1e-5 of the twin's CDF at "
           f"the boundary lane, {within_cdfs} between the twin's and the kernel's CDF there), "
@@ -179,7 +259,7 @@ def check_walk(tree, acts_bkt, nxt_bkt, max_levels, report):
     nxt = nxt_bkt.permute(1, 0, 2).reshape(K * B, T)
     out = kernels.walk(tree.terminal, acts, nxt, max_levels)
     ref = kernels.walk_ref(tree.terminal, acts, nxt, max_levels)
-    torch.cuda.synchronize()
+    sync()
     for name, o, r in zip(("parents", "actions", "halt_child", "path"), out, ref):
         if not torch.equal(o, r):
             fail(f"walk {name} differs from the twin ({int((o != r).sum())} entries)")
@@ -198,52 +278,361 @@ def check_walk(tree, acts_bkt, nxt_bkt, max_levels, report):
           f"sectors {sectors / 1e6:.2f} MB -> {sectors / HBM_BYTES_PER_S * 1e3:.5f} ms", flush=True)
 
 
-def check_search_cpu_vs_gpu(cfg, model):
-    """A small 9x9 search on the card (kernels) against the same search on
-    the CPU (twins), with the same weights and draws."""
-    import copy
-    import torch
+def cpu_draws(seed, device):
+    """A `Draws` that draws on the CPU, so that both sides of a card-vs-CPU
+    check see the same numbers, and hands them over on `device`."""
+    from boardlaw_tpu_torch.draws import Draws
+
+    class CpuDraws(Draws):
+        def uniform(self, shape, minval=0.0):
+            return super().uniform(shape, minval).to(device)
+
+        def normal(self, shape):
+            return super().normal(shape).to(device)
+
+        def slots(self, B, T):
+            return super().slots(B, T).to(device)
+
+    return CpuDraws(seed, "cpu")
+
+
+def check_search_cpu_vs_gpu(cfg, model, n_envs=64):
+    """A small search on the card (kernels) against the same search on the
+    CPU (twins), with the same weights and draws."""
     from boardlaw_tpu_torch import learning
     from boardlaw_tpu_torch.draws import Draws
     from boardlaw_tpu_torch.envs import hex
     from boardlaw_tpu_torch.mcts import search
     from boardlaw_tpu_torch.models.networks import make_eval_fn
 
-    class ToCuda(Draws):
-        def __init__(self, seed):
-            super().__init__(seed, "cpu")
-
-        def uniform(self, shape, minval=0.0):
-            return super().uniform(shape, minval).cuda()
-
-        def normal(self, shape):
-            return super().normal(shape).cuda()
-
-    B = 64
+    B = n_envs
     worlds = learning.mix(hex.Hex.initial(B, cfg.boardsize, device="cpu"), Draws(5, "cpu"), 30)
     mcfg = cfg.mcts_config()
     cpu_model = copy.deepcopy(model).cpu()
-    t_cpu = search.mcts(worlds, make_eval_fn(cpu_model), Draws(9, "cpu"), mcfg)
-    gworlds = hex.Hex(board=worlds.board.cuda(), seats=worlds.seats.cuda())
-    t_gpu = search.mcts(gworlds, make_eval_fn(model), ToCuda(9), mcfg)
+    t_cpu = search.mcts(worlds, make_eval_fn(cpu_model), cpu_draws(9, "cpu"), mcfg)
+    gworlds = hex.Hex(board=worlds.board.to(DEV), seats=worlds.seats.to(DEV))
+    t_gpu = search.mcts(gworlds, make_eval_fn(model), cpu_draws(9, DEV), mcfg)
     same = ((t_cpu.children == t_gpu.children.cpu()).flatten(1).all(1)
             & (t_cpu.n == t_gpu.n.cpu()).all(1)
             & (t_cpu.n_edge == t_gpu.n_edge.cpu()).flatten(1).all(1))
     n_same = int(same.sum())
     w_err = float((t_cpu.w - t_gpu.w.cpu())[same].abs().max())
-    print(f"search on the card vs on the CPU (9x9, {B} envs, 512x{cfg.depth}): {n_same}/{B} "
-          f"trees identical in children/n/n_edge, max |w| difference on those {w_err:.3g}",
-          flush=True)
+    print(f"search on the card vs on the CPU ({cfg.boardsize}x{cfg.boardsize}, {B} envs, "
+          f"{cfg.width}x{cfg.depth}, K={mcfg.leaves_per_pass}): {n_same}/{B} trees identical "
+          f"in children/n/n_edge, max |w| difference on those {w_err:.3g}", flush=True)
     if n_same < B - 4 or w_err > 1e-4:
         fail("the search on the card disagrees with the search on the CPU")
+
+
+# --------------------------------------------------------------------------
+# K=1 kernels
+# --------------------------------------------------------------------------
+
+def k1_mid_search_tree(cfg, model, draws, sims):
+    """A real K=1 tree after `sims` sims of the default route."""
+    from boardlaw_tpu_torch.mcts import search
+    from boardlaw_tpu_torch.models.networks import make_eval_fn
+
+    worlds = mix_worlds(cfg.boardsize, cfg.n_envs, draws, 40)
+    mcfg = cfg.mcts_config()
+    eval_fn = make_eval_fn(model)
+    tree = search.build(worlds, mcfg)
+    search.initialize(tree, eval_fn(worlds), draws, mcfg, worlds.valid)
+    B, T = tree.parents.shape
+    for i in range(sims):
+        search.simulate(tree, eval_fn, draws.sim_rands(i, (B, T)), mcfg)
+    return tree
+
+
+def check_node_actions(tree, rands, report):
+    import torch
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    B, T, A = tree.logits.shape
+    qb = search._q_bounds(tree)
+    args = (tree.logits, tree.n_edge, tree.w_edge, tree.children, rands, tree.c_puct, qb)
+    ka, kc = kernels.node_actions(*args)
+    ra, rc = search.node_actions(*args)
+    sync()
+    mism = ka != ra
+    n_mism = int(mism.sum())
+    frac_equal = 1.0 - n_mism / ka.numel()
+    within_1e5 = within_cdfs = 0
+    if n_mism:
+        b, t = mism.nonzero(as_tuple=True)
+        _, ralpha = search.node_probs(tree.logits, tree.n_edge, tree.w_edge, tree.c_puct, qb,
+                                      return_alpha=True)
+        within_1e5, within_cdfs = boundary_counts(tree, qb, (b, t), rands[b, t], ka[b, t],
+                                                  ra[b, t], (ralpha,))
+    print(f"node_actions vs twin at (B,T,A)=({B},{T},{A}): draws equal {frac_equal:.8f} "
+          f"({n_mism} differ, {within_1e5} of them within 1e-5 of the twin's CDF at the "
+          f"boundary lane)", flush=True)
+    if not bool(((kc == rc) | mism).all()):
+        fail("node_actions child pointers differ where the actions agree")
+    if frac_equal < 0.9999:
+        fail("node_actions: fewer than 99.99% of draws equal the twin's")
+    if within_1e5 != n_mism:
+        fail("node_actions: a mismatched draw is not explained by a CDF boundary")
+    k_ms = time_ms(lambda: kernels.node_actions(*args), 20)
+    r_ms = time_ms(lambda: search.node_actions(*args), 5)
+    nbytes = B * T * A * (4 + 2 + 4 + 1) + B * T * 4 + B * 4 + 8 + 2 * B * T * 4
+    ops = B * T * A * _solve_ops_per_lane(16, 1)
+    report["node_actions"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=0.0, bytes=nbytes, ops=ops,
+                                  draws_equal=frac_equal)
+    print(f"node_actions: kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms (median); "
+          f"{nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+          f"{ops / 1e9:.2f} GFLOP -> f32 bound {ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
+    return ka, kc
+
+
+def check_descend(tree, rands, acts, nxt, report):
+    import torch
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    B, T, A = tree.logits.shape
+    kp, ka = kernels.descend(tree, rands)
+    wp, wa, halt, path = kernels.walk(tree.terminal, acts, nxt, T)
+    rp, ra = search.descend_reference(tree, rands)
+    sync()
+    if not (torch.equal(kp, wp) and torch.equal(ka, wa)):
+        fail(f"descend differs from node_actions + walk on "
+             f"{int(((kp != wp) | (ka != wa)).sum())} envs")
+    twin_equal = float(((kp == rp) & (ka == ra)).float().mean())
+    levels = int((path >= 0).sum())
+    print(f"descend at (B,T,A)=({B},{T},{A}): parents and actions equal to node_actions + walk "
+          f"on every env; equal to the twin on {twin_equal:.8f} of envs; {levels} levels "
+          f"visited, deepest {int((path >= 0).sum(1).max())}", flush=True)
+    if twin_equal < 0.9999:
+        fail("descend: fewer than 99.99% of walks equal the twin's")
+    k_ms = time_ms(lambda: kernels.descend(tree, rands), 20)
+    r_ms = time_ms(lambda: search.descend_reference(tree, rands), 3)
+    # each visited level reads its row (11 bytes a lane), its rand and the
+    # child's terminal flag; per env the root flag, c_puct, two outputs
+    nbytes = levels * (A * 11 + 4 + 1) + B * (1 + 4 + 8) + 8
+    ops = levels * A * _solve_ops_per_lane(16, 1)
+    report["descend"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=0.0, bytes=nbytes, ops=ops)
+    print(f"descend: kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms (median); {nbytes / 1e6:.2f} MB "
+          f"-> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, {ops / 1e9:.3f} GFLOP -> "
+          f"f32 bound {ops / F32_FLOPS * 1e3:.5f} ms", flush=True)
+    return torch.where(halt == -1, wp, halt)
+
+
+def tree_copy(tree):
+    from boardlaw_tpu_torch.mcts import search
+
+    return search.Tree(**{k: (v.clone() if hasattr(v, "clone") else v)
+                          for k, v in tree.__dict__.items()})
+
+
+def check_backups(tree, leaves, report):
+    """Both backup kernels against `search.backup` from `leaves` (B,) int32
+    (existing nodes, so every chase is a real path)."""
+    import torch
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    B, T, S = tree.w.shape
+    npv = S
+    ref = search.backup(tree_copy(tree), leaves, npv)
+    levels = int((ref.n - tree.n).sum()) // npv
+    nbytes = levels * BACKUP_BYTES_PER_LEVEL + B * (4 + 4 * S)
+    for name in ("backup", "backup_dense"):
+        wrapper = getattr(kernels, name)
+        out = wrapper(tree_copy(tree), leaves, npv)
+        sync()
+        if not (torch.equal(out.n, ref.n) and torch.equal(out.n_edge, ref.n_edge)):
+            fail(f"{name}: n or n_edge differ from the twin")
+        err = max(float((out.w - ref.w).abs().max()), float((out.w_edge - ref.w_edge).abs().max()))
+        if err > 1e-5:
+            fail(f"{name}: w/w_edge differ from the twin by {err:.3g}")
+        scratch = tree_copy(tree)
+        k_ms = time_ms(lambda: wrapper(scratch, leaves, npv), 20)
+        r_ms = time_ms(lambda: search.backup(scratch, leaves, npv), 3)
+        report[name] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes, ops=0)
+        print(f"{name} at (B,T,S)=({B},{T},{S}), {levels} levels: n/n_edge equal to the twin, "
+              f"max |w|,|w_edge| difference {err:.3g}; kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms "
+              f"(median); {nbytes / 1e6:.2f} MB -> bytes bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms", flush=True)
+
+
+# --------------------------------------------------------------------------
+# Paths
+# --------------------------------------------------------------------------
+
+def check_record(record, worlds, tree, root_visits, n_nodes):
+    import torch
+
+    if not (tree.n[:, 0] == root_visits).all():
+        fail(f"root visits {tree.n[:, 0].unique().tolist()}, expected {root_visits}")
+    if int(record["n_leaves"].max()) > n_nodes:
+        fail("more leaves than nodes")
+    logits = record["logits"].float()
+    valid = worlds.valid
+    if not torch.equal(torch.isneginf(logits), ~valid):
+        fail("root logits are not -inf exactly at the invalid actions")
+    if not (torch.isfinite(logits[valid]).all() and torch.isfinite(record["v"]).all()
+            and torch.isfinite(record["rewards"]).all()):
+        fail("non-finite outputs")
+
+
+def actor_steps(cfg, model, worlds, draws, steps, root_visits):
+    from boardlaw_tpu_torch import train
+
+    step_s = []
+    for _ in range(steps):
+        sync()
+        t0 = time.time()
+        new_worlds, record, tree = train.actor_record(cfg, model, worlds, draws, return_tree=True)
+        sync()
+        step_s.append(time.time() - t0)
+        check_record(record, worlds, tree, root_visits, cfg.n_nodes)
+        worlds = new_worlds
+    return worlds, step_s
+
+
+def steady(times):
+    return statistics.median(times[1:]) if len(times) > 1 else times[0]
+
+
+def check_k1_variants(cfg, model, worlds, seed):
+    """One K=1 search per kernel variant from the same worlds and draws, each
+    held against the default route's tree."""
+    import torch
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.mcts import search
+    from boardlaw_tpu_torch.models.networks import make_eval_fn
+
+    mcfg = cfg.mcts_config()
+    sims = mcfg.n_nodes - 1
+    eval_fn = make_eval_fn(model)
+    ref = search.mcts(worlds, eval_fn, Draws(seed, DEV), mcfg)
+    counts = {}
+    for variant, kernels_run in (("ops", ("descend",)), ("delta", ("descend", "backup")),
+                                 ("dense", ("descend", "backup_dense"))):
+        vcfg = replace(mcfg, descend_kernel=True, backup_kernel=variant)
+        t0 = time.time()
+        c, tree = run_path(f"the K=1 search, descend_kernel with backup_kernel={variant!r}",
+                           {k: sims for k in kernels_run},
+                           lambda: search.mcts(worlds, eval_fn, Draws(seed, DEV), vcfg))
+        secs = time.time() - t0
+        for k in kernels_run:
+            counts[k] = counts.get(k, 0) + c[k]
+        same = ((tree.children == ref.children).flatten(1).all(1) & (tree.n == ref.n).all(1)
+                & (tree.n_edge == ref.n_edge).flatten(1).all(1))
+        n_diff = int((~same).sum())
+        w_err = float((tree.w - ref.w)[same].abs().max())
+        print(f"K=1 variant {variant!r} ({secs:.3f} s per search): {n_diff} of {same.numel()} "
+              f"envs differ from the default route in children/n/n_edge; max |w| difference on "
+              f"the others {w_err:.3g}", flush=True)
+        if n_diff > 0.001 * same.numel() or w_err > 1e-4:
+            fail(f"the K=1 variant {variant!r} disagrees with the default route")
+    return counts
+
+
+def check_learner(cfg, seed, steps, label):
+    """make_train, init, a full warmup and `steps` train steps; returns the
+    launch counts, the train-step seconds and the peak memory."""
+    import torch
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.draws import Draws
+
+    model, _, init, warmup, train_step = train.make_train(cfg, device=DEV)
+    draws = Draws(seed, DEV)
+    state = init(draws)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    mcfg = cfg.mcts_config()
+    per_step = mcfg.n_passes if mcfg.leaves_per_pass > 1 else mcfg.n_nodes - 1
+    expected = ({"walk": per_step, "node_actions_multi": per_step} if mcfg.leaves_per_pass > 1
+                else {"walk": per_step, "node_actions": per_step})
+
+    def drive():
+        nonlocal state
+        t0 = time.time()
+        state = warmup(state, draws)
+        sync()
+        print(f"{label}: warmup of {cfg.buffer_len} actor steps {time.time() - t0:.2f} s",
+              flush=True)
+        auxes = []
+        for _ in range(steps):
+            sync()
+            t0 = time.time()
+            state, aux = train_step(state, draws)
+            sync()
+            step_s.append(time.time() - t0)
+            auxes.append(aux)
+        return auxes
+
+    counts, auxes = run_path(label, {k: v * (cfg.buffer_len + steps) for k, v in expected.items()},
+                             drive)
+    bad = [k for aux in auxes for k, v in aux.items() if not torch.isfinite(v).all()]
+    if bad:
+        fail(f"{label}: non-finite aux {sorted(set(bad))}")
+    moved = any(not torch.equal(a, b) for a, b in zip(model.parameters(), state.model.parameters()))
+    if not moved or state.step != steps or state.ptr != steps % cfg.buffer_len:
+        fail(f"{label}: parameters did not move or step/ptr did not advance")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last = {k: round(float(v), 6) for k, v in auxes[-1].items()}
+    print(f"{label} ({cfg.n_envs} envs): train steps {step_s} s, median after the first "
+          f"{steady(step_s):.4f} s/step, peak memory {peak_gb:.2f} GB; last aux {last}",
+          flush=True)
+    return counts
+
+
+def check_train_step_cpu_vs_gpu(seed):
+    """A tiny train step on the card (kernels) against the same step on the
+    CPU (twins), from one warmed-up state and the same draws."""
+    import torch
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.mcts.search import _map_world
+
+    cfg = train.make_config(5, 32, 2, nodes=17, n_envs=64, buffer_len=4, mix_steps=20)
+    _, _, init, warmup, _ = train.make_train(cfg, device="cpu")
+    draws = cpu_draws(seed, "cpu")
+    state = warmup(init(draws), draws)
+    gpu = copy.deepcopy(state)
+    gpu.model.to(DEV)
+    gpu.optimizer = train.make_optimizer(cfg, gpu.model.parameters())
+    gpu.worlds = _map_world(state.worlds, lambda x: x.to(DEV))
+    gpu.buffer = {k: (_map_world(v, lambda x: x.to(DEV)) if k == "worlds" else v.to(DEV))
+                  for k, v in state.buffer.items()}
+    _, caux = train.train_step(cfg, state, cpu_draws(seed + 1, "cpu"))
+    _, gaux = train.train_step(cfg, gpu, cpu_draws(seed + 1, DEV))
+    sync()
+    worst = max(abs(float(gaux[k]) - float(caux[k])) / max(abs(float(caux[k])), 1e-12)
+                for k in ("loss.policy", "loss.value", "loss.total"))
+    print(f"train step on the card vs on the CPU (5x5, 64 envs, K=1): losses "
+          f"{[round(float(gaux[k]), 7) for k in ('loss.policy', 'loss.value')]} vs "
+          f"{[round(float(caux[k]), 7) for k in ('loss.policy', 'loss.value')]}, worst relative "
+          f"difference {worst:.3g}", flush=True)
+    if worst > 1e-4:
+        fail("the train step on the card disagrees with the step on the CPU")
+
+
+# the six kernels: route, source, the Pallas kernel each replaces
+KERNELS = {
+    "walk": ("cuda", "boardlaw_tpu_torch/csrc/walk.cu", "boardlaw_tpu/mcts/pallas_kernels.py:530"),
+    "node_actions_multi": ("cuda", "boardlaw_tpu_torch/csrc/node_actions_multi.cu",
+                           "boardlaw_tpu/mcts/pallas_kernels.py:327"),
+    "node_actions": ("cuda", "boardlaw_tpu_torch/csrc/node_actions.cu",
+                     "boardlaw_tpu/mcts/pallas_kernels.py:207"),
+    "descend": ("cuda", "boardlaw_tpu_torch/csrc/descend.cu",
+                "boardlaw_tpu/mcts/pallas_kernels.py:642"),
+    "backup": ("cuda", "boardlaw_tpu_torch/csrc/backup.cu",
+               "boardlaw_tpu/mcts/pallas_kernels.py:797"),
+    "backup_dense": ("cuda", "boardlaw_tpu_torch/csrc/backup_dense.cu",
+                     "boardlaw_tpu/mcts/pallas_kernels.py:909"),
+}
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--envs", type=int, default=32 * 1024)
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--k1-learner-envs", type=int, default=32 * 1024)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
+    t_start = time.time()
 
     import torch
 
@@ -259,78 +648,99 @@ def main(argv=None):
     print(card, flush=True)
 
     # 2. the kernels
-    t0 = time.time()
-    kernels.build(verbose=True)
-    print(f"kernels built in {time.time() - t0:.2f} s", flush=True)
+    with Phase("build"):
+        kernels.build(verbose=True)
 
-    cfg = train.TrainConfig(boardsize=9, width=512, depth=4, n_envs=args.envs)
-    mcfg = cfg.mcts_config()
-    model = train.build_model(cfg, device="cuda",
-                              generator=torch.Generator().manual_seed(args.seed))
-
-    # 3. kernels against their twins at the main path's shapes
     report = {}
-    draws = Draws(args.seed + 1, "cuda")
-    tree = mid_search_tree(cfg, model, draws, cfg.n_envs, passes=5)
-    ka, kc = check_node_actions(tree, cfg, draws, report)
-    # the last grow pass's shapes: all T rows, p+2 = n_passes+1 levels
-    check_walk(tree, ka, kc, mcfg.n_passes + 1, report)
-    del tree, ka, kc
-    check_search_cpu_vs_gpu(cfg, model)
-    torch.cuda.empty_cache()
+    cfg9 = train.make_config(9, 512, 4, n_envs=args.envs)
+    mcfg9 = cfg9.mcts_config()
+    model9 = train.build_model(cfg9, device=DEV, generator=torch.Generator().manual_seed(args.seed))
+    cfg6 = train.best_config(6, n_envs=args.envs)
+    mcfg6 = cfg6.mcts_config()
+    model6 = train.build_model(cfg6, device=DEV, generator=torch.Generator().manual_seed(args.seed))
 
-    # 4. the main path
-    kernels.walk.launches = 0
-    kernels.node_actions_multi.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    draws = Draws(args.seed, "cuda")
-    torch.cuda.synchronize()
-    t0 = time.time()
-    worlds = train.init_worlds(cfg, draws)
-    torch.cuda.synchronize()
-    mix_s = time.time() - t0
-    model = train.build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(args.seed))
-    step_s = []
-    for _ in range(args.steps):
-        torch.cuda.synchronize()
+    # 3. the K=8 kernels at the 9x9 path's shapes
+    with Phase("K=8 kernels against their twins"):
+        draws = Draws(args.seed + 1, DEV)
+        tree = mid_search_tree(cfg9, model9, draws, cfg9.n_envs, passes=5)
+        ka, kc = check_node_actions_multi(tree, cfg9, draws, report)
+        # the last grow pass's shapes: all T rows, p+2 = n_passes+1 levels
+        check_walk(tree, ka, kc, mcfg9.n_passes + 1, report)
+        del tree, ka, kc
+        check_search_cpu_vs_gpu(cfg9, model9)
+        torch.cuda.empty_cache()
+
+    # 4. the K=1 kernels at the 6x6 path's shapes
+    with Phase("K=1 kernels against their twins"):
+        draws = Draws(args.seed + 2, DEV)
+        tree = k1_mid_search_tree(cfg6, model6, draws, sims=30)
+        B, T = tree.parents.shape
+        rands = draws.uniform((B, T))
+        acts, nxt = check_node_actions(tree, rands, report)
+        leaves = check_descend(tree, rands, acts, nxt, report)
+        check_backups(tree, leaves, report)
+        del tree, acts, nxt, leaves
+        check_search_cpu_vs_gpu(cfg6, model6)
+        torch.cuda.empty_cache()
+
+    launches = {}
+    # 5a. the 9x9 actor path
+    with Phase("9x9 actor steps (K=8)"):
+        draws = Draws(args.seed, DEV)
+        torch.cuda.reset_peak_memory_stats()
+        worlds = train.init_worlds(cfg9, draws)
+        c, (_, step_s) = run_path(
+            f"{args.steps} 9x9 actor steps",
+            {"walk": mcfg9.n_passes * args.steps, "node_actions_multi": mcfg9.n_passes * args.steps},
+            lambda: actor_steps(cfg9, model9, worlds, draws, args.steps,
+                                2 * mcfg9.leaves_per_pass * mcfg9.n_passes))
+        launches.update(walk=c["walk"], node_actions_multi=c["node_actions_multi"])
+        sims = cfg9.n_envs * mcfg9.n_passes * mcfg9.leaves_per_pass / steady(step_s)
+        print(f"actor step (9x9, 512x4, {cfg9.n_envs} envs, 64 nodes, K=8): steps {step_s} s, "
+              f"median after the first {steady(step_s):.4f} s/step, {sims:.0f} sims/s, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {card}", flush=True)
+        del worlds
+
+    # 5b. the 6x6 K=1 actor path
+    with Phase("6x6 actor steps (K=1)"):
+        draws = Draws(args.seed, DEV)
         t0 = time.time()
-        new_worlds, record, tree = train.actor_record(cfg, model, worlds, draws, return_tree=True)
-        torch.cuda.synchronize()
-        step_s.append(time.time() - t0)
-        valid = worlds.valid
-        if not (tree.n[:, 0] == 2 * mcfg.leaves_per_pass * mcfg.n_passes).all():
-            fail(f"root visits {tree.n[:, 0].unique().tolist()}, expected "
-                 f"{2 * mcfg.leaves_per_pass * mcfg.n_passes}")
-        if int(record["n_leaves"].max()) > mcfg.n_nodes:
-            fail("more leaves than nodes")
-        logits = record["logits"].float()
-        if not torch.equal(torch.isneginf(logits), ~valid):
-            fail("root logits are not -inf exactly at the invalid actions")
-        if not (torch.isfinite(logits[valid]).all() and torch.isfinite(record["v"]).all()
-                and torch.isfinite(record["rewards"]).all()):
-            fail("non-finite outputs")
-        worlds = new_worlds
-    launches = {"walk": kernels.walk.launches, "node_actions_multi": kernels.node_actions_multi.launches}
-    want = mcfg.n_passes * args.steps
-    print(f"launches over {args.steps} actor steps: {launches} (expected {want} each)", flush=True)
-    if any(v != want for v in launches.values()):
-        fail("a kernel was not launched once per pass on the main path")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
-    sims = cfg.n_envs * mcfg.n_passes * mcfg.leaves_per_pass / steady
-    print(f"actor step (9x9, 512x4, {cfg.n_envs} envs, 64 nodes, K=8): steps {step_s} s, "
-          f"median after the first {steady:.4f} s/step, {sims:.0f} sims/s, mix {mix_s:.2f} s, "
-          f"peak memory {peak_gb:.2f} GB; card: {card}", flush=True)
+        worlds = train.init_worlds(cfg6, draws)
+        sync()
+        print(f"mix at 6x6: {time.time() - t0:.2f} s", flush=True)
+        sims = mcfg6.n_nodes - 1
+        torch.cuda.reset_peak_memory_stats()
+        c, (_, step_s) = run_path("2 6x6 K=1 actor steps", {"node_actions": 2 * sims, "walk": 2 * sims},
+                                  lambda: actor_steps(cfg6, model6, worlds, draws, 2, 2 * sims))
+        launches["node_actions"] = c["node_actions"]
+        print(f"K=1 actor step (6x6, 128x1, {cfg6.n_envs} envs, 64 nodes): steps {step_s} s, "
+              f"{cfg6.n_envs * sims / step_s[-1]:.0f} sims/s at the second, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {card}", flush=True)
 
-    # 5. the records
-    sources = {
-        "walk": ("cuda", "boardlaw_tpu_torch/csrc/walk.cu",
-                 "boardlaw_tpu/mcts/pallas_kernels.py:530"),
-        "node_actions_multi": ("cuda", "boardlaw_tpu_torch/csrc/node_actions_multi.cu",
-                               "boardlaw_tpu/mcts/pallas_kernels.py:327"),
-    }
+    # 5c. the K=1 kernel variants
+    with Phase("6x6 K=1 kernel variants"):
+        launches.update(check_k1_variants(cfg6, model6, worlds, args.seed + 3))
+        del worlds
+        torch.cuda.empty_cache()
+
+    # 5d. the 9x9 learner
+    with Phase("9x9 learner"):
+        check_learner(cfg9, args.seed, args.steps, "the 9x9 learner (K=8)")
+        torch.cuda.empty_cache()
+
+    # 5e. the 6x6 K=1 learner
+    with Phase("6x6 K=1 learner"):
+        check_learner(train.best_config(6, n_envs=args.k1_learner_envs), args.seed, 1,
+                      "the 6x6 learner (K=1)")
+        torch.cuda.empty_cache()
+
+    # 5f. a tiny train step on the card against the CPU
+    with Phase("train step, card vs CPU"):
+        check_train_step_cpu_vs_gpu(args.seed)
+
+    # 6. the records
     rows = []
-    for name, (route, source, replaces) in sources.items():
+    for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / F32_FLOPS * 1e3
@@ -342,7 +752,9 @@ def main(argv=None):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
         })
+    print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

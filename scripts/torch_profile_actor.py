@@ -1,12 +1,21 @@
-"""Where the time of one 9x9 actor step of the PyTorch/CUDA port goes.
+"""Where the time of the PyTorch/CUDA port's steps goes, on one GPU.
 
-    python3 scripts/torch_profile_actor.py [--envs 32768] [--out output/profile_actor.txt]
+    python3 scripts/torch_profile_actor.py [--envs 32768] [--mix 2500] [--out output/profile_actor.txt]
 
-Builds the port's main path (mix, random 512x4 FCModel, K=8 grow-pass
-search), runs two warm-up actor steps, then one step under torch.profiler
-(CPU and CUDA activities). Prints the card line, the step's wall time, the
-device busy share (sum of kernel times over the wall time) and the CUDA
-kernels by total time; the full table goes to --out.
+Profiles three steps, each after two warm-up calls of the same step, under
+torch.profiler (CPU and CUDA activities):
+
+1. a 9x9 actor step (`make_config(9, 512, 4)`: random 512x4 FCModel, K=8
+   grow-pass search);
+2. a 9x9 `train_step` of the same config (actor step, buffer push,
+   reward-to-go, one Adam step; the buffer is not warmed up, which changes
+   its contents, not the work);
+3. a 6x6 K=1 actor step (`best_config(6)`: 128x1 model, 63 sequential sims
+   through the `node_actions` and `walk` kernels).
+
+For each it prints the card line, the step's wall time, the device busy
+share (sum of kernel times over the wall time) and the CUDA kernels by total
+time; the full tables go to --out.
 """
 from __future__ import annotations
 
@@ -19,6 +28,28 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def profile_step(label, fn, out):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_us = sum(e.self_device_time_total for e in events)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
+    out.write(f"== {label}\nwall {wall:.4f} s, device busy {device_us / 1e6:.4f} s\n{table}\n")
+    print(f"== {label}: wall {wall:.4f} s, kernels {device_us / 1e6:.4f} s, "
+          f"device busy share {device_us / 1e6 / wall:.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+        print(f"{e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--envs", type=int, default=32 * 1024)
@@ -27,7 +58,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.draws import Draws
@@ -37,30 +67,35 @@ def main(argv=None):
         return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg = train.TrainConfig(boardsize=9, width=512, depth=4, n_envs=args.envs, mix_steps=args.mix)
-    draws = Draws(0, "cuda")
-    worlds = train.init_worlds(cfg, draws)
-    model = train.build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
-    for _ in range(2):
-        worlds, _ = train.actor_record(cfg, model, worlds, draws)
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        worlds, _ = train.actor_record(cfg, model, worlds, draws)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    device_us = sum(e.self_device_time_total for e in events)
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
-        f.write(f"{card}\nwall {wall:.4f} s, device busy {device_us / 1e6:.4f} s\n{table}\n")
     print(card)
-    print(f"actor step at {args.envs} envs: wall {wall:.4f} s, kernels {device_us / 1e6:.4f} s, "
-          f"device busy share {device_us / 1e6 / wall:.3f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
-        print(f"{e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as out:
+        out.write(f"{card}\n")
+        draws = Draws(0, "cuda")
+
+        cfg9 = train.make_config(9, 512, 4, n_envs=args.envs, mix_steps=args.mix)
+        model, _, init, _, train_step = train.make_train(cfg9, device="cuda")
+        state = init(draws)
+        worlds = state.worlds
+
+        def actor9():
+            nonlocal worlds
+            worlds, _ = train.actor_record(cfg9, model, worlds, draws)
+
+        profile_step(f"9x9 actor step (K=8, {args.envs} envs)", actor9, out)
+        profile_step(f"9x9 train_step (K=8, {args.envs} envs)",
+                     lambda: train_step(state, draws), out)
+        del state, worlds
+
+        cfg6 = train.best_config(6, n_envs=args.envs, mix_steps=args.mix)
+        model6 = train.build_model(cfg6, device="cuda", generator=torch.Generator().manual_seed(0))
+        worlds6 = train.init_worlds(cfg6, draws)
+
+        def actor6():
+            nonlocal worlds6
+            worlds6, _ = train.actor_record(cfg6, model6, worlds6, draws)
+
+        profile_step(f"6x6 K=1 actor step ({args.envs} envs)", actor6, out)
     return 0
 
 

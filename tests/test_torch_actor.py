@@ -25,13 +25,15 @@ torch.set_num_threads(2)
 
 class JaxDraws(Draws):
     """Draws of one JAX actor step from its key: split into the search key
-    and the action key, the search key into the Dirichlet and pass keys."""
+    and the action key, the search key into the Dirichlet and sim keys (one
+    pass key per grow pass, or n_sims keys of the K=1 scan)."""
 
-    def __init__(self, key):
+    def __init__(self, key, n_sims=None):
         self.device = torch.device("cpu")
         k_search, self.k_act = jax.random.split(key)
         k_init, self.k_sims = jax.random.split(k_search)
         self.k_n, self.k_u, self.k_b = jax.random.split(k_init, 3)
+        self.n_sims = n_sims
 
     def dirichlet(self, shape, rounds):
         shape = tuple(shape)
@@ -41,6 +43,10 @@ class JaxDraws(Draws):
 
     def pass_rands(self, p, shape):
         k_rand, _ = jax.random.split(jax.random.fold_in(self.k_sims, p))
+        return torch.tensor(np.asarray(jax.random.uniform(k_rand, tuple(shape))))
+
+    def sim_rands(self, i, shape):
+        k_rand, _ = jax.random.split(jax.random.split(self.k_sims, self.n_sims)[i])
         return torch.tensor(np.asarray(jax.random.uniform(k_rand, tuple(shape))))
 
     def gumbel(self, shape):
@@ -82,8 +88,8 @@ def test_mix_matches_jax():
 
 
 def test_actor_record_matches_jax():
-    cfg = train.TrainConfig(boardsize=5, width=16, depth=2, n_envs=8, n_nodes=13,
-                            leaves_per_pass=4, mix_steps=9)
+    cfg = train.make_config(5, 16, 2, nodes=13, n_envs=8, leaves_per_pass=4, grow_passes=True,
+                            mix_steps=9)
     world1 = jhex.Hex.initial(1, cfg.boardsize)
     jmodel = JFCModel(world1.obs_space, world1.action_space, width=cfg.width, depth=cfg.depth)
     params = jmodel.init(jax.random.PRNGKey(0), world1.obs, world1.valid, world1.seats)

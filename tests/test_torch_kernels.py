@@ -1,5 +1,6 @@
 """The port's kernel twins against the JAX package's Pallas kernels run in
-interpret mode, on `_random_tree` inputs (copied from tests/test_pallas.py).
+interpret mode, on `_random_tree` inputs (copied from tests/test_pallas.py),
+held in the port's storage types (f32 logits, bf16 n_edge, int8 children).
 
 * `walk_ref` is bit-equal to `PK.walk` and to `search._walk`.
 * `node_actions_multi_ref` equals `PK.node_actions_multi` draw for draw at
@@ -7,6 +8,12 @@ interpret mode, on `_random_tree` inputs (copied from tests/test_pallas.py).
   computed by other code than XLA's, so the solved probs agree only to float32
   roundoff; equality of the draws holds because on these seeds no rand lies
   within 1e-6 of a CDF boundary, which each case checks.
+* The K=1 twins: `search.node_actions` equals `S.node_actions` (whose XLA
+  sampler sums with `jnp.cumsum`) and `PK.node_actions` (the log-shift sum)
+  draw for draw, under the same boundary check; `search.descend_reference`
+  equals `S.descend` and `PK.descend`; `search.backup`, the twin of both
+  backup kernels, equals `S.backup`, `PK.backup` and `PK.backup_dense`: n
+  exact, w/n_edge/w_edge to atol 1e-5.
 
 The CUDA kernels themselves are held against these twins on the card in
 tests/test_torch_kernels_cuda.py, which imports no JAX.
@@ -19,7 +26,8 @@ import torch
 
 from boardlaw_tpu.mcts import search as S
 from boardlaw_tpu.mcts import pallas_kernels as PK
-from boardlaw_tpu_torch.mcts import kernels
+from boardlaw_tpu_torch.mcts import kernels, search as TS
+from test_torch_search import _port_tree
 
 torch.set_num_threads(2)
 
@@ -153,7 +161,6 @@ def test_node_actions_multi_ref_matches_pallas(seed, c_puct, n_iters, accel):
 
     # the solve itself: the port's probs against the JAX package's node_probs
     jprobs = np.asarray(S.node_probs(tree, qb, n_iters=n_iters, accel=accel))
-    from boardlaw_tpu_torch.mcts import search as TS
     tprobs = TS.node_probs(inp["logits"], inp["n_edge"], inp["w_edge"], inp["c_puct"],
                            inp["q_bounds"], n_iters=n_iters, accel=accel)
     np.testing.assert_allclose(tprobs.numpy(), jprobs, rtol=1e-5, atol=1e-7)
@@ -174,8 +181,76 @@ def test_node_actions_multi_ref_on_row_slice():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("seed,c_puct", [(0, 1.0), (1, 0.0625)])
+def test_node_actions_twin_matches_xla_and_pallas(seed, c_puct):
+    rng = np.random.default_rng(seed)
+    B, T, A = 16, 12, 7
+    tree = _random_tree(rng, B, T, A, c_puct=c_puct)
+    rands = jax.random.uniform(jax.random.PRNGKey(seed), (B, T))
+    qb = S._q_bounds(tree)
+    assert _min_boundary_gap(tree, qb, rands[None], 16, False) > 1e-6
+
+    xa, xc = S.node_actions(tree, rands, qb)
+    pa, pc = PK.node_actions(tree, rands, qb, block_envs=8, interpret=True)
+    ta, tc = kernels.node_actions(rands=_t(rands), **_port_inputs(tree))  # CPU: the twin
+    assert ta.dtype == tc.dtype == torch.int32 and ta.shape == (B, T)
+    for j in (xa, pa):
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(j))
+    for j in (xc, pc):
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("seed,c_puct", [(0, 1.0), (1, 0.0625), (2, 10.0)])
+def test_descend_twin_matches_xla_and_pallas(seed, c_puct):
+    rng = np.random.default_rng(seed)
+    B, T, A = 16, 12, 7
+    tree = _random_tree(rng, B, T, A, c_puct=c_puct)
+    rands = jax.random.uniform(jax.random.PRNGKey(seed), (B, T))
+    assert _min_boundary_gap(tree, S._q_bounds(tree), rands[None], 16, False) > 1e-6
+
+    xp, xa = S.descend(tree, rands)
+    pp, pa = PK.descend(tree, rands, block_envs=8, interpret=True)
+    ttree = _port_tree(tree)
+    n0 = kernels.descend.launches
+    tp, ta = kernels.descend(ttree, _t(rands))  # CPU: search.descend_reference
+    assert kernels.descend.launches == n0
+    for jp, ja in ((xp, xa), (pp, pa)):
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    # the default route (node_actions + walk twins) gives the same walk
+    dp, da = TS.descend(ttree, _t(rands))
+    assert torch.equal(dp, tp) and torch.equal(da, ta)
+
+
+@pytest.mark.parametrize("npv", [1, 2])
+@pytest.mark.parametrize("variant", ["delta", "dense"])
+def test_backup_twin_matches_xla_and_pallas(npv, variant):
+    rng = np.random.default_rng(3 if variant == "delta" else 5)
+    B, T, A = 16, 12, 7
+    tree = _random_tree(rng, B, T, A)
+    leaves = jnp.asarray(rng.integers(0, T, B), jnp.int32)
+
+    pallas = PK.backup if variant == "delta" else PK.backup_dense
+    outs = [S.backup(tree, leaves, npv), pallas(tree, leaves, npv, block_envs=8, interpret=True)]
+    wrapper = kernels.backup if variant == "delta" else kernels.backup_dense
+    ttree = wrapper(_port_tree(tree), _t(leaves), npv)  # CPU: search.backup, in place
+    assert ttree.n.dtype == torch.int32 and ttree.n_edge.dtype == torch.bfloat16
+    for out in outs:
+        np.testing.assert_array_equal(ttree.n.numpy(), np.asarray(out.n))
+        for name in ("w", "n_edge", "w_edge"):
+            np.testing.assert_allclose(getattr(ttree, name).float().numpy(),
+                                       np.asarray(getattr(out, name), np.float32),
+                                       atol=1e-5, err_msg=name)
+
 
 def test_cuda_wrappers_refuse_bad_inputs():
     # checks run before any launch, so they are testable without a card
     with pytest.raises(ValueError):
         kernels._check_rows(torch.zeros((2, 3, 4)), "x", torch.float32, 2, 3, 4)
+    with pytest.raises(ValueError):
+        kernels._check_node(torch.zeros((2, 3)), "x", torch.float32, (2, 3))
+    # backup_dense reads the edge value at seat 0 or S-1: two seats only
+    rng = np.random.default_rng(0)
+    three = _port_tree(_random_tree(rng, 2, 4, 3, Sn=3))
+    with pytest.raises(ValueError):
+        kernels.backup_dense(three, torch.zeros((2,), dtype=torch.int32), 1)

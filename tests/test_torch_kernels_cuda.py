@@ -6,9 +6,13 @@ torch and numpy only, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 `walk` is pure integer logic and must be bit-equal. `node_actions_multi`
-sums its lanes in another order than the twin, so the solved alpha agrees to
-rtol 1e-5; the draws are equal on these seeds, where no rand lies within
-1e-6 of a CDF boundary (each case checks that).
+and `node_actions` sum their lanes in another order than the twins, so the
+solved alpha agrees to rtol 1e-5; the draws are equal on these seeds, where
+no rand lies within 1e-6 of a CDF boundary (each case checks that).
+`descend` shares the row code of `node_actions` and must equal
+`node_actions` + `walk` on the card exactly. `backup` and `backup_dense`
+make the twin's adds in the twin's order: n and n_edge exact, w and w_edge
+to atol 1e-5.
 """
 import numpy as np
 import pytest
@@ -26,11 +30,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _random_tree(seed, B, T, A, c_puct=1.0):
-    """A random tree's solve inputs in the port's storage types (the tree of
-    tests/test_pallas.py `_random_tree`, in numpy)."""
+def _random_search_tree(seed, B, T, A, c_puct=1.0):
+    """A random port tree (the tree of tests/test_pallas.py `_random_tree`,
+    in numpy) in the port's storage types, with sim = T."""
     rng = np.random.default_rng(seed)
     children = np.full((B, T, A), -1, np.int32)
+    parents = np.full((B, T), -1, np.int32)
+    relation = np.full((B, T), -1, np.int32)
     seats = rng.integers(0, 2, (B, T))
     terminal = np.zeros((B, T), bool)
     for b in range(B):
@@ -39,7 +45,9 @@ def _random_tree(seed, B, T, A, c_puct=1.0):
             free = np.flatnonzero(children[b, p] == -1)
             if len(free) == 0:
                 continue
-            children[b, p, rng.choice(free)] = c
+            a = rng.choice(free)
+            children[b, p, a] = c
+            parents[b, c], relation[b, c] = p, a
             terminal[b, c] = rng.random() < 0.15
     logits = rng.normal(0, 1, (B, T, A)).astype(np.float32)
     logits -= np.log(np.exp(logits).sum(-1, keepdims=True))
@@ -50,15 +58,31 @@ def _random_tree(seed, B, T, A, c_puct=1.0):
     bb = np.arange(B)[:, None, None]
     n_edge = np.where(expanded, n[bb, c], 0).astype(np.float32)
     w_edge = np.where(expanded, w[bb, c, seats[:, :, None]], 0).astype(np.float32)
-    q = w / (n[..., None] + 1e-4)
-    return dict(
-        logits=torch.tensor(logits),
-        n_edge=torch.tensor(n_edge).to(torch.bfloat16),
-        w_edge=torch.tensor(w_edge),
-        children=torch.tensor(children).to(torch.int8),
-        c_puct=torch.full((B,), c_puct, dtype=torch.float32),
-        q_bounds=torch.tensor([q.min(), q.max()], dtype=torch.float32),
-    ), torch.tensor(terminal)
+    v = rng.normal(0, 1, (B, T, 2)).astype(np.float32)
+    rewards = rng.normal(0, 0.5, (B, T, 2)).astype(np.float32)
+    t = torch.tensor
+    return search.Tree(
+        children=t(children).to(torch.int8), parents=t(parents), relation=t(relation),
+        worlds=None, seats=t(seats).to(torch.int32), terminal=t(terminal), rewards=t(rewards),
+        logits=t(logits), v=t(v), n=t(n).to(torch.int32), w=t(w),
+        n_edge=t(n_edge).to(torch.bfloat16), w_edge=t(w_edge),
+        c_puct=torch.full((B,), c_puct, dtype=torch.float32), sim=T, prew=None)
+
+
+def _random_tree(seed, B, T, A, c_puct=1.0):
+    """A random tree's solve inputs in the port's storage types, and its
+    terminal flags."""
+    tree = _random_search_tree(seed, B, T, A, c_puct)
+    return dict(logits=tree.logits, n_edge=tree.n_edge, w_edge=tree.w_edge,
+                children=tree.children, c_puct=tree.c_puct,
+                q_bounds=search._q_bounds(tree)), tree.terminal
+
+
+def _tree_to(tree, dev):
+    """A copy of the tree on `dev` (a copy also on its own device: the
+    backups update in place)."""
+    return search.Tree(**{k: (v.to(dev, copy=True) if torch.is_tensor(v) else v)
+                          for k, v in tree.__dict__.items()})
 
 
 def _to(inp, dev):
@@ -66,10 +90,12 @@ def _to(inp, dev):
 
 
 def _min_boundary_gap(inp, rands, n_iters, accel):
+    """rands (B,K,T) (or (B,T) for one draw per node)."""
     probs = search.node_probs(inp["logits"], inp["n_edge"], inp["w_edge"], inp["c_puct"],
                               inp["q_bounds"], n_iters=n_iters, accel=accel).double()
     cum = probs.cumsum(-1)  # (B,T,A)
-    return float((cum[:, None] - rands.double()[..., None]).abs().min())
+    r = rands.double() if rands.dim() == 3 else rands.double()[:, None]
+    return float((cum[:, None] - r[..., None]).abs().min())
 
 
 def _walk_inputs(seed, K):
@@ -142,3 +168,70 @@ def test_wrappers_raise_on_wrong_inputs(cuda):
     bad["n_edge"] = bad["n_edge"].float()  # the kernel reads bf16 counts as stored
     with pytest.raises(ValueError):
         kernels.node_actions_multi(rands=torch.rand((4, 2, 6), device=cuda), **bad)
+    with pytest.raises(ValueError):
+        kernels.node_actions(rands=torch.rand((4, 6), device=cuda), **bad)
+    tree = _tree_to(_random_search_tree(1, 4, 6, 7), cuda)
+    with pytest.raises(ValueError):  # leaves must be int32
+        kernels.backup(tree, torch.zeros((4,), dtype=torch.int64, device=cuda), 1)
+    with pytest.raises(ValueError):  # rands must be (B,T)
+        kernels.descend(tree, torch.rand((4, 5), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,c_puct,B,T,A,R", [
+    (9, 1.0, 16, 12, 7, 12), (2, 0.0625, 16, 12, 7, 12), (4, 1 / 16, 8, 20, 36, 9)])
+def test_node_actions_kernel_matches_ref(cuda, seed, c_puct, B, T, A, R):
+    # R < T: the live-row slice the K=1 search hands over (env stride T*A)
+    inp, _ = _random_tree(seed, B, T, A, c_puct)
+    rands = torch.rand((B, R), generator=torch.Generator().manual_seed(seed))
+    ref_inp = {k: (v[:, :R].contiguous() if v.dim() == 3 else v) for k, v in inp.items()}
+    assert _min_boundary_gap(ref_inp, rands, 16, False) > 1e-6
+    ra, rc = search.node_actions(rands=rands, **ref_inp)
+    sliced = {k: (v[:, :R] if v.dim() == 3 else v) for k, v in _to(inp, cuda).items()}
+    n0 = kernels.node_actions.launches
+    ka, kc = kernels.node_actions(rands=rands.to(cuda), **sliced)
+    torch.cuda.synchronize()
+    assert kernels.node_actions.launches == n0 + 1
+    assert ka.dtype == torch.int32 and ka.shape == (B, R)
+    assert torch.equal(ka.cpu(), ra)
+    assert torch.equal(kc.cpu(), rc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,c_puct", [(0, 1.0), (1, 0.0625), (2, 10.0)])
+def test_descend_kernel_matches_ref(cuda, seed, c_puct):
+    B, T, A = 16, 12, 7
+    tree = _random_search_tree(seed, B, T, A, c_puct)
+    rands = torch.rand((B, T), generator=torch.Generator().manual_seed(seed))
+    inp, _ = _random_tree(seed, B, T, A, c_puct)
+    assert _min_boundary_gap(inp, rands, 16, False) > 1e-6
+    rp, ra = search.descend_reference(tree, rands)
+    gtree = _tree_to(tree, cuda)
+    n0 = kernels.descend.launches
+    kp, ka = kernels.descend(gtree, rands.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.descend.launches == n0 + 1
+    assert torch.equal(kp.cpu(), rp) and torch.equal(ka.cpu(), ra)
+    # node_actions + walk kernels on the card, bit for bit
+    wp, wa = search.descend(gtree, rands.to(cuda))
+    assert torch.equal(wp, kp) and torch.equal(wa, ka)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("npv", [1, 2])
+@pytest.mark.parametrize("variant", ["delta", "dense"])
+def test_backup_kernels_match_ref(cuda, variant, npv):
+    B, T, A = 16, 12, 7
+    tree = _random_search_tree(3, B, T, A)
+    leaves = torch.tensor(np.random.default_rng(3).integers(0, T, B), dtype=torch.int32)
+    ref = search.backup(_tree_to(tree, "cpu"), leaves, npv)
+    wrapper = kernels.backup if variant == "delta" else kernels.backup_dense
+    n0 = wrapper.launches
+    out = wrapper(_tree_to(tree, cuda), leaves.to(cuda), npv)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    assert torch.equal(out.n.cpu(), ref.n)
+    assert torch.equal(out.n_edge.cpu(), ref.n_edge)
+    for name in ("w", "w_edge"):
+        torch.testing.assert_close(getattr(out, name).cpu(), getattr(ref, name), rtol=0,
+                                   atol=1e-5)

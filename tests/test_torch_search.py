@@ -81,13 +81,13 @@ def _t(x):
 
 
 def _port_tree(jt):
-    """A JAX tree's arrays as a port Tree (the fields root() reads)."""
+    """A JAX tree's arrays as a port Tree in the port's storage types."""
     return TS.Tree(
         children=_t(jt.children).to(torch.int8), parents=_t(jt.parents), relation=_t(jt.relation),
         worlds=None, seats=_t(jt.seats), terminal=_t(jt.terminal), rewards=_t(jt.rewards),
         logits=_t(jt.logits), v=_t(jt.v), n=_t(jt.n), w=_t(jt.w),
         n_edge=_t(np.asarray(jt.n_edge, np.float32)).to(torch.bfloat16), w_edge=_t(jt.w_edge),
-        c_puct=_t(jt.c_puct), sim=int(jt.sim), prew=_t(jt.prew))
+        c_puct=_t(jt.c_puct), sim=int(jt.sim), prew=None if jt.prew is None else _t(jt.prew))
 
 
 @pytest.mark.parametrize("seed,plies", [(11, 6), (12, 11)])
@@ -103,7 +103,7 @@ def test_grow_search_matches_jax(seed, plies):
     jroot = jax.jit(S.root)(jt)
 
     tworld = thex.Hex(board=_t(jworld.board), seats=_t(jworld.seats))
-    tcfg = TS.MCTSConfig(n_nodes=n_nodes, leaves_per_pass=K)
+    tcfg = TS.MCTSConfig(n_nodes=n_nodes, leaves_per_pass=K, grow_passes=True)
     n0, w0 = kernels.node_actions_multi.launches, kernels.walk.launches
     tt = TS.mcts(tworld, teval, JaxDraws(key), tcfg)
     troot = TS.root(tt)
@@ -136,8 +136,9 @@ def test_grow_search_matches_jax(seed, plies):
 
 
 def test_config_refuses_what_the_slice_does_not_carry():
-    for kwargs in ({"leaves_per_pass": 1}, {"grow_passes": False}, {"backup_mode": "einsum"},
-                   {"warm_solve": True}, {"n_nodes": 200}):
+    for kwargs in ({"leaves_per_pass": 8, "grow_passes": False}, {"leaves_per_pass": 0},
+                   {"backup_mode": "einsum"}, {"warm_solve": True}, {"n_nodes": 200},
+                   {"backup_kernel": "xla"}):
         with pytest.raises(ValueError):
             TS.MCTSConfig(**kwargs)
 
@@ -145,7 +146,7 @@ def test_config_refuses_what_the_slice_does_not_carry():
 def test_agent_runs_on_cpu():
     _, teval = _models()
     world = thex.Hex.initial(4, 5, device="cpu")
-    agent = TS.MCTSAgent(teval, seed=1, n_nodes=9, leaves_per_pass=4)
+    agent = TS.MCTSAgent(teval, seed=1, n_nodes=9, leaves_per_pass=4, grow_passes=True)
     out = agent(world)
     assert out["actions"].shape == (4,) and out["actions"].dtype == torch.int32
     assert world.valid[torch.arange(4), out["actions"].long()].all()

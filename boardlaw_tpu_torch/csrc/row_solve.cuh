@@ -1,7 +1,9 @@
 // The per-row regularized-policy solve and inverse-CDF draw, one warp per
 // node row. Shared by node_actions_multi.cu (K draws per row), node_actions.cu
-// (one draw per row) and descend.cu (one row per level of a walk), so the
-// three compute bit-identical draws from one tree.
+// (one draw per row), descend.cu (one row per level of a walk), and by the
+// split pair solve_probs.cu (the solve alone: `solve_row`) and
+// sample_children_multi.cu (the prefix sum and draws alone: `prefix`,
+// `draw`), so all five compute bit-identical alphas and draws from one tree.
 //
 // Per row: pi = exp(logits); q = (w_e/(n_e+1e-4) - qlo)/(qhi - qlo + 1e-4)
 // on expanded edges, else 0; N = sum(expanded ? n_e : 1);
@@ -63,12 +65,12 @@ struct Row {
 };
 
 // Solve the row whose lane 0 is at logits/n_edge/w_edge (all lanes of the
-// warp call this together). sh: this warp's kMaxJ*kWarp-float strip.
-__device__ __forceinline__ void solve(const float* __restrict__ logits,
-                                      const __nv_bfloat16* __restrict__ n_edge,
-                                      const float* __restrict__ w_edge, int A, float cp,
-                                      float qlo, float qhi, int n_iters, int accel,
-                                      float* sh, int lane, Row& row) {
+// warp call this together): row.alpha and row.probs (0 on lanes >= A).
+__device__ __forceinline__ void solve_row(const float* __restrict__ logits,
+                                          const __nv_bfloat16* __restrict__ n_edge,
+                                          const float* __restrict__ w_edge, int A, float cp,
+                                          float qlo, float qhi, int n_iters, int accel,
+                                          int lane, Row& row) {
   float pi[kMaxJ], q[kMaxJ], lampi[kMaxJ];
   float n_local = 0.f;
 #pragma unroll
@@ -132,19 +134,23 @@ __device__ __forceinline__ void solve(const float* __restrict__ logits,
     alpha = fmaxf(alpha - (done ? 0.f : step), floor_);
   }
   row.alpha = alpha;
+#pragma unroll
+  for (int j = 0; j < kMaxJ; ++j) {
+    row.probs[j] = j * kWarp + lane < A ? lampi[j] / (alpha - q[j]) : 0.f;
+  }
+}
 
-  // probs and the log-shift inclusive prefix sum: cum[a] += cum[a - shift]
-  // for shift = 1, 2, 4, ... (lanes below shift keep their value)
+// The log-shift inclusive prefix sum of row.probs into row.cum, cum[a] +=
+// cum[a - shift] for shift = 1, 2, 4, ... (lanes below shift keep their
+// value), and the last positive lane. sh: this warp's kMaxJ*kWarp-float strip.
+__device__ __forceinline__ void prefix(int A, float* sh, int lane, Row& row) {
   int last_pos = -1;
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j) {
     const int a = j * kWarp + lane;
-    row.cum[j] = 0.f;
-    row.probs[j] = 0.f;
+    const float p = row.probs[j];
+    row.cum[j] = p;
     if (a < A) {
-      const float p = lampi[j] / (alpha - q[j]);
-      row.cum[j] = p;
-      row.probs[j] = p;
       sh[a] = p;
       if (p > 0.f) last_pos = a;
     }
@@ -169,6 +175,16 @@ __device__ __forceinline__ void solve(const float* __restrict__ logits,
     }
     __syncwarp();
   }
+}
+
+// The solve and the prefix sum of one row.
+__device__ __forceinline__ void solve(const float* __restrict__ logits,
+                                      const __nv_bfloat16* __restrict__ n_edge,
+                                      const float* __restrict__ w_edge, int A, float cp,
+                                      float qlo, float qhi, int n_iters, int accel,
+                                      float* sh, int lane, Row& row) {
+  solve_row(logits, n_edge, w_edge, A, cp, qlo, qhi, n_iters, accel, lane, row);
+  prefix(A, sh, lane, row);
 }
 
 // The draw of uniform r from a solved row; the result is warp-uniform.

@@ -2,6 +2,7 @@ from .search import (  # noqa: F401
     MCTSConfig,
     Tree,
     MCTSAgent,
+    DummyAgent,
     mcts,
     build,
     initialize,

@@ -21,8 +21,17 @@ PyTorch twins and their launch counts.
 * `backup_dense` (csrc/backup_dense.cu) replaces the Pallas `backup_dense`:
   the same chase updating n, w, n_edge and w_edge in place. Twin:
   `search.backup`.
+* `solve_probs` (csrc/solve_probs.cu) replaces the Pallas `solve_probs`: the
+  all-node solve alone, probs (B,R,A) or the roots alpha (B,R). Twin:
+  `solve_probs_ref`, which is `search.node_probs`.
+* `sample_children_multi` (csrc/sample_children_multi.cu) replaces the Pallas
+  `sample_children_multi`: the log-shift prefix sum and K draws with their
+  child lookups from precomputed probs. Twin: `sample_children_multi_ref`,
+  which is `search._sample_children_multi` in the 'shift' order.
 
-The three row kernels share one device solve and draw (csrc/row_solve.cuh).
+The five row kernels share one device solve, prefix sum and draw
+(csrc/row_solve.cuh): the split pair `solve_probs` + `sample_children_multi`
+draws what the fused `node_actions_multi` draws.
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches the
 kernel or raises, with no fallback. Each launch adds one to the wrapper's
@@ -49,7 +58,7 @@ from . import search
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = ("walk.cu", "node_actions_multi.cu", "node_actions.cu", "descend.cu", "backup.cu",
-            "backup_dense.cu")
+            "backup_dense.cu", "solve_probs.cu", "sample_children_multi.cu")
 _HEADERS = ("row_solve.cuh",)
 _BUILD_DIR = _PKG / "_build"
 # -fmad=false: no fused multiply-adds, so each element's float arithmetic
@@ -120,6 +129,10 @@ def build(verbose=False):
     lib.backup_launch.restype = i
     lib.backup_dense_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p]
     lib.backup_dense_launch.restype = i
+    lib.solve_probs_launch.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, p]
+    lib.solve_probs_launch.restype = i
+    lib.sample_children_multi_launch.argtypes = [p, i, p, i, i, i, i, i, p, p, p, p]
+    lib.sample_children_multi_launch.restype = i
     _lib = lib
     return lib
 
@@ -139,13 +152,31 @@ def _check_rows(x, name, dtype, B, T, A):
            f"{name} must have contiguous (T,A) rows")
 
 
+def _check_tree_rows(logits, n_edge, w_edge, children, B, T, A):
+    """The solve's (B,T,A) row inputs (children may be None) in their
+    storage types, sharing one env stride."""
+    _check(A <= 128, f"the row kernels support at most 128 actions, got {A}")
+    _check_rows(logits, "logits", torch.float32, B, T, A)
+    _check_rows(n_edge, "n_edge", torch.bfloat16, B, T, A)
+    _check_rows(w_edge, "w_edge", torch.float32, B, T, A)
+    strides = {logits.stride(0), n_edge.stride(0), w_edge.stride(0)}
+    if children is not None:
+        _check_rows(children, "children", torch.int8, B, T, A)
+        strides.add(children.stride(0))
+    _check(len(strides) == 1, "tree tensors must share one env stride")
+
+
+def _check_bounds(c_puct, q_bounds, B):
+    _check(c_puct.is_cuda and c_puct.dtype == torch.float32 and c_puct.is_contiguous()
+           and tuple(c_puct.shape) == (B,), "c_puct must be contiguous (B,) f32")
+    _check(q_bounds.is_cuda and q_bounds.dtype == torch.float32 and q_bounds.is_contiguous()
+           and q_bounds.numel() == 2, "q_bounds must be a (2,) f32 CUDA tensor")
+
+
 def _check_solve_args(rands, c_puct, q_bounds, rands_shape):
     _check(rands.is_cuda and rands.dtype == torch.float32 and rands.is_contiguous()
            and tuple(rands.shape) == rands_shape, f"rands must be contiguous {rands_shape} f32")
-    _check(c_puct.is_cuda and c_puct.dtype == torch.float32 and c_puct.is_contiguous()
-           and tuple(c_puct.shape) == rands_shape[:1], "c_puct must be contiguous (B,) f32")
-    _check(q_bounds.is_cuda and q_bounds.dtype == torch.float32 and q_bounds.is_contiguous()
-           and q_bounds.numel() == 2, "q_bounds must be a (2,) f32 CUDA tensor")
+    _check_bounds(c_puct, q_bounds, rands_shape[0])
 
 
 def _check_node(x, name, dtype, shape):
@@ -242,13 +273,7 @@ def node_actions_multi(logits, n_edge, w_edge, children, rands, c_puct, q_bounds
                                       q_bounds, n_iters, accel, return_alpha)
     B, T, A = logits.shape
     K = rands.shape[1]
-    _check(A <= 128, f"node_actions_multi supports at most 128 actions, got {A}")
-    _check_rows(logits, "logits", torch.float32, B, T, A)
-    _check_rows(n_edge, "n_edge", torch.bfloat16, B, T, A)
-    _check_rows(w_edge, "w_edge", torch.float32, B, T, A)
-    _check_rows(children, "children", torch.int8, B, T, A)
-    _check(logits.stride(0) == w_edge.stride(0) == n_edge.stride(0) == children.stride(0),
-           "tree tensors must share one env stride")
+    _check_tree_rows(logits, n_edge, w_edge, children, B, T, A)
     _check_solve_args(rands, c_puct, q_bounds, (B, K, T))
     lib = build()
     dev = logits.device
@@ -285,13 +310,7 @@ def node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds):
     if logits.device.type == "cpu":
         return search.node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds)
     B, T, A = logits.shape
-    _check(A <= 128, f"node_actions supports at most 128 actions, got {A}")
-    _check_rows(logits, "logits", torch.float32, B, T, A)
-    _check_rows(n_edge, "n_edge", torch.bfloat16, B, T, A)
-    _check_rows(w_edge, "w_edge", torch.float32, B, T, A)
-    _check_rows(children, "children", torch.int8, B, T, A)
-    _check(logits.stride(0) == w_edge.stride(0) == n_edge.stride(0) == children.stride(0),
-           "tree tensors must share one env stride")
+    _check_tree_rows(logits, n_edge, w_edge, children, B, T, A)
     _check_solve_args(rands, c_puct, q_bounds, (B, T))
     lib = build()
     dev = logits.device
@@ -414,3 +433,84 @@ def backup_dense(tree, leaves, n_per_visit):
 
 
 backup_dense.launches = 0
+
+
+# --------------------------------------------------------------------------
+# solve_probs and sample_children_multi (the split K>1 solve and sampler)
+# --------------------------------------------------------------------------
+
+def solve_probs_ref(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=6, accel=True,
+                    out="probs"):
+    """Plain twin of `solve_probs`: `search.node_probs`."""
+    probs, alpha = search.node_probs(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=n_iters,
+                                     accel=accel, return_alpha=True)
+    return alpha if out == "alpha" else probs
+
+
+def solve_probs(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=6, accel=True, out="probs"):
+    """The all-node solve alone.
+
+    logits f32, n_edge bf16, w_edge f32, each (B,R,A) with contiguous (R,A)
+    rows and one env stride (a leading-R slice of a wider node axis is
+    fine); c_puct (B,) f32; q_bounds (2,) f32 on the device (lo, hi).
+    -> probs (B,R,A) f32, contiguous, or with out="alpha" the roots (B,R)
+    f32, the same floats as `node_actions_multi(..., return_alpha=True)`'s."""
+    _check(out in ("probs", "alpha"), f"out must be 'probs' or 'alpha', got {out!r}")
+    if logits.device.type == "cpu":
+        return solve_probs_ref(logits, n_edge, w_edge, c_puct, q_bounds, n_iters, accel, out)
+    B, R, A = logits.shape
+    _check_tree_rows(logits, n_edge, w_edge, None, B, R, A)
+    _check_bounds(c_puct, q_bounds, B)
+    lib = build()
+    dev = logits.device
+    res = torch.empty((B, R) if out == "alpha" else (B, R, A), dtype=torch.float32, device=dev)
+    err = lib.solve_probs_launch(
+        logits.data_ptr(), n_edge.data_ptr(), w_edge.data_ptr(), B, R, A, logits.stride(0),
+        c_puct.data_ptr(), q_bounds.data_ptr(), n_iters, int(accel), int(out == "alpha"),
+        res.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "solve_probs")
+    solve_probs.launches += 1
+    return res
+
+
+solve_probs.launches = 0
+
+
+def sample_children_multi_ref(probs, children, rands):
+    """Plain twin of `sample_children_multi`:
+    `search._sample_children_multi` in the 'shift' order."""
+    acts, childs = search._sample_children_multi(children, probs, rands.permute(1, 0, 2),
+                                                 cum_mode="shift")
+    return acts.permute(1, 0, 2).contiguous(), childs.permute(1, 0, 2).contiguous()
+
+
+def sample_children_multi(probs, children, rands):
+    """K draws per node row from solved probs.
+
+    probs (B,R,A) f32 and children (B,R,A) int8, each with contiguous (R,A)
+    rows (a leading-R slice of a wider node axis is fine); rands (B,K,R)
+    f32. -> actions, child (B,K,R) int32; bit-equal to the twin."""
+    if probs.device.type == "cpu":
+        return sample_children_multi_ref(probs, children, rands)
+    B, R, A = probs.shape
+    K = rands.shape[1]
+    _check(A <= 128, f"sample_children_multi supports at most 128 actions, got {A}")
+    _check_rows(probs, "probs", torch.float32, B, R, A)
+    _check_rows(children, "children", torch.int8, B, R, A)
+    _check(rands.is_cuda and rands.dtype == torch.float32 and rands.is_contiguous()
+           and rands.dim() == 3 and tuple(rands.shape) == (B, K, R),
+           f"rands must be contiguous {(B, K, R)} f32")
+    lib = build()
+    dev = probs.device
+    actions = torch.empty((B, K, R), dtype=torch.int32, device=dev)
+    childs = torch.empty((B, K, R), dtype=torch.int32, device=dev)
+    err = lib.sample_children_multi_launch(
+        probs.data_ptr(), probs.stride(0), children.data_ptr(), children.stride(0), B, R, A, K,
+        rands.data_ptr(), actions.data_ptr(), childs.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "sample_children_multi")
+    sample_children_multi.launches += 1
+    return actions, childs
+
+
+sample_children_multi.launches = 0

@@ -8,12 +8,17 @@ tensors. Counterpart of boardlaw_tpu/mcts/search.py, for its two searches:
   up along the recorded path (`backup_path`). `descend_kernel=True` swaps
   the first two for the `descend` kernel, and `backup_kernel` then picks the
   torch-ops chase (`backup`) or the `backup` / `backup_dense` kernels.
-* K > 1 with grow passes (`simulate_multi`, the production search for boards
-  of 7 and up): each pass runs, over the first R = 1 + (p+1)K node rows of
-  pass p, the all-node solve and K inverse-CDF draws per node in the
-  `node_actions_multi` kernel, the K*B root->leaf chases in the `walk`
-  kernel, dedup of walks that halt at one edge, the Hex step and the network
-  eval of the K*B leaf worlds, and the prefix backup (`backup_paths_prefix`).
+* K > 1 (`simulate_multi`): each pass runs, over its R node rows, the
+  all-node solve and K inverse-CDF draws per node, the K*B root->leaf chases
+  in the `walk` kernel, dedup of walks that halt at one edge, the Hex step
+  and the network eval of the K*B leaf worlds, and one backup of the K paths
+  (`backup_paths_prefix`, or its spec `backup_paths`). With grow passes (the
+  production search for boards of 7 and up) pass p covers the first
+  R = 1 + (p+1)K rows; in scan mode every pass covers all T rows. The solve
+  and draws run fused in the `node_actions_multi` kernel, or split: the solve
+  by the `solve_probs` kernel (probs, or only the roots alpha), in torch ops,
+  or warm-started in torch ops from the previous pass's roots; the draws by
+  the `sample_children_multi` kernel or in torch ops (`MCTSConfig`).
 
 The JAX package routes its row reads and writes through one-hot einsums and
 blends, grows the tree by slicing and padding (`_slice_tree`, `_pad_tree`)
@@ -24,10 +29,11 @@ exactly what the JAX package pads in), reads and writes are index gathers and
 scatters, and chases are loops bounded by the tree's depth, with masks and no
 host sync. The values are the same; the dataflow is not.
 
-Every sampler follows the log-shift prefix-sum order of the Pallas kernels
-(the JAX `sample_cum='shift'` order), also where the JAX package's XLA K=1
-sampler `_sample` uses `jnp.cumsum`: the two differ only where a uniform lies
-within roundoff of a CDF boundary.
+Every kernel samples in the log-shift prefix-sum order of the Pallas kernels
+(the JAX `sample_cum='shift'` order), and so does the K=1 sampler, also
+where the JAX package's XLA K=1 sampler `_sample` uses `jnp.cumsum`: the two
+differ only where a uniform lies within roundoff of a CDF boundary. The K>1
+torch sampler follows `sample_cum`, 'matmul' (the JAX default) or 'shift'.
 
 Known-bug policy as in the JAX package: `backup_n='seats'` counts each
 backup visit once per seat, as the reference implementation does.
@@ -52,9 +58,10 @@ class MCTSConfig:
     The knobs that describe only TPU dataflow are not carried: the
     `pallas_*` switches and block sizes, `use_pallas`, `write_mode`,
     `gather_mode`, `mesh`/`mesh_axis`, `tree_dtype` and `compact`. The port
-    runs its kernels on the card, stores logits in float32, keeps the compact
-    tree (int8 children, bf16 edge counts) and samples with the log-shift
-    prefix sum (the JAX `sample_cum='shift'` order).
+    runs its kernels on the card, stores logits in float32 and keeps the
+    compact tree (int8 children, bf16 edge counts). Its kernels sample with
+    the log-shift prefix sum (the JAX `sample_cum='shift'` order); the K>1
+    torch sampler follows `sample_cum`.
 
     Two fields pick the kernel variants of the K=1 `simulate` and affect
     nothing else:
@@ -66,8 +73,20 @@ class MCTSConfig:
       `backup` kernel, 'dense' through the `backup_dense` kernel (JAX
       `pallas_backup='delta'` and `'dense'`).
 
-    Configurations this port does not carry yet raise a ValueError naming
-    the slice that brings them.
+    Two pick the solve and sampler of the K>1 `simulate_multi`:
+
+    * `solve_kernel`: 'fused' solves and draws in the `node_actions_multi`
+      kernel (JAX `pallas_nodes=True`); the split routes solve in torch ops
+      ('ops', JAX's XLA `node_probs`), in the `solve_probs` kernel ('probs',
+      JAX `pallas_solve=True`), or take only its roots alpha and evaluate
+      the probs in torch ops ('alpha', JAX `pallas_solve="alpha"`).
+      `warm_solve` warm-starts the torch solve and needs 'ops': in JAX the
+      warm solve takes precedence over the solve kernel.
+    * `sample_kernel`, read only on the split routes: draw in the
+      `sample_children_multi` kernel (JAX `pallas_sample=True`), else in
+      torch ops in the `sample_cum` order.
+
+    Invalid combinations raise a ValueError.
     """
 
     n_nodes: int = 64
@@ -79,22 +98,25 @@ class MCTSConfig:
     solve_iters: int = 6  # K>1 solve budget; K=1 always runs 16 Newton steps
     solve_accel: bool = True  # K>1 only, as solve_iters
     warm_solve: bool = False
+    sample_cum: str = "matmul"  # K>1 torch sampler: 'matmul' or 'shift'
     grow_passes: bool = False
-    backup_mode: str = "prefix"
+    backup_mode: str = "prefix"  # K>1: 'prefix', or its spec 'einsum'
     descend_kernel: bool = False
     backup_kernel: str = "ops"
+    solve_kernel: str = "fused"
+    sample_kernel: bool = False
 
     def __post_init__(self):
         if self.leaves_per_pass < 1:
             raise ValueError(f"leaves_per_pass must be >= 1, got {self.leaves_per_pass}")
-        if self.leaves_per_pass > 1 and not self.grow_passes:
-            raise ValueError("scan-mode passes (leaves_per_pass > 1 with grow_passes=False) "
-                             "come in a later slice")
-        if self.backup_mode != "prefix":
-            raise ValueError(f"backup_mode={self.backup_mode!r} (the einsum backup) comes "
-                             "in a later slice; this port carries 'prefix'")
-        if self.warm_solve:
-            raise ValueError("warm_solve comes in a later slice")
+        for name, allowed in (("backup_mode", ("prefix", "einsum")),
+                              ("sample_cum", ("matmul", "shift")),
+                              ("solve_kernel", ("fused", "ops", "probs", "alpha"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
+        if self.warm_solve and self.solve_kernel != "ops":
+            raise ValueError(f"warm_solve warm-starts the torch solve: it needs "
+                             f"solve_kernel='ops', got {self.solve_kernel!r}")
         if self.backup_n not in ("seats", "visits"):
             raise ValueError(f"backup_n must be 'seats' or 'visits', got {self.backup_n!r}")
         if self.backup_kernel not in ("ops", "delta", "dense"):
@@ -136,7 +158,8 @@ class Tree:
     w_edge: torch.Tensor  # (B,T,A) f32 child value sums for the parent's seat
     c_puct: torch.Tensor  # (B,) f32
     sim: int  # next free node slot
-    prew: torch.Tensor | None  # (B,T,S) f32 cumulative rewards root->node inclusive (K>1)
+    prew: torch.Tensor | None  # (B,T,S) f32 cumulative rewards root->node inclusive (K>1 prefix)
+    alpha: torch.Tensor | None = None  # (B,T) f32 the last pass's roots (K>1 warm_solve)
 
 
 def _map_world(world, fn):
@@ -151,6 +174,7 @@ def build(world, cfg: MCTSConfig):
     S = world.n_seats
     dev = world.device
     f32 = torch.float32
+    K = cfg.leaves_per_pass
 
     def zeros(*shape, dtype=f32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -174,7 +198,9 @@ def build(world, cfg: MCTSConfig):
         w_edge=zeros(B, T, A),
         c_puct=full((B,), cfg.c_puct, f32),
         sim=0,
-        prew=zeros(B, T, S) if cfg.leaves_per_pass > 1 else None,
+        prew=zeros(B, T, S) if K > 1 and cfg.backup_mode == "prefix" else None,
+        # zeros fail the warm gate (0 <= floor): the first pass starts cold
+        alpha=zeros(B, T) if K > 1 and cfg.warm_solve else None,
     )
 
 
@@ -239,7 +265,8 @@ def initialize(tree, decisions, draws, cfg: MCTSConfig, valid):
 # node_actions and node_actions_multi kernels compute both in one pass)
 # --------------------------------------------------------------------------
 
-def solve_policy(pi, q, lambda_n, tol=1e-3, n_iters=16, return_alpha=False, accel=False):
+def solve_policy(pi, q, lambda_n, tol=1e-3, n_iters=16, warm_alpha=None, return_alpha=False,
+                 accel=False):
     """Solve pi_bar(a) = lambda_n*pi(a)/(alpha - q(a)) for alpha with
     sum_a pi_bar = 1, over rows. pi, q (R,A); lambda_n (R,).
 
@@ -247,7 +274,11 @@ def solve_policy(pi, q, lambda_n, tol=1e-3, n_iters=16, return_alpha=False, acce
     one-sided err < tol test, or with `accel` safeguarded-Halley steps (the
     Newton step times 1/(1-t), t = err*s''/(2 s'^2), only from below the
     root and while t < 0.75, the factor capped at 4) with the two-sided
-    |err| < tol test."""
+    |err| < tol test.
+
+    `warm_alpha` (R,) restarts from an earlier solve's roots: kept where it
+    is above the floor and still below the new root (s(warm) > 1), and not
+    below the cold start; elsewhere the cold start."""
     lam = lambda_n[:, None].float()
     pi = pi.float()
     q = q.float()
@@ -256,6 +287,11 @@ def solve_policy(pi, q, lambda_n, tol=1e-3, n_iters=16, return_alpha=False, acce
     gap = torch.clamp_min(lampi, 1e-4)
     alpha = (q + gap).max(-1).values
     floor = q.max(-1).values + 1e-6
+    if warm_alpha is not None:
+        warm_alpha = warm_alpha.float()
+        s_w = (lampi / (warm_alpha[:, None] - q)).sum(-1)
+        ok = (warm_alpha > floor) & (s_w > 1.0)
+        alpha = torch.where(ok, torch.maximum(warm_alpha, alpha), alpha)
     done = torch.zeros(alpha.shape, dtype=torch.bool, device=alpha.device)
 
     for _ in range(n_iters):
@@ -315,16 +351,25 @@ def _q_bounds(tree):
 
 
 def node_probs(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=16, accel=False,
-               return_alpha=False):
+               return_alpha=False, warm_alpha=None, fixed_alpha=None):
     """Solved pi_bar for every node row: (B,T,A) tensors -> (B,T,A) f32
-    (and the (B,T) alphas with `return_alpha`)."""
+    (and the (B,T) alphas with `return_alpha`).
+
+    `warm_alpha` (B,T) warm-starts the solve (`solve_policy`);
+    `fixed_alpha` (B,T) skips it and evaluates lam*pi/(alpha - q) at the
+    given roots (the `solve_probs` kernel's alpha output)."""
     B, T, A = logits.shape
     q, counts = _edge_q_counts(n_edge, w_edge, q_bounds)
     pi = torch.exp(logits.float())
     N = counts.sum(-1)
     lam = c_puct[:, None] * N / (N + A)
+    if fixed_alpha is not None:
+        return (lam[:, :, None] * pi) / (fixed_alpha[:, :, None].float() - q)
+    if warm_alpha is not None:
+        warm_alpha = warm_alpha.reshape(B * T)
     probs, alpha = solve_policy(pi.reshape(B * T, A), q.reshape(B * T, A), lam.reshape(B * T),
-                                n_iters=n_iters, accel=accel, return_alpha=True)
+                                n_iters=n_iters, accel=accel, return_alpha=True,
+                                warm_alpha=warm_alpha)
     probs = probs.reshape(B, T, A)
     return (probs, alpha.reshape(B, T)) if return_alpha else probs
 
@@ -359,14 +404,36 @@ def _sample(probs, rand):
     return _draw(probs, _shift_cumsum(probs), rand)
 
 
-def _sample_children_multi(children, probs, rands):
+def _sample_children_multi(children, probs, rands, cum_mode="shift"):
     """K draws per node from solved probs (B,T,A) with rands (K,B,T) ->
     (actions, child) (K,B,T) int32, child 0 where a row has no positive
-    lane; the prefix sum is taken once for all K draws."""
-    cum = _shift_cumsum(probs)
+    lane; the prefix sum is taken once for all K draws.
+
+    cum_mode 'shift': the log-shift sum and "first positive lane with
+    cum >= r, else the last positive lane", bit-equal to the sampler
+    kernels. 'matmul' (the JAX default): the inclusive sum as one f32
+    product with the (A,A) upper-triangular ones (TF32 off, as JAX's
+    Precision.HIGHEST), and each draw as the count clip(#{cum < r},
+    first_pos, last_pos), the same draw up to the sums' roundoff. Draws
+    run one k at a time, so no (K,B,T,A) tensor is made."""
+    if cum_mode == "shift":
+        cum = _shift_cumsum(probs)
+    else:
+        A = probs.shape[-1]
+        lane = torch.arange(A, device=probs.device)
+        pos = probs > 0
+        first_pos = torch.where(pos, lane, A).min(-1).values
+        last_pos = torch.where(pos, lane, -1).max(-1).values
+        # full f32 while torch.backends.cuda.matmul.allow_tf32 is False (the
+        # default, which FCModel also sets)
+        cum = torch.matmul(probs.float(), (lane[:, None] <= lane[None, :]).float())
     acts, childs = [], []
     for k in range(rands.shape[0]):
-        a_k = _draw(probs, cum, rands[k])
+        if cum_mode == "shift":
+            a_k = _draw(probs, cum, rands[k])
+        else:
+            cnt = (cum < rands[k][..., None]).sum(-1)
+            a_k = torch.minimum(torch.maximum(cnt, first_pos), last_pos).to(torch.int32)
         c_k = torch.gather(children, -1, a_k.clamp_min(0)[..., None].long())[..., 0]
         acts.append(a_k)
         childs.append(torch.where(a_k >= 0, c_k.to(torch.int32), 0))
@@ -591,6 +658,22 @@ def backup_path(tree, path, acts, leaves, n_per_visit):
     return _apply_path_deltas(tree, *_path_deltas(tree, path, acts, leaves, n_per_visit))
 
 
+def backup_paths(tree, paths, acts, leaves, n_per_visit):
+    """Back up K recorded paths per env, in place: the executable spec of
+    `backup_paths_prefix` (the JAX package's `backup_mode='einsum'`). paths
+    (K,B,L) interior nodes (-1 padded), acts (K,B,R) the sampled actions,
+    leaves (K,B).
+
+    Each path's deltas are `backup_path`'s. They read only the tree's v,
+    terminal, rewards and seats, never the statistics they update, so every
+    path takes them from the pre-pass tree and adding them one path after
+    another sums them, as the JAX package's path one-hot contractions do:
+    n/n_edge exact and w/w_edge to float32 roundoff."""
+    for k in range(paths.shape[0]):
+        backup_path(tree, paths[k], acts[k], leaves[k], n_per_visit)
+    return tree
+
+
 def backup_paths_prefix(tree, paths, acts, leaves, n_per_visit):
     """Back up K recorded paths per env through the cumulative-reward
     prefix identity, in place. paths (K,B,L) interior nodes (-1 padded),
@@ -697,6 +780,47 @@ def simulate(tree, eval_fn, rands, cfg: MCTSConfig):
     return backup(tree, leaves, n_per_visit)
 
 
+def pass_shape(cfg: MCTSConfig, p):
+    """(rows, max_levels) of K>1 pass p: a grow pass covers the first
+    1 + (p+1)K rows, a scan pass all T. Tree depth grows at most one level a
+    pass, so p+2 levels cover grow pass p and n_passes+1 every scan pass
+    (the JAX `L_cap`)."""
+    T = tree_size(cfg)
+    if cfg.grow_passes:
+        return min(T, 1 + (p + 1) * cfg.leaves_per_pass), p + 2
+    return T, cfg.n_passes + 1
+
+
+def _solve_and_sample(tree, rands, cfg: MCTSConfig, R):
+    """The sampled action and child pointer (K,B,R) int32 of every node row,
+    for each of the K rands (K,B,R), by `cfg`'s route (JAX
+    `simulate_multi`'s branch order). The warm route stores its new roots
+    in tree.alpha."""
+    rows = (tree.logits[:, :R], tree.n_edge[:, :R], tree.w_edge[:, :R])
+    children = tree.children[:, :R]
+    solve = dict(n_iters=cfg.solve_iters, accel=cfg.solve_accel)
+    qb = _q_bounds(tree)
+    if cfg.solve_kernel == "fused":
+        a_bkt, c_bkt = kernels.node_actions_multi(
+            *rows, children, rands.permute(1, 0, 2).contiguous(), tree.c_puct, qb, **solve)
+        return a_bkt.permute(1, 0, 2), c_bkt.permute(1, 0, 2)
+    if cfg.warm_solve:
+        probs, alpha = node_probs(*rows, tree.c_puct, qb, warm_alpha=tree.alpha[:, :R],
+                                  return_alpha=True, **solve)
+        tree.alpha[:, :R] = alpha
+    elif cfg.solve_kernel == "ops":
+        probs = node_probs(*rows, tree.c_puct, qb, **solve)
+    else:
+        probs = kernels.solve_probs(*rows, tree.c_puct, qb, out=cfg.solve_kernel, **solve)
+        if cfg.solve_kernel == "alpha":
+            probs = node_probs(*rows, tree.c_puct, qb, fixed_alpha=probs)
+    if cfg.sample_kernel:
+        a_bkt, c_bkt = kernels.sample_children_multi(probs, children,
+                                                     rands.permute(1, 0, 2).contiguous())
+        return a_bkt.permute(1, 0, 2), c_bkt.permute(1, 0, 2)
+    return _sample_children_multi(children, probs, rands, cum_mode=cfg.sample_cum)
+
+
 def simulate_multi(tree, eval_fn, rands, cfg: MCTSConfig, rows, max_levels):
     """One K-leaf pass over the first `rows` node rows, in place: K walks per
     env from one all-node solve, one env step and net eval of the K*B leaf
@@ -704,19 +828,13 @@ def simulate_multi(tree, eval_fn, rands, cfg: MCTSConfig, rows, max_levels):
 
     Walks that halt at the same (parent, action) edge collapse: only the
     first writes, the others take its leaf slot (and are backed up once per
-    draw). The walk records at most `max_levels` levels; the tree grows at
-    most one level per pass, so p+2 covers pass p."""
+    draw). The walk records at most `max_levels` levels (`pass_shape`)."""
     K = cfg.leaves_per_pass
     B, _, A = tree.children.shape
     R = rows
     dev = tree.children.device
 
-    a_bkt, c_bkt = kernels.node_actions_multi(
-        tree.logits[:, :R], tree.n_edge[:, :R], tree.w_edge[:, :R], tree.children[:, :R],
-        rands.permute(1, 0, 2).contiguous(), tree.c_puct, _q_bounds(tree),
-        n_iters=cfg.solve_iters, accel=cfg.solve_accel)
-    acts = a_bkt.permute(1, 0, 2)  # (K,B,R)
-    nxts = c_bkt.permute(1, 0, 2)
+    acts, nxts = _solve_and_sample(tree, rands, cfg, R)  # (K,B,R)
 
     L = min(R, max_levels)
     p_f, a_f, h_f, path_f = kernels.walk(
@@ -754,8 +872,8 @@ def simulate_multi(tree, eval_fn, rands, cfg: MCTSConfig, rows, max_levels):
     def unflat(x):
         return x.reshape((K, B) + x.shape[1:])
 
-    p_par = tree.prew[b_k, pl]
-    set_rows(tree.prew, p_par + unflat(transition.rewards))
+    if tree.prew is not None:
+        set_rows(tree.prew, tree.prew[b_k, pl] + unflat(transition.rewards))
     set_rows(tree.parents, parents)
     set_rows(tree.relation, actions)
     for f in fields(world_flat):
@@ -768,13 +886,14 @@ def simulate_multi(tree, eval_fn, rands, cfg: MCTSConfig, rows, max_levels):
     tree.sim += K
 
     n_per_visit = tree.w.shape[-1] if cfg.backup_n == "seats" else 1
-    return backup_paths_prefix(tree, paths, acts, leaves, n_per_visit)
+    backup = backup_paths if cfg.backup_mode == "einsum" else backup_paths_prefix
+    return backup(tree, paths, acts, leaves, n_per_visit)
 
 
 def mcts(world, eval_fn, draws: Draws, cfg: MCTSConfig):
     """Full search: seed the root, then n_nodes-1 sequential sims (K=1), or
-    ceil((n_nodes-1)/K) grow passes, pass p over the first 1 + (p+1)K node
-    rows."""
+    ceil((n_nodes-1)/K) K-leaf passes, each over the rows `pass_shape`
+    gives (grow or scan passes)."""
     tree = build(world, cfg)
     tree = initialize(tree, eval_fn(world), draws, cfg, world.valid)
     K = cfg.leaves_per_pass
@@ -784,9 +903,8 @@ def mcts(world, eval_fn, draws: Draws, cfg: MCTSConfig):
             simulate(tree, eval_fn, draws.sim_rands(i, (B, T)), cfg)
         return tree
     for p in range(cfg.n_passes):
-        R = min(T, 1 + (p + 1) * K)
-        rands = draws.pass_rands(p, (K, B, R))
-        simulate_multi(tree, eval_fn, rands, cfg, rows=R, max_levels=p + 2)
+        R, L = pass_shape(cfg, p)
+        simulate_multi(tree, eval_fn, draws.pass_rands(p, (K, B, R)), cfg, rows=R, max_levels=L)
     return tree
 
 
@@ -805,36 +923,68 @@ def n_leaves(tree):
     return ((tree.children == -1).all(-1) & (tree.parents != -1)).sum(-1)
 
 
-class MCTSAgent:
-    """Agent over MCTS: `agent(world, draws, eval=False)` returns the improved
-    policy, the sampled (or argmax) action and telemetry. Runs on the
-    world's device; `draws` defaults to the agent's own `Draws`, seeded once
-    on that device, so successive calls draw fresh numbers."""
+class _Agent:
+    """Runs on the world's device; `draws` defaults to the agent's own
+    `Draws`, seeded once on that device, so successive calls draw fresh
+    numbers."""
 
-    def __init__(self, eval_fn, seed=0, **kwargs):
+    def __init__(self, eval_fn, seed=0):
         self.eval_fn = eval_fn
         self.seed = seed
         self.draws = None
+
+    def _draws(self, world, draws):
+        if draws is not None:
+            return draws
+        if self.draws is None or self.draws.device != world.device:
+            self.draws = Draws(self.seed, world.device)
+        return self.draws
+
+
+def _act(logits, draws, eval):
+    """The argmax action, or a draw from the policy: argmax(logits + Gumbel
+    noise), which is how `jax.random.categorical` draws."""
+    if eval:
+        return torch.argmax(logits, -1).to(torch.int32)
+    return torch.argmax(logits + draws.gumbel(logits.shape), -1).to(torch.int32)
+
+
+class MCTSAgent(_Agent):
+    """Agent over MCTS: `agent(world, draws, eval=False)` returns the improved
+    policy, the sampled (or argmax) action and telemetry."""
+
+    def __init__(self, eval_fn, seed=0, **kwargs):
+        super().__init__(eval_fn, seed)
         self.cfg = MCTSConfig(**kwargs)
 
     def __call__(self, world, draws=None, eval=False, **overrides):
         cfg = replace(self.cfg, **overrides) if overrides else self.cfg
-        if draws is None:
-            if self.draws is None or self.draws.device != world.device:
-                self.draws = Draws(self.seed, world.device)
-            draws = self.draws
+        draws = self._draws(world, draws)
         tree = mcts(world, self.eval_fn, draws, cfg)
         r = root(tree)
-        if eval:
-            actions = torch.argmax(r["logits"], -1)
-        else:
-            actions = torch.argmax(r["logits"] + draws.gumbel(r["logits"].shape), -1)
         B = world.n_envs
         return {
             "logits": r["logits"],
             "prior": r["prior"],
             "v": r["v"],
-            "actions": actions.to(torch.int32),
+            "actions": _act(r["logits"], draws, eval),
             "n_sims": torch.full((B,), cfg.n_nodes, dtype=torch.int32, device=world.device),
             "n_leaves": n_leaves(tree),
+        }
+
+
+class DummyAgent(_Agent):
+    """No-search baseline: act from the network alone, with `MCTSAgent`'s
+    output keys."""
+
+    def __call__(self, world, draws=None, eval=False):
+        r = self.eval_fn(world)
+        B = world.n_envs
+        return {
+            "logits": r["logits"],
+            "prior": r["logits"],
+            "v": r["v"],
+            "actions": _act(r["logits"], self._draws(world, draws), eval),
+            "n_sims": torch.zeros((B,), dtype=torch.int32, device=world.device),
+            "n_leaves": torch.ones((B,), dtype=torch.int32, device=world.device),
         }

@@ -46,7 +46,10 @@ BEST = {
 class TrainConfig:
     """The fields that change what a train step computes. The defaults are
     the JAX package's (K=1, the sequential search); `make_config` applies
-    `run`'s switch to K=8 grow passes for boards of 7 and up."""
+    `run`'s switch to K=8 grow passes for boards of 7 and up. The search
+    fields are `MCTSConfig`'s; `solve_kernel` and `sample_kernel` are the
+    port's counterparts of the JAX `pallas_nodes`/`pallas_solve` and
+    `pallas_sample` switches."""
 
     boardsize: int
     width: int
@@ -66,6 +69,10 @@ class TrainConfig:
     solve_accel: bool = True
     grow_passes: bool = False
     backup_mode: str = "prefix"
+    warm_solve: bool = False
+    sample_cum: str = "matmul"
+    solve_kernel: str = "fused"
+    sample_kernel: bool = False
 
     def mcts_config(self):
         return MCTSConfig(
@@ -77,6 +84,10 @@ class TrainConfig:
             solve_accel=self.solve_accel,
             grow_passes=self.grow_passes,
             backup_mode=self.backup_mode,
+            warm_solve=self.warm_solve,
+            sample_cum=self.sample_cum,
+            solve_kernel=self.solve_kernel,
+            sample_kernel=self.sample_kernel,
         )
 
 

@@ -4,12 +4,18 @@
 
 Phases, each a hard failure with a non-zero exit, each printing its seconds:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-  2. build the six CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a);
+  2. build the eight CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a);
   3. the K=8 kernels against their plain PyTorch twins at the shapes of the
      9x9 main path's last pass, on a real mid-search tree: `walk` bit-exact,
      `node_actions_multi` draw for draw up to roundoff at CDF boundaries and
      its alpha to rtol 1e-5; a small 9x9 search on the card against the same
      search on the CPU (twins);
+  3b. the split K=8 kernels at the 9x9 scan pass's shapes ((B,T,A) =
+     (32768, 65, 81)), on a real tree after 5 scan passes: `solve_probs`
+     probs against `search.node_probs` (rtol 1e-5, atol 1e-7), its alpha
+     equal to `node_actions_multi`'s, `sample_children_multi` equal to its
+     twin in every draw, the split pair equal to `node_actions_multi` in
+     every draw; a small 9x9 scan search on the card against the CPU;
   4. the K=1 kernels at the 6x6 path's shapes (`best_config(6)`, 32,768
      envs, T=64, A=36) on a real tree after 30 sims: `node_actions` draw for
      draw up to CDF boundaries, `descend` equal to `node_actions` + `walk`,
@@ -31,6 +37,16 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      e. one 6x6 K=1 train step after its warmup, at `--k1-learner-envs`;
      f. a tiny train step on the card against the same step on the CPU:
         losses to rtol 1e-4;
+     g. the 9x9 scan path (`make_config(9, 512, 4, grow_passes=False,
+        solve_kernel="probs", sample_kernel=True)`) from 5a's worlds:
+        `--steps` actor steps with 8 launches each of `solve_probs`,
+        `sample_children_multi` and `walk` per step and 128 root visits, then
+        one train step after a full warmup, aux finite, parameters moved;
+     h. one 9x9 scan search per other route ('alpha' with the torch 'matmul'
+        sampler, 'ops' with the sampler kernel, 'fused', the einsum backup,
+        the warm solve) from the same worlds and draws, each with its launch
+        counts, the trees held against 5g's route (equal on all but 1% of
+        envs, w to atol 1e-4; the warm solve's invariants only);
   6. a JSON line of kernel numbers, and the last line
      {"ok": true, "device": {...}}.
 """
@@ -58,11 +74,16 @@ F32_FLOPS = 67e12
 BACKUP_BYTES_PER_LEVEL = 57
 
 
-def _solve_ops_per_lane(n_iters, K):
+def _solve_only_ops_per_lane(n_iters):
     """float operations per (node row, action lane) of the row solve: q (4),
     exp, count, lambda*pi, the initial bound (3), 8 per solver step, probs
-    (2), 7 prefix-sum adds and 2 compares per draw."""
-    return 10 + 8 * n_iters + 2 + 7 + 2 * K
+    (2)."""
+    return 10 + 8 * n_iters + 2
+
+
+def _solve_ops_per_lane(n_iters, K):
+    """The solve, then 7 prefix-sum adds and 2 compares per draw."""
+    return _solve_only_ops_per_lane(n_iters) + 7 + 2 * K
 
 
 def card_line():
@@ -128,6 +149,21 @@ def read_counts():
     return {name: getattr(kernels, name).launches for name in KERNELS}
 
 
+def search_launches(mcfg):
+    """The kernel launches of one search under `mcfg`'s route."""
+    if mcfg.leaves_per_pass == 1:
+        return {"walk": mcfg.n_nodes - 1, "node_actions": mcfg.n_nodes - 1}
+    P = mcfg.n_passes
+    if mcfg.solve_kernel == "fused":
+        return {"walk": P, "node_actions_multi": P}
+    out = {"walk": P}
+    if mcfg.solve_kernel in ("probs", "alpha"):
+        out["solve_probs"] = P
+    if mcfg.sample_kernel:
+        out["sample_children_multi"] = P
+    return out
+
+
 def run_path(name, expected, fn):
     """Drive one path with every count at 0 before; fail unless each kernel
     launched exactly `expected[name]` times (0 for kernels not listed)."""
@@ -155,7 +191,7 @@ def mix_worlds(boardsize, n_envs, draws, steps):
 # --------------------------------------------------------------------------
 
 def mid_search_tree(cfg, model, draws, n_envs, passes):
-    """A real tree after `passes` grow passes of the port's K=8 search."""
+    """A real tree after `passes` passes of the port's K=8 search."""
     from boardlaw_tpu_torch.mcts import search
     from boardlaw_tpu_torch.models.networks import make_eval_fn
 
@@ -165,11 +201,10 @@ def mid_search_tree(cfg, model, draws, n_envs, passes):
     tree = search.build(worlds, mcfg)
     search.initialize(tree, eval_fn(worlds), draws, mcfg, worlds.valid)
     K = mcfg.leaves_per_pass
-    T = tree.parents.shape[1]
     for p in range(passes):
-        R = min(T, 1 + (p + 1) * K)
+        R, L = search.pass_shape(mcfg, p)
         search.simulate_multi(tree, eval_fn, draws.pass_rands(p, (K, n_envs, R)), mcfg,
-                              rows=R, max_levels=p + 2)
+                              rows=R, max_levels=L)
     return tree
 
 
@@ -248,6 +283,85 @@ def check_node_actions_multi(tree, cfg, draws, report):
           f"{nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
           f"{ops / 1e9:.2f} GFLOP -> f32 bound {ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
     return ka, kc
+
+
+def check_split_kernels(tree, cfg, draws, report):
+    """`solve_probs` and `sample_children_multi` against their twins and
+    against `node_actions_multi`, on one tree and one set of rands."""
+    import torch
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    mcfg = cfg.mcts_config()
+    B, T, A = tree.logits.shape
+    K = mcfg.leaves_per_pass
+    rands = draws.uniform((B, K, T))
+    qb = search._q_bounds(tree)
+    rows = (tree.logits, tree.n_edge, tree.w_edge)
+    kw = dict(n_iters=mcfg.solve_iters, accel=mcfg.solve_accel)
+    probs = kernels.solve_probs(*rows, tree.c_puct, qb, **kw)
+    alpha = kernels.solve_probs(*rows, tree.c_puct, qb, out="alpha", **kw)
+    r_probs, r_alpha = search.node_probs(*rows, tree.c_puct, qb, return_alpha=True, **kw)
+    fa, fc, f_alpha = kernels.node_actions_multi(*rows, tree.children, rands, tree.c_puct, qb,
+                                                 return_alpha=True, **kw)
+    sync()
+    if not torch.equal(alpha, f_alpha):
+        fail("solve_probs alpha differs from node_actions_multi's")
+
+    def close(x, ref):  # per row: every lane within rtol 1e-5, atol 1e-7
+        return ((x - ref).abs() <= 1e-7 + 1e-5 * ref.abs()).all(-1)
+
+    # the probs evaluation alone: the twin's formula at the kernel's roots
+    at_alpha = search.node_probs(*rows, tree.c_puct, qb, fixed_alpha=alpha)
+    eval_ok = float(close(probs, at_alpha).float().mean())
+    rows_ok = float(close(probs, r_probs).float().mean())
+    rel = ((alpha - r_alpha).abs() / r_alpha.abs()).flatten()
+    alpha_ok = float((rel <= 1e-5).float().mean())
+    err = float((probs - r_probs).abs().max())
+    print(f"solve_probs vs twin at (B,T,A)=({B},{T},{A}): alpha equal to node_actions_multi's on "
+          f"every row; probs within rtol 1e-5, atol 1e-7 of the twin's formula at the kernel's "
+          f"alpha on {eval_ok:.8f} of rows; of the twin's own solve on {rows_ok:.8f} of rows "
+          f"(max |probs| difference {err:.3g}), its alpha within rtol 1e-5 on {alpha_ok:.8f} of "
+          f"rows (max rel {float(rel.max()):.3g}): the solve's lane sums run in another order "
+          f"than the twin's", flush=True)
+    if eval_ok < 1.0:
+        fail("solve_probs: probs differ from the twin's formula at the kernel's alpha")
+    if alpha_ok < 0.9999 or rows_ok < 0.999:
+        fail("solve_probs: the solve disagrees with the twin")
+
+    ka, kc = kernels.sample_children_multi(r_probs, tree.children, rands)
+    ra, rc = kernels.sample_children_multi_ref(r_probs, tree.children, rands)
+    sa, sc = kernels.sample_children_multi(probs, tree.children, rands)
+    sync()
+    if not (torch.equal(ka, ra) and torch.equal(kc, rc)):
+        fail(f"sample_children_multi differs from its twin in {int((ka != ra).sum())} draws")
+    if not (torch.equal(sa, fa) and torch.equal(sc, fc)):
+        fail(f"solve_probs + sample_children_multi differ from node_actions_multi in "
+             f"{int((sa != fa).sum())} draws")
+    print(f"sample_children_multi at (B,K,T,A)=({B},{K},{T},{A}): all {ka.numel()} draws and "
+          f"child pointers equal to the twin's on the twin's probs; solve_probs + "
+          f"sample_children_multi equal to node_actions_multi in every draw", flush=True)
+
+    k_ms = time_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, **kw), 20)
+    a_ms = time_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, out="alpha", **kw), 20)
+    r_ms = time_ms(lambda: search.node_probs(*rows, tree.c_puct, qb, **kw), 5)
+    nbytes = B * T * A * (4 + 2 + 4 + 4) + B * 4 + 8
+    a_bytes = B * T * A * (4 + 2 + 4) + B * T * 4 + B * 4 + 8
+    ops = B * T * A * _solve_only_ops_per_lane(mcfg.solve_iters)
+    report["solve_probs"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes, ops=ops)
+    print(f"solve_probs: kernel {k_ms:.4f} ms (out='alpha' {a_ms:.4f} ms), twin {r_ms:.4f} ms "
+          f"(median); {nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"(alpha {a_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), {ops / 1e9:.2f} GFLOP -> f32 bound "
+          f"{ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
+
+    s_ms = time_ms(lambda: kernels.sample_children_multi(probs, tree.children, rands), 20)
+    rs_ms = time_ms(lambda: kernels.sample_children_multi_ref(probs, tree.children, rands), 5)
+    s_bytes = B * T * A * (4 + 1) + B * K * T * (4 + 4 + 4)
+    s_ops = B * T * A * (7 + 2 * K)
+    report["sample_children_multi"] = dict(ms=s_ms, plain_ms=rs_ms, max_abs_err=0.0,
+                                           bytes=s_bytes, ops=s_ops)
+    print(f"sample_children_multi: kernel {s_ms:.4f} ms, twin {rs_ms:.4f} ms (median); "
+          f"{s_bytes / 1e9:.3f} GB -> bytes bound {s_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+          f"{s_ops / 1e9:.2f} GFLOP -> f32 bound {s_ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
 
 
 def check_walk(tree, acts_bkt, nxt_bkt, max_levels, report):
@@ -528,23 +642,25 @@ def check_k1_variants(cfg, model, worlds, seed):
     return counts
 
 
-def check_learner(cfg, seed, steps, label):
-    """make_train, init, a full warmup and `steps` train steps; returns the
-    launch counts, the train-step seconds and the peak memory."""
+def check_learner(cfg, seed, steps, label, worlds=None):
+    """make_train, init (on `worlds` if given, else on freshly mixed ones), a
+    full warmup and `steps` train steps, with their launch counts."""
     import torch
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.draws import Draws
 
-    model, _, init, warmup, train_step = train.make_train(cfg, device=DEV)
+    model, opt, init, warmup, train_step = train.make_train(cfg, device=DEV)
     draws = Draws(seed, DEV)
-    state = init(draws)
+    if worlds is None:
+        state = init(draws)
+    else:
+        own = copy.deepcopy(model)
+        state = train.TrainState(worlds=worlds, buffer=train.empty_buffer(cfg, worlds), ptr=0,
+                                 model=own, optimizer=opt(own.parameters()), step=0)
     sync()
     torch.cuda.reset_peak_memory_stats()
     step_s = []
-    mcfg = cfg.mcts_config()
-    per_step = mcfg.n_passes if mcfg.leaves_per_pass > 1 else mcfg.n_nodes - 1
-    expected = ({"walk": per_step, "node_actions_multi": per_step} if mcfg.leaves_per_pass > 1
-                else {"walk": per_step, "node_actions": per_step})
+    expected = search_launches(cfg.mcts_config())
 
     def drive():
         nonlocal state
@@ -579,6 +695,66 @@ def check_learner(cfg, seed, steps, label):
     return counts
 
 
+def scan_config(cfg9):
+    """The 9x9 scan path: every pass over all 65 rows, the split solve and
+    sampler kernels (the JAX dry-run's production-shaped search)."""
+    return replace(cfg9, grow_passes=False, solve_kernel="probs", sample_kernel=True)
+
+
+def same_trees(tree, ref):
+    """Per env: children, n and n_edge equal."""
+    return ((tree.children == ref.children).flatten(1).all(1) & (tree.n == ref.n).all(1)
+            & (tree.n_edge == ref.n_edge).flatten(1).all(1))
+
+
+def check_scan_routes(cfg, model, worlds, seed):
+    """One 9x9 scan search per other route of `simulate_multi` from the same
+    worlds and draws, each held against `cfg`'s route (the split kernels)."""
+    import torch
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.mcts import search
+    from boardlaw_tpu_torch.models.networks import make_eval_fn
+
+    mcfg = cfg.mcts_config()
+    eval_fn = make_eval_fn(model)
+    B, T = worlds.n_envs, search.tree_size(mcfg)
+    ref = search.mcts(worlds, eval_fn, Draws(seed, DEV), mcfg)
+    root_visits = 2 * mcfg.leaves_per_pass * mcfg.n_passes
+    counts = {}
+    for name, kw in (("'alpha' + torch 'matmul' sampler", dict(solve_kernel="alpha",
+                                                              sample_kernel=False)),
+                     ("'ops' + sampler kernel", dict(solve_kernel="ops")),
+                     ("'fused'", dict(solve_kernel="fused")),
+                     ("einsum backup", dict(backup_mode="einsum")),
+                     ("warm solve on 'ops'", dict(solve_kernel="ops", warm_solve=True))):
+        vcfg = replace(mcfg, **kw)
+        t0 = time.time()
+        c, tree = run_path(f"the 9x9 scan search, {name}", search_launches(vcfg),
+                           lambda: search.mcts(worlds, eval_fn, Draws(seed, DEV), vcfg))
+        secs = time.time() - t0
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        if not (tree.n[:, 0] == root_visits).all():
+            fail(f"scan route {name}: root visits {tree.n[:, 0].unique().tolist()}")
+        if not (torch.isfinite(tree.w).all() and torch.isfinite(tree.w_edge).all()
+                and int(tree.children.max()) < T):
+            fail(f"scan route {name}: non-finite stats or a child pointer >= T")
+        if vcfg.warm_solve:
+            print(f"scan route {name} ({secs:.3f} s per search): root visits {root_visits}, stats "
+                  f"finite, child pointers below T (its alpha is another root, so its trees "
+                  f"are not compared)", flush=True)
+            continue
+        same = same_trees(tree, ref)
+        n_diff = int((~same).sum())
+        w_err = float((tree.w - ref.w)[same].abs().max())
+        print(f"scan route {name} ({secs:.3f} s per search): {n_diff} of {B} envs differ from "
+              f"the split-kernel route in children/n/n_edge; max |w| difference on the others "
+              f"{w_err:.3g}", flush=True)
+        if n_diff > 0.01 * B or w_err > 1e-4:
+            fail(f"the scan route {name} disagrees with the split-kernel route")
+    return counts
+
+
 def check_train_step_cpu_vs_gpu(seed):
     """A tiny train step on the card (kernels) against the same step on the
     CPU (twins), from one warmed-up state and the same draws."""
@@ -609,7 +785,7 @@ def check_train_step_cpu_vs_gpu(seed):
         fail("the train step on the card disagrees with the step on the CPU")
 
 
-# the six kernels: route, source, the Pallas kernel each replaces
+# the eight kernels: route, source, the Pallas kernel each replaces
 KERNELS = {
     "walk": ("cuda", "boardlaw_tpu_torch/csrc/walk.cu", "boardlaw_tpu/mcts/pallas_kernels.py:530"),
     "node_actions_multi": ("cuda", "boardlaw_tpu_torch/csrc/node_actions_multi.cu",
@@ -622,6 +798,10 @@ KERNELS = {
                "boardlaw_tpu/mcts/pallas_kernels.py:797"),
     "backup_dense": ("cuda", "boardlaw_tpu_torch/csrc/backup_dense.cu",
                      "boardlaw_tpu/mcts/pallas_kernels.py:909"),
+    "solve_probs": ("cuda", "boardlaw_tpu_torch/csrc/solve_probs.cu",
+                    "boardlaw_tpu/mcts/pallas_kernels.py:75"),
+    "sample_children_multi": ("cuda", "boardlaw_tpu_torch/csrc/sample_children_multi.cu",
+                              "boardlaw_tpu/mcts/pallas_kernels.py:457"),
 }
 
 
@@ -654,6 +834,7 @@ def main(argv=None):
     report = {}
     cfg9 = train.make_config(9, 512, 4, n_envs=args.envs)
     mcfg9 = cfg9.mcts_config()
+    cfg9s = scan_config(cfg9)
     model9 = train.build_model(cfg9, device=DEV, generator=torch.Generator().manual_seed(args.seed))
     cfg6 = train.best_config(6, n_envs=args.envs)
     mcfg6 = cfg6.mcts_config()
@@ -668,6 +849,15 @@ def main(argv=None):
         check_walk(tree, ka, kc, mcfg9.n_passes + 1, report)
         del tree, ka, kc
         check_search_cpu_vs_gpu(cfg9, model9)
+        torch.cuda.empty_cache()
+
+    # 3b. the split K=8 kernels at the 9x9 scan pass's shapes
+    with Phase("split K=8 kernels against their twins"):
+        draws = Draws(args.seed + 4, DEV)
+        tree = mid_search_tree(cfg9s, model9, draws, cfg9.n_envs, passes=5)
+        check_split_kernels(tree, cfg9s, draws, report)
+        del tree
+        check_search_cpu_vs_gpu(cfg9s, model9)
         torch.cuda.empty_cache()
 
     # 4. the K=1 kernels at the 6x6 path's shapes
@@ -691,7 +881,7 @@ def main(argv=None):
         worlds = train.init_worlds(cfg9, draws)
         c, (_, step_s) = run_path(
             f"{args.steps} 9x9 actor steps",
-            {"walk": mcfg9.n_passes * args.steps, "node_actions_multi": mcfg9.n_passes * args.steps},
+            {k: v * args.steps for k, v in search_launches(mcfg9).items()},
             lambda: actor_steps(cfg9, model9, worlds, draws, args.steps,
                                 2 * mcfg9.leaves_per_pass * mcfg9.n_passes))
         launches.update(walk=c["walk"], node_actions_multi=c["node_actions_multi"])
@@ -699,7 +889,7 @@ def main(argv=None):
         print(f"actor step (9x9, 512x4, {cfg9.n_envs} envs, 64 nodes, K=8): steps {step_s} s, "
               f"median after the first {steady(step_s):.4f} s/step, {sims:.0f} sims/s, peak "
               f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {card}", flush=True)
-        del worlds
+        worlds9 = worlds
 
     # 5b. the 6x6 K=1 actor path
     with Phase("6x6 actor steps (K=1)"):
@@ -737,6 +927,33 @@ def main(argv=None):
     # 5f. a tiny train step on the card against the CPU
     with Phase("train step, card vs CPU"):
         check_train_step_cpu_vs_gpu(args.seed)
+
+    # 5g. the 9x9 scan path, from 5a's worlds
+    with Phase("9x9 scan path (K=8, split kernels)"):
+        mcfg9s = cfg9s.mcts_config()
+        draws = Draws(args.seed, DEV)
+        torch.cuda.reset_peak_memory_stats()
+        c, (_, step_s) = run_path(
+            f"{args.steps} 9x9 scan actor steps",
+            {k: v * args.steps for k, v in search_launches(mcfg9s).items()},
+            lambda: actor_steps(cfg9s, model9, worlds9, draws, args.steps,
+                                2 * mcfg9s.leaves_per_pass * mcfg9s.n_passes))
+        launches.update(solve_probs=c["solve_probs"],
+                        sample_children_multi=c["sample_children_multi"])
+        sims = cfg9s.n_envs * mcfg9s.n_passes * mcfg9s.leaves_per_pass / steady(step_s)
+        print(f"scan actor step (9x9, 512x4, {cfg9s.n_envs} envs, 64 nodes, K=8, solve_probs + "
+              f"sample_children_multi): steps {step_s} s, median after the first "
+              f"{steady(step_s):.4f} s/step, {sims:.0f} sims/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {card}", flush=True)
+        check_learner(cfg9s, args.seed, 1, "the 9x9 scan learner (K=8, split kernels)",
+                      worlds=worlds9)
+        torch.cuda.empty_cache()
+
+    # 5h. the other scan routes
+    with Phase("9x9 scan routes"):
+        check_scan_routes(cfg9s, model9, worlds9, args.seed + 5)
+        del worlds9
+        torch.cuda.empty_cache()
 
     # 6. the records
     rows = []

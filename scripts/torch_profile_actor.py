@@ -1,6 +1,7 @@
 """Where the time of the PyTorch/CUDA port's steps goes, on one GPU.
 
-    python3 scripts/torch_profile_actor.py [--envs 32768] [--mix 2500] [--out output/profile_actor.txt]
+    python3 scripts/torch_profile_actor.py [--envs 32768] [--mix 2500] [--scan]
+        [--out output/profile_actor.txt]
 
 Profiles three steps, each after two warm-up calls of the same step, under
 torch.profiler (CPU and CUDA activities):
@@ -12,6 +13,11 @@ torch.profiler (CPU and CUDA activities):
    its contents, not the work);
 3. a 6x6 K=1 actor step (`best_config(6)`: 128x1 model, 63 sequential sims
    through the `node_actions` and `walk` kernels).
+
+With --scan, steps 1 and 2 run the 9x9 scan-mode search instead (every pass
+over all 65 rows, `solve_kernel="probs"`, `sample_kernel=True`: the
+`solve_probs`, `sample_children_multi` and `walk` kernels), and step 3 is
+left out.
 
 For each it prints the card line, the step's wall time, the device busy
 share (sum of kernel times over the wall time) and the CUDA kernels by total
@@ -54,6 +60,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--envs", type=int, default=32 * 1024)
     parser.add_argument("--mix", type=int, default=2500)
+    parser.add_argument("--scan", action="store_true",
+                        help="profile the 9x9 scan-mode actor and train steps only")
     parser.add_argument("--out", default="output/profile_actor.txt")
     args = parser.parse_args(argv)
 
@@ -73,7 +81,11 @@ def main(argv=None):
         out.write(f"{card}\n")
         draws = Draws(0, "cuda")
 
-        cfg9 = train.make_config(9, 512, 4, n_envs=args.envs, mix_steps=args.mix)
+        scan = {}
+        if args.scan:
+            scan = dict(grow_passes=False, solve_kernel="probs", sample_kernel=True)
+        mode = "scan passes, solve_probs + sample_children_multi" if args.scan else "grow passes"
+        cfg9 = train.make_config(9, 512, 4, n_envs=args.envs, mix_steps=args.mix, **scan)
         model, _, init, _, train_step = train.make_train(cfg9, device="cuda")
         state = init(draws)
         worlds = state.worlds
@@ -82,10 +94,12 @@ def main(argv=None):
             nonlocal worlds
             worlds, _ = train.actor_record(cfg9, model, worlds, draws)
 
-        profile_step(f"9x9 actor step (K=8, {args.envs} envs)", actor9, out)
-        profile_step(f"9x9 train_step (K=8, {args.envs} envs)",
+        profile_step(f"9x9 actor step (K=8, {mode}, {args.envs} envs)", actor9, out)
+        profile_step(f"9x9 train_step (K=8, {mode}, {args.envs} envs)",
                      lambda: train_step(state, draws), out)
         del state, worlds
+        if args.scan:
+            return 0
 
         cfg6 = train.best_config(6, n_envs=args.envs, mix_steps=args.mix)
         model6 = train.build_model(cfg6, device="cuda", generator=torch.Generator().manual_seed(0))

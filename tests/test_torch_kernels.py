@@ -14,6 +14,13 @@ held in the port's storage types (f32 logits, bf16 n_edge, int8 children).
   equals `S.descend` and `PK.descend`; `search.backup`, the twin of both
   backup kernels, equals `S.backup`, `PK.backup` and `PK.backup_dense`: n
   exact, w/n_edge/w_edge to atol 1e-5.
+* The split K>1 twins: `solve_probs_ref` equals `PK.solve_probs` in both
+  output modes to rtol 1e-5, atol 1e-7; `sample_children_multi_ref` equals
+  `PK.sample_children_multi` bit for bit on the same probs; the 'matmul'
+  sampler equals the 'shift' one (and JAX's 'matmul') on dyadic probs,
+  where both sums are exact; `search.backup_paths` equals JAX's
+  `backup_paths` on the inputs of a real pass (n/n_edge exact, w/w_edge to
+  atol 1e-5).
 
 The CUDA kernels themselves are held against these twins on the card in
 tests/test_torch_kernels_cuda.py, which imports no JAX.
@@ -27,7 +34,7 @@ import torch
 from boardlaw_tpu.mcts import search as S
 from boardlaw_tpu.mcts import pallas_kernels as PK
 from boardlaw_tpu_torch.mcts import kernels, search as TS
-from test_torch_search import _port_tree
+from test_torch_search import _models, _port_tree, _worlds
 
 torch.set_num_threads(2)
 
@@ -254,3 +261,96 @@ def test_cuda_wrappers_refuse_bad_inputs():
     three = _port_tree(_random_tree(rng, 2, 4, 3, Sn=3))
     with pytest.raises(ValueError):
         kernels.backup_dense(three, torch.zeros((2,), dtype=torch.int32), 1)
+
+
+@pytest.mark.parametrize("seed,c_puct,n_iters,accel", [(0, 1.0, 6, True), (2, 0.0625, 16, False)])
+def test_solve_probs_twin_matches_pallas(seed, c_puct, n_iters, accel):
+    rng = np.random.default_rng(seed)
+    B, T, A = 16, 12, 7
+    tree = _random_tree(rng, B, T, A, c_puct=c_puct)
+    qb = S._q_bounds(tree)
+    inp = _port_inputs(tree)
+    del inp["children"]
+    for out in ("probs", "alpha"):
+        jres = PK.solve_probs(tree, qb, n_iters=n_iters, accel=accel, interpret=True, out=out)
+        tres = kernels.solve_probs(n_iters=n_iters, accel=accel, out=out, **inp)  # CPU: the twin
+        assert tres.shape == ((B, T) if out == "alpha" else (B, T, A))
+        np.testing.assert_allclose(tres.numpy(), np.asarray(jres), rtol=1e-5, atol=1e-7,
+                                   err_msg=out)
+    # the alpha route's probs, evaluated at the roots, are the solve's probs
+    probs = TS.node_probs(*(inp[k] for k in ("logits", "n_edge", "w_edge", "c_puct", "q_bounds")),
+                          fixed_alpha=tres)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(S.node_probs(tree, qb, n_iters=n_iters,
+                                                                      accel=accel)),
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_sample_children_twin_matches_pallas(seed):
+    rng = np.random.default_rng(seed)
+    B, T, A, K = 16, 12, 7, 4
+    tree = _random_tree(rng, B, T, A)
+    rands = jax.random.uniform(jax.random.PRNGKey(seed), (B, K, T))
+    probs = S.node_probs(tree, S._q_bounds(tree))
+    ja, jc = PK.sample_children_multi(probs, tree.children, rands, block_envs=8, interpret=True)
+    n0 = kernels.sample_children_multi.launches
+    ta, tc = kernels.sample_children_multi(_t(probs), _t(tree.children, torch.int8), _t(rands))
+    assert kernels.sample_children_multi.launches == n0
+    assert ta.dtype == tc.dtype == torch.int32 and ta.shape == (B, K, T)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+def test_sampler_matmul_matches_shift_on_dyadic_probs():
+    # tests/test_mcts.py's case: with exactly representable probs both prefix
+    # sums are exact, so the two formulations agree bit for bit, also for
+    # rand 0 on a zero-prob lane 0, a rand on a boundary, a rand past an
+    # unnormalized total and an all-zero row
+    from types import SimpleNamespace
+
+    B, T, A, K = 4, 2, 8, 5
+    base = np.zeros((B, T, A), np.float32)
+    base[..., :] = [0.0, 0.25, 0.0, 0.125, 0.5, 0.125, 0.0, 0.0]
+    base[1] = 0.0
+    base[2, :, :] = [0.5, 0.25, 0.125, 0.0625, 0.03125, 0.0, 0.0, 0.0]
+    base[3, :, :] = [0.0, 0.5, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0]
+    rng = np.random.default_rng(0)
+    children = rng.integers(-1, T, size=(B, T, A)).astype(np.int8)
+    rands = np.broadcast_to(np.array([0.0, 0.25, 0.5, 0.9375, 0.999], np.float32)[:, None, None],
+                            (K, B, T)).copy()
+    rands[4] = rng.uniform(size=(B, T))
+    outs = {mode: TS._sample_children_multi(torch.tensor(children), torch.tensor(base),
+                                            torch.tensor(rands), cum_mode=mode)
+            for mode in ("matmul", "shift")}
+    ja, jc = S._sample_children_multi(SimpleNamespace(children=jnp.asarray(children)),
+                                      jnp.asarray(base), jnp.asarray(rands), cum_mode="matmul")
+    for a, c in outs.values():
+        np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+        np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+    assert (outs["shift"][0][:, 1] == -1).all() and (outs["shift"][1][:, 1] == 0).all()
+
+
+def test_backup_paths_matches_jax():
+    # the einsum spec on the exact inputs of a real third pass
+    seed, B = 5, 8
+    jeval, _ = _models(seed=seed)
+    jworld = _worlds(5, B, 6, seed)
+    cfg = S.MCTSConfig(n_nodes=13, leaves_per_pass=4, use_pallas=False, pallas_walk=False,
+                       backup_mode="einsum")
+
+    def third_pass(w, key):
+        k0, k1, k2, k3 = jax.random.split(key, 4)
+        tree = S.initialize(S.build(w, cfg), jeval(w, None), k0, cfg, w.valid)
+        tree = S.simulate_multi(S.simulate_multi(tree, jeval, k1, cfg), jeval, k2, cfg)
+        return S.simulate_multi(tree, jeval, k3, cfg, return_backup_inputs=True)
+
+    jt, paths, acts, leaves, npv = jax.jit(third_pass)(jworld, jax.random.PRNGKey(seed))
+    npv = int(npv)
+    ref = jax.jit(S.backup_paths, static_argnums=4)(jt, paths, acts, leaves, npv)
+    tt = TS.backup_paths(_port_tree(jt), _t(paths), _t(acts), _t(leaves), npv)
+    assert int((np.asarray(paths) >= 0).sum(-1).max()) >= 2  # paths below the root's children
+    np.testing.assert_array_equal(tt.n.numpy(), np.asarray(ref.n))
+    np.testing.assert_array_equal(tt.n_edge.float().numpy(), np.asarray(ref.n_edge, np.float32))
+    for name in ("w", "w_edge"):
+        np.testing.assert_allclose(getattr(tt, name).numpy(), np.asarray(getattr(ref, name)),
+                                   atol=1e-5, err_msg=name)

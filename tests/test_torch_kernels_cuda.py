@@ -12,7 +12,11 @@ no rand lies within 1e-6 of a CDF boundary (each case checks that).
 `descend` shares the row code of `node_actions` and must equal
 `node_actions` + `walk` on the card exactly. `backup` and `backup_dense`
 make the twin's adds in the twin's order: n and n_edge exact, w and w_edge
-to atol 1e-5.
+to atol 1e-5. `solve_probs` runs the solve of `node_actions_multi`: its
+probs agree with the twin's to rtol 1e-5 and its alpha is
+`node_actions_multi`'s, bit for bit; `sample_children_multi` adds in the
+twin's order and is bit-equal to it, and the split pair draws what
+`node_actions_multi` draws.
 """
 import numpy as np
 import pytest
@@ -235,3 +239,82 @@ def test_backup_kernels_match_ref(cuda, variant, npv):
     for name in ("w", "w_edge"):
         torch.testing.assert_close(getattr(out, name).cpu(), getattr(ref, name), rtol=0,
                                    atol=1e-5)
+
+
+def _solve_inputs(inp):
+    return {k: inp[k] for k in ("logits", "n_edge", "w_edge", "c_puct", "q_bounds")}
+
+
+def _lead(inp, R, copy=False):
+    """The leading R node rows of the (B,T,A) inputs: views, or copies."""
+    return {k: ((v[:, :R].contiguous() if copy else v[:, :R]) if v.dim() == 3 else v)
+            for k, v in inp.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", ["probs", "alpha"])
+@pytest.mark.parametrize("seed,B,T,A,R,n_iters,accel", [
+    (9, 16, 12, 7, 12, 6, True), (2, 16, 12, 7, 12, 16, False), (4, 8, 20, 81, 9, 6, True)])
+def test_solve_probs_kernel_matches_ref(cuda, out, seed, B, T, A, R, n_iters, accel):
+    # R < T: a leading-row slice of the node axis (env stride T*A)
+    inp, _ = _random_tree(seed, B, T, A, c_puct=1 / 16)
+    ref = kernels.solve_probs_ref(n_iters=n_iters, accel=accel, out=out,
+                                  **_lead(_solve_inputs(inp), R, copy=True))
+    sliced = _lead(_to(inp, cuda), R)
+    n0 = kernels.solve_probs.launches
+    res = kernels.solve_probs(n_iters=n_iters, accel=accel, out=out, **_solve_inputs(sliced))
+    torch.cuda.synchronize()
+    assert kernels.solve_probs.launches == n0 + 1
+    assert res.dtype == torch.float32 and res.is_contiguous() and res.shape == ref.shape
+    torch.testing.assert_close(res.cpu(), ref, rtol=1e-5, atol=1e-7)
+    if out == "alpha":  # the same floats as the fused kernel's roots
+        _, _, alpha = kernels.node_actions_multi(rands=torch.rand((B, 2, R), device=cuda),
+                                                 n_iters=n_iters, accel=accel, return_alpha=True,
+                                                 **sliced)
+        assert torch.equal(alpha, res)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,B,T,A,K,R", [(6, 16, 12, 7, 4, 12), (4, 8, 20, 81, 8, 9)])
+def test_sample_children_multi_kernel_matches_ref_and_fused(cuda, seed, B, T, A, K, R):
+    inp, _ = _random_tree(seed, B, T, A, c_puct=1 / 16)
+    sliced = _lead(_to(inp, cuda), R)
+    rands = torch.rand((B, K, R), generator=torch.Generator().manual_seed(seed)).to(cuda)
+    probs = kernels.solve_probs(**_solve_inputs(sliced))
+    n0 = kernels.sample_children_multi.launches
+    ka, kc = kernels.sample_children_multi(probs, sliced["children"], rands)
+    torch.cuda.synchronize()
+    assert kernels.sample_children_multi.launches == n0 + 1
+    assert ka.dtype == kc.dtype == torch.int32 and ka.shape == (B, K, R)
+    # the twin on the same probs, bit for bit
+    ra, rc = kernels.sample_children_multi_ref(probs.cpu(), inp["children"][:, :R], rands.cpu())
+    assert torch.equal(ka.cpu(), ra) and torch.equal(kc.cpu(), rc)
+    # the split pair draws what the fused kernel draws
+    fa, fc = kernels.node_actions_multi(rands=rands, **sliced)
+    assert torch.equal(ka, fa) and torch.equal(kc, fc)
+    # probs given as a leading slice of a wider node axis
+    wide = torch.zeros((B, T, A), device=cuda)
+    wide[:, :R] = probs
+    wa, wc = kernels.sample_children_multi(wide[:, :R], sliced["children"], rands)
+    assert torch.equal(wa, ka) and torch.equal(wc, kc)
+
+
+@pytest.mark.gpu
+def test_split_wrappers_raise_on_wrong_inputs(cuda):
+    inp, _ = _random_tree(1, 4, 6, 7)
+    good = _solve_inputs(_to(inp, cuda))
+    with pytest.raises(ValueError):
+        kernels.solve_probs(**{**good, "n_edge": good["n_edge"].float()})
+    with pytest.raises(ValueError):
+        kernels.solve_probs(**{**good, "c_puct": good["c_puct"][:2]})
+    with pytest.raises(ValueError):
+        kernels.solve_probs(out="both", **good)
+    probs = kernels.solve_probs(**good)
+    children = inp["children"].to(cuda)
+    rands = torch.rand((4, 2, 6), device=cuda)
+    with pytest.raises(ValueError):
+        kernels.sample_children_multi(probs.double(), children, rands)
+    with pytest.raises(ValueError):
+        kernels.sample_children_multi(probs, children.int(), rands)
+    with pytest.raises(ValueError):
+        kernels.sample_children_multi(probs, children, rands.permute(0, 2, 1).contiguous())

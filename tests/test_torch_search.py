@@ -136,11 +136,17 @@ def test_grow_search_matches_jax(seed, plies):
 
 
 def test_config_refuses_what_the_slice_does_not_carry():
-    for kwargs in ({"leaves_per_pass": 8, "grow_passes": False}, {"leaves_per_pass": 0},
-                   {"backup_mode": "einsum"}, {"warm_solve": True}, {"n_nodes": 200},
-                   {"backup_kernel": "xla"}):
+    for kwargs in ({"leaves_per_pass": 0}, {"n_nodes": 200}, {"backup_kernel": "xla"},
+                   {"backup_mode": "dense"}, {"sample_cum": "cumsum"}, {"solve_kernel": "xla"},
+                   # the warm start is a torch solve: no kernel route takes it
+                   {"warm_solve": True}, {"warm_solve": True, "solve_kernel": "probs"},
+                   {"warm_solve": True, "solve_kernel": "alpha"}):
         with pytest.raises(ValueError):
             TS.MCTSConfig(**kwargs)
+    # scan mode, the einsum backup and the warm start on the torch solve are carried
+    for kwargs in ({"leaves_per_pass": 8, "grow_passes": False}, {"backup_mode": "einsum"},
+                   {"warm_solve": True, "solve_kernel": "ops"}):
+        TS.MCTSConfig(**kwargs)
 
 
 def test_agent_runs_on_cpu():

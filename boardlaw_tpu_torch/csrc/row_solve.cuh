@@ -1,27 +1,44 @@
-// The per-row regularized-policy solve and inverse-CDF draw, one warp per
-// node row. Shared by node_actions_multi.cu (K draws per row), node_actions.cu
-// (one draw per row), descend.cu (one row per level of a walk), and by the
-// split pair solve_probs.cu (the solve alone: `solve_row`) and
-// sample_children_multi.cu (the prefix sum and draws alone: `prefix`,
-// `draw`), so all five compute bit-identical alphas and draws from one tree.
+// The per-row regularized-policy solve and inverse-CDF draw, one lane group
+// per node row. Shared by node_actions_multi.cu (K draws per row),
+// node_actions.cu (one draw per row), descend.cu (one row per level of a
+// walk), and by the split pair solve_probs.cu (the solve alone: `solve_row`)
+// and sample_children_multi.cu (the prefix sum and draws alone: `prefix`,
+// `draw_k`), so all five compute bit-identical alphas and draws from one tree.
 //
 // Per row: pi = exp(logits); q = (w_e/(n_e+1e-4) - qlo)/(qhi - qlo + 1e-4)
 // on expanded edges, else 0; N = sum(expanded ? n_e : 1);
-// lambda = c_puct*N/(N+A); alpha solves sum lambda*pi/(alpha-q) = 1 with
-// n_iters Newton steps (one-sided err<tol test) or, with accel, safeguarded
-// Halley steps (two-sided |err|<tol test), exactly as search.solve_policy;
-// probs = lambda*pi/(alpha-q); a log-shift (Hillis-Steele) inclusive prefix
-// sum in the order of search._shift_cumsum; then a draw is the first lane
-// with prob>0 and cum>=r, else the last positive lane (-1 if none).
+// lambda = c_puct*N/(N+A); alpha solves sum lambda*pi/(alpha-q) = 1 with up
+// to n_iters Newton steps (one-sided err<tol test) or, with accel,
+// safeguarded Halley steps (two-sided |err|<tol test), exactly as
+// search.solve_policy; probs = lambda*pi/(alpha-q); a log-shift
+// (Hillis-Steele) inclusive prefix sum in the order of search._shift_cumsum;
+// then a draw is the first lane with prob>0 and cum>=r, else the last
+// positive lane (-1 if none).
 //
-// Lanes hold actions lane, lane+32, lane+64, lane+96 (A <= 128), so a warp's
-// loads of a row are contiguous. The row is read once, in its storage types
-// (f32 logits and w_edge, bf16 n_edge); sums use warp shuffles; the prefix
-// sum runs in a per-warp shared-memory strip of kMaxJ*32 floats. Built with
-// -fmad=false so each element's arithmetic rounds like the plain twin's
-// separate PyTorch ops; only the lane sums run in another order than the
-// twin's, so alpha agrees to float32 roundoff and a draw can differ only
-// where its uniform lies within roundoff of a CDF boundary.
+// Layout (kernels.row_layout picks G from A; the launchers take it and
+// check that the row fits): a warp is 32/G lane groups of G lanes (G = 8 or
+// 16), each group holds one row, and lane gl of a group holds actions gl,
+// gl+G, gl+2G, ... (J = ceil(A/G) of them, at most kMaxJ). Small rows so
+// fill the warp's lanes, and a group's sums take log2(G) shuffle levels.
+//
+// The rows are bound by the warp instructions they execute, so the design
+// cuts warp instructions per row:
+// - the solve loop leaves as soon as every row of the warp has converged.
+//   This is bit-exact against the twin's fixed step count: once a row is
+//   done its alpha is at least the floor and is never changed again;
+// - the prefix sum runs in registers (shuffles for shifts below G, the
+//   lane's own slots above), every element adding what it adds in
+//   _shift_cumsum, in the same order;
+// - a draw is one ballot per lane slot, the children row is loaded once
+//   (packed four bytes a word) and each draw's child is shuffled from the
+//   lane that holds it; lane k of a group loads rand k and stores draw k.
+//
+// The row is read once, in its storage types (f32 logits and w_edge, bf16
+// n_edge, int8 children). Built with -fmad=false so each element's
+// arithmetic rounds like the plain twin's separate PyTorch ops; only the
+// lane sums run in another order than the twin's (and than another G's), so
+// alpha agrees to float32 roundoff and a draw can differ only where its
+// uniform lies within roundoff of a CDF boundary.
 
 #pragma once
 
@@ -30,55 +47,107 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace row_solve {
 
 constexpr int kWarp = 32;
-constexpr int kMaxJ = 4;  // lanes hold up to 4 actions: A <= 128
+constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+// The most actions a lane holds: rows of up to 8G actions.
+constexpr int kMaxJ = 8;
+
+template <int G>
+__host__ __device__ constexpr int rows_per_block() {
+  return kWarpsPerBlock * (kWarp / G);
+}
+
+// Where a thread sits: its warp's lane group `group` holds one row, and its
+// lane `gl` in that group the actions gl + j*G.
+template <int G>
+struct Lane {
+  int group, gl;
+  __device__ Lane() : group((threadIdx.x % kWarp) / G), gl(threadIdx.x % G) {}
+  // The index of this group's row (or env) over the grid.
+  __device__ int64_t row() const {
+    return ((int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp) * (kWarp / G) + group;
+  }
+  // This group's bits of a warp ballot, lane gl at bit gl.
+  __device__ unsigned bits(unsigned ballot) const {
+    return (ballot >> (group * G)) & ((1u << G) - 1u);
+  }
+};
+
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+template <int G>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
 
-__device__ __forceinline__ int warp_min_int(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ int warp_max_int(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-// One solved row, held across the warp's lanes.
+// One row, held across its group's lanes.
+template <int G>
 struct Row {
   float probs[kMaxJ];
   float cum[kMaxJ];
-  int last_pos;  // warp-uniform
-  float alpha;   // warp-uniform
+  uint32_t child[kMaxJ / 4];  // children bytes, slot j in byte j%4 of word j/4
+  float alpha;                   // group-uniform
+  int last_pos;                  // group-uniform
 };
 
-// Solve the row whose lane 0 is at logits/n_edge/w_edge (all lanes of the
-// warp call this together): row.alpha and row.probs (0 on lanes >= A).
+// Load the children row at `children` into row.child (zeros where invalid).
+template <int G>
+__device__ __forceinline__ void load_children(const int8_t* __restrict__ children, int A,
+                                              bool valid, const Lane<G>& L, Row<G>& row) {
+  const int J = (A + G - 1) / G;
+#pragma unroll
+  for (int w = 0; w < kMaxJ / 4; ++w) row.child[w] = 0u;
+#pragma unroll
+  for (int j = 0; j < kMaxJ; ++j) {
+    const int a = j * G + L.gl;
+    if (j < J && valid && a < A) {
+      row.child[j / 4] |= (uint32_t)(uint8_t)children[a] << (8 * (j % 4));
+    }
+  }
+}
+
+// The child pointer of action `act` (group-uniform; 0 where act < 0).
+template <int G>
+__device__ __forceinline__ int child_of(const Row<G>& row, int act, const Lane<G>& L) {
+  const int src = act & (G - 1);
+  const int j = act >= 0 ? act / G : 0;
+  const uint32_t lo = __shfl_sync(kFull, row.child[0], src, G);
+  const uint32_t hi = __shfl_sync(kFull, row.child[1], src, G);
+  const uint32_t word = j >= 4 ? hi : lo;
+  return act >= 0 ? (int)(int8_t)(uint8_t)(word >> (8 * (j % 4))) : 0;
+}
+
+// Solve the row whose action 0 is at logits/n_edge/w_edge (all lanes of the
+// warp call this together; an invalid row reads nothing and is done from the
+// start): row.alpha and row.probs (0 on slots >= A).
+template <int G, bool kAccel>
 __device__ __forceinline__ void solve_row(const float* __restrict__ logits,
                                           const __nv_bfloat16* __restrict__ n_edge,
                                           const float* __restrict__ w_edge, int A, float cp,
-                                          float qlo, float qhi, int n_iters, int accel,
-                                          int lane, Row& row) {
+                                          float qlo, float qhi, int n_iters, bool valid,
+                                          const Lane<G>& L, Row<G>& row) {
+  const int J = (A + G - 1) / G;
   float pi[kMaxJ], q[kMaxJ], lampi[kMaxJ];
   float n_local = 0.f;
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j) {
-    const int a = j * kWarp + lane;
+    const int a = j * G + L.gl;
     pi[j] = 0.f;
     q[j] = 0.f;
-    if (a < A) {
+    if (j < J && valid && a < A) {
       const float lg = __ldg(logits + a);
       const float ne = __bfloat162float(n_edge[a]);
       const float we = __ldg(w_edge + a);
@@ -89,42 +158,44 @@ __device__ __forceinline__ void solve_row(const float* __restrict__ logits,
     }
   }
   // counts are integers, so this sum is exact in any order
-  const float N = warp_sum(n_local);
+  const float N = group_sum<G>(n_local);
   const float lam = cp * N / (N + (float)A);
 
   float alpha = -INFINITY, qmax = -INFINITY;
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j) {
-    const int a = j * kWarp + lane;
+    const int a = j * G + L.gl;
     lampi[j] = lam * pi[j];
-    if (a < A) {
+    if (j < J && a < A) {
       alpha = fmaxf(alpha, q[j] + fmaxf(lampi[j], 1e-4f));
       qmax = fmaxf(qmax, q[j]);
     }
   }
-  alpha = warp_max(alpha);
-  const float floor_ = warp_max(qmax) + 1e-6f;
+  alpha = group_max<G>(alpha);
+  const float floor_ = group_max<G>(qmax) + 1e-6f;
 
-  bool done = false;
+  // Once done, alpha >= floor_ stays fixed (fmaxf(alpha - 0, floor_) is
+  // alpha), so leaving when every row of the warp is done changes no bit.
+  bool done = !valid;
   for (int it = 0; it < n_iters; ++it) {
     float s = 0.f, g = 0.f, h = 0.f;
 #pragma unroll
     for (int j = 0; j < kMaxJ; ++j) {
-      if (j * kWarp + lane < A) {
+      if (j < J && j * G + L.gl < A) {
         const float r = 1.f / (alpha - q[j]);
         const float term = lampi[j] * r;
         const float tr = term * r;
         s += term;
         g += tr;
-        h += tr * r;
+        if (kAccel) h += tr * r;
       }
     }
-    s = warp_sum(s);
-    g = -warp_sum(g);
+    s = group_sum<G>(s);
+    g = -group_sum<G>(g);
     const float err = s - 1.f;
     float step = err / g;
-    if (accel) {
-      h = 2.f * warp_sum(h);
+    if (kAccel) {
+      h = 2.f * group_sum<G>(h);
       done = done || (fabsf(err) < 1e-3f);
       const float tt = err * h / (2.f * g * g);
       if (err > 0.f && tt < 0.75f) step = step / fmaxf(1.f - tt, 0.25f);
@@ -132,72 +203,141 @@ __device__ __forceinline__ void solve_row(const float* __restrict__ logits,
       done = done || (err < 1e-3f);
     }
     alpha = fmaxf(alpha - (done ? 0.f : step), floor_);
+    if (__all_sync(kFull, done)) break;
   }
   row.alpha = alpha;
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j) {
-    row.probs[j] = j * kWarp + lane < A ? lampi[j] / (alpha - q[j]) : 0.f;
+    row.probs[j] = (j < J && j * G + L.gl < A) ? lampi[j] / (alpha - q[j]) : 0.f;
   }
 }
 
-// The log-shift inclusive prefix sum of row.probs into row.cum, cum[a] +=
-// cum[a - shift] for shift = 1, 2, 4, ... (lanes below shift keep their
-// value), and the last positive lane. sh: this warp's kMaxJ*kWarp-float strip.
-__device__ __forceinline__ void prefix(int A, float* sh, int lane, Row& row) {
+// One level of the log-shift sum: cum[a] += cum[a - S] for S <= a < A, from
+// the values before the level.
+template <int G, int S>
+__device__ __forceinline__ void shift_level(int A, const Lane<G>& L, Row<G>& row) {
+  const int J = (A + G - 1) / G;
+  float add[kMaxJ];
+  if constexpr (S < G) {
+    // cum[a - S] is in lane gl - S of slot j, or lane gl + G - S of slot j-1
+    float rot[kMaxJ];
+#pragma unroll
+    for (int j = 0; j < kMaxJ; ++j) {
+      rot[j] = j < J ? __shfl_sync(kFull, row.cum[j], L.gl + G - S, G) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxJ; ++j) {
+      add[j] = L.gl >= S ? rot[j] : (j > 0 ? rot[j > 0 ? j - 1 : 0] : 0.f);
+    }
+  } else {
+    // cum[a - S] is in this lane's own slot j - S/G
+    constexpr int D = S / G;
+#pragma unroll
+    for (int j = 0; j < kMaxJ; ++j) add[j] = j >= D ? row.cum[j >= D ? j - D : 0] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxJ; ++j) {
+    const int a = j * G + L.gl;
+    if (j < J && a < A && a >= S) row.cum[j] = row.cum[j] + add[j];
+  }
+}
+
+// The log-shift inclusive prefix sum of row.probs into row.cum (shift = 1,
+// 2, 4, ... while shift < A) and the row's last positive lane.
+template <int G>
+__device__ __forceinline__ void prefix(int A, const Lane<G>& L, Row<G>& row) {
+  const int J = (A + G - 1) / G;
   int last_pos = -1;
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j) {
-    const int a = j * kWarp + lane;
-    const float p = row.probs[j];
-    row.cum[j] = p;
-    if (a < A) {
-      sh[a] = p;
-      if (p > 0.f) last_pos = a;
+    row.cum[j] = row.probs[j];
+    if (j < J) {
+      const unsigned pos =
+          L.bits(__ballot_sync(kFull, j * G + L.gl < A && row.probs[j] > 0.f));
+      if (pos) last_pos = j * G + 31 - __clz(pos);
     }
   }
-  row.last_pos = warp_max_int(last_pos);
-  __syncwarp();
-  for (int shift = 1; shift < A; shift <<= 1) {
-    float add[kMaxJ];
+  row.last_pos = last_pos;
+  if (A > 1) shift_level<G, 1>(A, L, row);
+  if (A > 2) shift_level<G, 2>(A, L, row);
+  if (A > 4) shift_level<G, 4>(A, L, row);
+  if (A > 8) shift_level<G, 8>(A, L, row);
+  if (A > 16) shift_level<G, 16>(A, L, row);
+  if (A > 32) shift_level<G, 32>(A, L, row);
+  if (A > 64) shift_level<G, 64>(A, L, row);
+}
+
+// The draw of uniform r (group-uniform) from a prefixed row.
+template <int G>
+__device__ __forceinline__ int draw(const Row<G>& row, float r, int A, const Lane<G>& L) {
+  const int J = (A + G - 1) / G;
+  int first = -1;
+  // from the last slot down, so the lowest slot with a hit decides
 #pragma unroll
-    for (int j = 0; j < kMaxJ; ++j) {
-      const int a = j * kWarp + lane;
-      add[j] = (a < A && a >= shift) ? sh[a - shift] : 0.f;
+  for (int j = kMaxJ - 1; j >= 0; --j) {
+    if (j < J) {
+      const bool ok = j * G + L.gl < A && row.probs[j] > 0.f && row.cum[j] >= r;
+      const unsigned hit = L.bits(__ballot_sync(kFull, ok));
+      if (hit) first = j * G + __ffs(hit) - 1;
     }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kMaxJ; ++j) {
-      const int a = j * kWarp + lane;
-      if (a < A && a >= shift) {
-        row.cum[j] = row.cum[j] + add[j];
-        sh[a] = row.cum[j];
+  }
+  return first >= 0 ? first : row.last_pos;
+}
+
+// K draws from a prefixed row with rands[k * stride]; draw k's action and
+// child go to actions[k * stride] and childs[k * stride]. In rounds of G
+// draws, lane k of the group loads rand k, every lane takes it by shuffle,
+// and lane k stores draw k.
+template <int G>
+__device__ __forceinline__ void draw_k(const Row<G>& row, const float* __restrict__ rands,
+                                       int64_t stride, int K, int A, bool valid,
+                                       const Lane<G>& L, int32_t* __restrict__ actions,
+                                       int32_t* __restrict__ childs) {
+  for (int k0 = 0; k0 < K; k0 += G) {
+    const int n = min(G, K - k0);
+    const bool mine = valid && L.gl < n;
+    const int64_t o = (int64_t)(k0 + L.gl) * stride;
+    const float my_rand = mine ? __ldg(rands + o) : 0.f;
+    int my_act = 0, my_child = 0;
+    for (int i = 0; i < n; ++i) {
+      const int act = draw<G>(row, __shfl_sync(kFull, my_rand, i, G), A, L);
+      const int child = child_of<G>(row, act, L);
+      if (L.gl == i) {
+        my_act = act;
+        my_child = child;
       }
     }
-    __syncwarp();
+    if (mine) {
+      actions[o] = my_act;
+      childs[o] = my_child;
+    }
   }
 }
 
-// The solve and the prefix sum of one row.
-__device__ __forceinline__ void solve(const float* __restrict__ logits,
-                                      const __nv_bfloat16* __restrict__ n_edge,
-                                      const float* __restrict__ w_edge, int A, float cp,
-                                      float qlo, float qhi, int n_iters, int accel,
-                                      float* sh, int lane, Row& row) {
-  solve_row(logits, n_edge, w_edge, A, cp, qlo, qhi, n_iters, accel, lane, row);
-  prefix(A, sh, lane, row);
+// Launch `launch(std::integral_constant<int, G>{})` for G = 8 or 16, and
+// return the launch's CUDA error; cudaErrorInvalidValue for another G, a row
+// wider than the layout holds, or a grid of too few blocks for `rows`.
+template <class F>
+inline int with_group(int G, int A, int64_t rows, int blocks, F&& launch) {
+  auto go = [&](auto g) -> int {
+    constexpr int kG = decltype(g)::value;
+    if (A < 1 || A > kG * kMaxJ || (int64_t)blocks * rows_per_block<kG>() < rows) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (blocks > 0) launch(g);
+    return (int)cudaGetLastError();
+  };
+  switch (G) {
+    case 8: return go(std::integral_constant<int, 8>{});
+    case 16: return go(std::integral_constant<int, 16>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// The draw of uniform r from a solved row; the result is warp-uniform.
-__device__ __forceinline__ int draw(const Row& row, float r, int A, int lane) {
-  const int big = A + 1;
-  int first = big;
-#pragma unroll
-  for (int j = 0; j < kMaxJ; ++j) {
-    const int a = j * kWarp + lane;
-    if (a < A && row.probs[j] > 0.f && row.cum[j] >= r) first = min(first, a);
-  }
-  first = warp_min_int(first);
-  return first < big ? first : row.last_pos;
-}
+constexpr int kThreads = kWarpsPerBlock * kWarp;
+// Blocks an SM keeps resident: __launch_bounds__(kThreads, kMinBlocks) caps
+// a thread at 40 registers, so 48 warps an SM hide the solve's latency (the
+// uncapped 8- and 16-lane layouts took 58-64 registers and ran slower).
+constexpr int kMinBlocks = 6;
 
 }  // namespace row_solve

@@ -30,8 +30,11 @@ PyTorch twins and their launch counts.
   which is `search._sample_children_multi` in the 'shift' order.
 
 The five row kernels share one device solve, prefix sum and draw
-(csrc/row_solve.cuh): the split pair `solve_probs` + `sample_children_multi`
-draws what the fused `node_actions_multi` draws.
+(csrc/row_solve.cuh) and one lane layout (`row_layout`): the split pair
+`solve_probs` + `sample_children_multi` draws what the fused
+`node_actions_multi` draws, and `descend` walks what `node_actions` + `walk`
+walk. `solve_steps` gives the solver steps each row needs, which the kernels
+run (a warp until all its rows are done) and the bounds count.
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches the
 kernel or raises, with no fallback. Each launch adds one to the wrapper's
@@ -118,20 +121,21 @@ def build(verbose=False):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.walk_launch.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p]
     lib.walk_launch.restype = i
+    # the row kernels end in (group, blocks, stream): `row_grid`'s layout
     lib.node_actions_multi_launch.argtypes = [
-        p, p, p, p, i, i, i, i, i, p, p, p, i, i, p, p, p, p]
+        p, p, p, p, i, i, i, i, i, p, p, p, i, i, p, p, p, i, i, p]
     lib.node_actions_multi_launch.restype = i
-    lib.node_actions_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p]
+    lib.node_actions_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, i, i, p]
     lib.node_actions_launch.restype = i
-    lib.descend_launch.argtypes = [p, p, p, p, p, i, i, i, p, p, p, p, p, p]
+    lib.descend_launch.argtypes = [p, p, p, p, p, i, i, i, p, p, p, p, p, i, i, p]
     lib.descend_launch.restype = i
     lib.backup_launch.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, p, p, p]
     lib.backup_launch.restype = i
     lib.backup_dense_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p]
     lib.backup_dense_launch.restype = i
-    lib.solve_probs_launch.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, p]
+    lib.solve_probs_launch.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, i, i, p]
     lib.solve_probs_launch.restype = i
-    lib.sample_children_multi_launch.argtypes = [p, i, p, i, i, i, i, i, p, p, p, p]
+    lib.sample_children_multi_launch.argtypes = [p, i, p, i, i, i, i, i, p, p, p, i, i, p]
     lib.sample_children_multi_launch.restype = i
     _lib = lib
     return lib
@@ -155,7 +159,6 @@ def _check_rows(x, name, dtype, B, T, A):
 def _check_tree_rows(logits, n_edge, w_edge, children, B, T, A):
     """The solve's (B,T,A) row inputs (children may be None) in their
     storage types, sharing one env stride."""
-    _check(A <= 128, f"the row kernels support at most 128 actions, got {A}")
     _check_rows(logits, "logits", torch.float32, B, T, A)
     _check_rows(n_edge, "n_edge", torch.bfloat16, B, T, A)
     _check_rows(w_edge, "w_edge", torch.float32, B, T, A)
@@ -190,6 +193,51 @@ def _check_node(x, name, dtype, shape):
 def _raise_on(err, name):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# --------------------------------------------------------------------------
+# The row kernels' lane layout and solver steps
+# --------------------------------------------------------------------------
+
+WARPS_PER_BLOCK = 8  # csrc/row_solve.cuh kWarpsPerBlock
+ROW_MAX_J = 8  # csrc/row_solve.cuh kMaxJ: the most actions a lane holds
+
+
+def row_layout(A):
+    """The row kernels' lane layout for rows of A actions: (G, J), a row to
+    each group of G lanes (32/G rows a warp), J = ceil(A/G) actions a lane.
+    Rows share a warp so that its lanes are busy and a sum takes log2(G)
+    shuffles. This is the one place G is chosen; the launchers check that
+    the row fits. G is the faster width measured on the H100 for every board
+    from 3x3 to 11x11 (scripts/torch_row_layout.py): 8 lanes up to A = 64,
+    16 above."""
+    _check(0 < A <= 16 * ROW_MAX_J, f"the row kernels support 1 to 128 actions, got {A}")
+    G = 8 if A <= 64 else 16
+    return G, -(-A // G)
+
+
+def row_grid(n_rows, A):
+    """(G, blocks): the lane-group width and the grid of a row kernel over
+    n_rows rows (or envs), each row in one group of one warp."""
+    G, _ = row_layout(A)
+    per_block = WARPS_PER_BLOCK * (32 // G)
+    return G, -(-n_rows // per_block)
+
+
+def solve_steps(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=16, accel=False):
+    """The solver steps each node row needs, (B,T) int32: the step in which
+    its convergence test first holds (counted from 1), else n_iters. The
+    row kernels stop there (a warp once all its rows have), and running
+    `search.node_probs` for that many steps gives the full solve's alpha bit
+    for bit."""
+    B, T, A = logits.shape
+    q, counts = search._edge_q_counts(n_edge, w_edge, q_bounds)
+    N = counts.sum(-1)
+    lam = c_puct[:, None] * N / (N + A)
+    _, _, steps = search.solve_policy(torch.exp(logits.float()).reshape(B * T, A),
+                                      q.reshape(B * T, A), lam.reshape(B * T), n_iters=n_iters,
+                                      accel=accel, return_steps=True)
+    return steps.reshape(B, T)
 
 
 # --------------------------------------------------------------------------
@@ -286,7 +334,7 @@ def node_actions_multi(logits, n_edge, w_edge, children, rands, c_puct, q_bounds
         B, T, A, K, logits.stride(0),
         rands.data_ptr(), c_puct.data_ptr(), q_bounds.data_ptr(), n_iters, int(accel),
         actions.data_ptr(), childs.data_ptr(), alpha.data_ptr() if return_alpha else None,
-        stream)
+        *row_grid(B * T, A), stream)
     _raise_on(err, "node_actions_multi")
     node_actions_multi.launches += 1
     return (actions, childs, alpha) if return_alpha else (actions, childs)
@@ -300,8 +348,8 @@ node_actions_multi.launches = 0
 # --------------------------------------------------------------------------
 
 def node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds):
-    """The K=1 all-node solve (16 Newton steps, one-sided test) and one draw
-    per node.
+    """The K=1 all-node solve (up to 16 Newton steps, one-sided test) and
+    one draw per node.
 
     logits f32, n_edge bf16, w_edge f32, children int8, each (B,T,A) with
     contiguous (T,A) rows (a leading-T slice of a wider node axis is fine);
@@ -319,7 +367,8 @@ def node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds):
     err = lib.node_actions_launch(
         logits.data_ptr(), n_edge.data_ptr(), w_edge.data_ptr(), children.data_ptr(),
         B, T, A, logits.stride(0), rands.data_ptr(), c_puct.data_ptr(), q_bounds.data_ptr(),
-        actions.data_ptr(), childs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        actions.data_ptr(), childs.data_ptr(), *row_grid(B * T, A),
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "node_actions")
     node_actions.launches += 1
     return actions, childs
@@ -340,7 +389,6 @@ def descend(tree, rands):
     if rands.device.type == "cpu":
         return search.descend_reference(tree, rands)
     B, T, A = tree.logits.shape
-    _check(A <= 128, f"descend supports at most 128 actions, got {A}")
     _check_node(tree.logits, "logits", torch.float32, (B, T, A))
     _check_node(tree.n_edge, "n_edge", torch.bfloat16, (B, T, A))
     _check_node(tree.w_edge, "w_edge", torch.float32, (B, T, A))
@@ -356,7 +404,7 @@ def descend(tree, rands):
         tree.logits.data_ptr(), tree.n_edge.data_ptr(), tree.w_edge.data_ptr(),
         tree.children.data_ptr(), tree.terminal.data_ptr(), B, T, A, rands.data_ptr(),
         tree.c_puct.data_ptr(), q_bounds.data_ptr(), parents.data_ptr(), actions.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *row_grid(B, A), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "descend")
     descend.launches += 1
     return parents, actions
@@ -467,7 +515,7 @@ def solve_probs(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=6, accel=True,
     err = lib.solve_probs_launch(
         logits.data_ptr(), n_edge.data_ptr(), w_edge.data_ptr(), B, R, A, logits.stride(0),
         c_puct.data_ptr(), q_bounds.data_ptr(), n_iters, int(accel), int(out == "alpha"),
-        res.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        res.data_ptr(), *row_grid(B * R, A), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "solve_probs")
     solve_probs.launches += 1
     return res
@@ -494,7 +542,6 @@ def sample_children_multi(probs, children, rands):
         return sample_children_multi_ref(probs, children, rands)
     B, R, A = probs.shape
     K = rands.shape[1]
-    _check(A <= 128, f"sample_children_multi supports at most 128 actions, got {A}")
     _check_rows(probs, "probs", torch.float32, B, R, A)
     _check_rows(children, "children", torch.int8, B, R, A)
     _check(rands.is_cuda and rands.dtype == torch.float32 and rands.is_contiguous()
@@ -506,7 +553,7 @@ def sample_children_multi(probs, children, rands):
     childs = torch.empty((B, K, R), dtype=torch.int32, device=dev)
     err = lib.sample_children_multi_launch(
         probs.data_ptr(), probs.stride(0), children.data_ptr(), children.stride(0), B, R, A, K,
-        rands.data_ptr(), actions.data_ptr(), childs.data_ptr(),
+        rands.data_ptr(), actions.data_ptr(), childs.data_ptr(), *row_grid(B * R, A),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "sample_children_multi")
     sample_children_multi.launches += 1

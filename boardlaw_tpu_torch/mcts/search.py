@@ -266,7 +266,7 @@ def initialize(tree, decisions, draws, cfg: MCTSConfig, valid):
 # --------------------------------------------------------------------------
 
 def solve_policy(pi, q, lambda_n, tol=1e-3, n_iters=16, warm_alpha=None, return_alpha=False,
-                 accel=False):
+                 accel=False, return_steps=False):
     """Solve pi_bar(a) = lambda_n*pi(a)/(alpha - q(a)) for alpha with
     sum_a pi_bar = 1, over rows. pi, q (R,A); lambda_n (R,).
 
@@ -278,7 +278,11 @@ def solve_policy(pi, q, lambda_n, tol=1e-3, n_iters=16, warm_alpha=None, return_
 
     `warm_alpha` (R,) restarts from an earlier solve's roots: kept where it
     is above the floor and still below the new root (s(warm) > 1), and not
-    below the cold start; elsewhere the cold start."""
+    below the cold start; elsewhere the cold start.
+
+    `return_steps` also returns each row's steps (R,) int32: the step in
+    which its test first holds (counted from 1), else n_iters; later steps
+    leave its alpha as it is."""
     lam = lambda_n[:, None].float()
     pi = pi.float()
     q = q.float()
@@ -293,8 +297,11 @@ def solve_policy(pi, q, lambda_n, tol=1e-3, n_iters=16, warm_alpha=None, return_
         ok = (warm_alpha > floor) & (s_w > 1.0)
         alpha = torch.where(ok, torch.maximum(warm_alpha, alpha), alpha)
     done = torch.zeros(alpha.shape, dtype=torch.bool, device=alpha.device)
+    steps = torch.zeros_like(alpha, dtype=torch.int32) if return_steps else None
 
     for _ in range(n_iters):
+        if return_steps:
+            steps += ~done
         r = 1.0 / (alpha[:, None] - q)
         terms = lampi * r
         s = terms.sum(-1)
@@ -312,6 +319,8 @@ def solve_policy(pi, q, lambda_n, tol=1e-3, n_iters=16, warm_alpha=None, return_
         alpha = torch.maximum(alpha - torch.where(done, 0.0, step), floor)
 
     probs = lampi / (alpha[:, None] - q)
+    if return_steps:
+        return probs, alpha, steps
     return (probs, alpha) if return_alpha else probs
 
 

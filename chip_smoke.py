@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (boardlaw_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--envs 32768] [--steps 3] [--k1-learner-envs 32768] [--seed 0]
+    python3 chip_smoke.py [--envs 32768] [--steps 3] [--k1-learner-envs 32768]
+        [--layout-envs 1024] [--seed 0]
 
 Phases, each a hard failure with a non-zero exit, each printing its seconds:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
@@ -16,9 +17,15 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      equal to `node_actions_multi`'s, `sample_children_multi` equal to its
      twin in every draw, the split pair equal to `node_actions_multi` in
      every draw; a small 9x9 scan search on the card against the CPU;
+  3c. the row kernels in every lane layout (`kernels.row_layout`): for each
+     board of 3, 5, 6, 7, 9 and 11, a K=1 tree of `--layout-envs` envs after
+     20 sims of a random 64x2 model, on which `node_actions` and `node_actions_multi`
+     agree with their twins by the rules of phases 3 and 4, `descend` equals
+     `node_actions` + `walk` and the split pair equals `node_actions_multi`;
   4. the K=1 kernels at the 6x6 path's shapes (`best_config(6)`, 32,768
      envs, T=64, A=36) on a real tree after 30 sims: `node_actions` draw for
-     draw up to CDF boundaries, `descend` equal to `node_actions` + `walk`,
+     draw up to CDF boundaries (timed on all T rows and on the tree.sim live
+     rows the search hands it), `descend` equal to `node_actions` + `walk`,
      `backup` and `backup_dense` against `search.backup` (n, n_edge exact,
      w, w_edge to atol 1e-5); a small 6x6 search on the card against the CPU;
   5. the paths, each driven with every launch count set to 0 just before and
@@ -26,8 +33,8 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      number of times:
      a. 9x9 actor steps (`make_config(9, 512, 4)`: K=8 grow passes), 8
         launches of `walk` and `node_actions_multi` per step, 128 root visits;
-     b. 2 K=1 actor steps at 6x6, 63 launches of `node_actions` and `walk`
-        per step, 126 root visits;
+     b. `--steps` (at least 2) K=1 actor steps at 6x6, 63 launches of
+        `node_actions` and `walk` per step, 126 root visits;
      c. one K=1 search per kernel variant (`descend_kernel` with
         `backup_kernel` 'ops', 'delta', 'dense') from the same worlds and
         draws, 63 launches of each of its kernels, trees held against the
@@ -49,6 +56,9 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         envs, w to atol 1e-4; the warm solve's invariants only);
   6. a JSON line of kernel numbers, and the last line
      {"ok": true, "device": {...}}.
+
+Each row kernel's f32 operation bound counts the solver steps its inputs
+need (`kernels.solve_steps`, printed as a histogram), not the step budget.
 """
 from __future__ import annotations
 
@@ -74,16 +84,32 @@ F32_FLOPS = 67e12
 BACKUP_BYTES_PER_LEVEL = 57
 
 
-def _solve_only_ops_per_lane(n_iters):
-    """float operations per (node row, action lane) of the row solve: q (4),
-    exp, count, lambda*pi, the initial bound (3), 8 per solver step, probs
-    (2)."""
-    return 10 + 8 * n_iters + 2
+def solve_ops(steps, A):
+    """float operations of the row solve over rows that need `steps` solver
+    steps each (`kernels.solve_steps`): per (row, action lane) q (4), exp,
+    count, lambda*pi, the initial bound (3), probs (2), and 8 per step the
+    row needs."""
+    return A * (12 * steps.numel() + 8 * int(steps.sum()))
 
 
-def _solve_ops_per_lane(n_iters, K):
-    """The solve, then 7 prefix-sum adds and 2 compares per draw."""
-    return _solve_only_ops_per_lane(n_iters) + 7 + 2 * K
+def draw_ops(n_rows, A, K):
+    """The prefix sum's add per level and 2 compares per draw, per (row,
+    action lane)."""
+    return n_rows * A * ((A - 1).bit_length() + 2 * K)
+
+
+def steps_line(steps, A):
+    """The histogram of solver steps per row, and the mean steps a warp runs:
+    the most of its 32/G consecutive rows (`kernels.row_layout`)."""
+    import torch
+    from boardlaw_tpu_torch.mcts import kernels
+
+    per_warp = 32 // kernels.row_layout(A)[0]
+    flat = steps.flatten()
+    warps = torch.nn.functional.pad(flat, (0, -flat.numel() % per_warp)).view(-1, per_warp)
+    counts = {int(k): int(v) for k, v in zip(*flat.unique(return_counts=True))}
+    return (f"solver steps per row {counts}, mean {float(flat.float().mean()):.3f}; a warp of "
+            f"{per_warp} rows runs {float(warps.amax(1).float().mean()):.3f} on average")
 
 
 def card_line():
@@ -231,21 +257,22 @@ def boundary_counts(tree, q_bounds, mism, rands_at, ka, ra, alphas):
     return within_1e5, within_cdfs
 
 
-def check_node_actions_multi(tree, cfg, draws, report):
+def multi_agrees(tree, rands, kw, label):
+    """`node_actions_multi` against its twin on `tree` with rands (B,K,T):
+    at least 99.99% of draws equal, every mismatch between the twin's and
+    the kernel's CDF at its boundary lane, child pointers equal where the
+    actions are, alpha within rtol 1e-5 on 99.99% of rows. Returns the
+    kernel's actions, children and alpha and the twin's alpha."""
     import torch
     from boardlaw_tpu_torch.mcts import kernels, search
 
-    mcfg = cfg.mcts_config()
-    B, T, A = tree.logits.shape
-    K = mcfg.leaves_per_pass
-    rands = draws.uniform((B, K, T))
-    args = (tree.logits, tree.n_edge, tree.w_edge, tree.children, rands, tree.c_puct,
-            search._q_bounds(tree))
-    kw = dict(n_iters=mcfg.solve_iters, accel=mcfg.solve_accel)
+    B, K, T = rands.shape
+    A = tree.logits.shape[-1]
+    args = (tree.logits[:, :T], tree.n_edge[:, :T], tree.w_edge[:, :T], tree.children[:, :T],
+            rands, tree.c_puct, search._q_bounds(tree))
     ka, kc, kalpha = kernels.node_actions_multi(*args, return_alpha=True, **kw)
     ra, rc, ralpha = kernels.node_actions_multi_ref(*args, return_alpha=True, **kw)
     sync()
-
     rel = ((kalpha - ralpha).abs() / ralpha.abs()).flatten()
     alpha_ok = float((rel <= 1e-5).float().mean())
     mism = (ka != ra)
@@ -257,25 +284,40 @@ def check_node_actions_multi(tree, cfg, draws, report):
         b, k, t = mism.nonzero(as_tuple=True)
         within_1e5, within_cdfs = boundary_counts(tree, args[-1], (b, t), rands[b, k, t],
                                                   ka[b, k, t], ra[b, k, t], (ralpha, kalpha))
-    print(f"node_actions_multi vs twin at (B,K,T,A)=({B},{K},{T},{A}): draws equal "
+    print(f"{label}: node_actions_multi vs twin at (B,K,T,A)=({B},{K},{T},{A}): draws equal "
           f"{frac_equal:.8f} ({n_mism} differ; {within_1e5} within 1e-5 of the twin's CDF at "
           f"the boundary lane, {within_cdfs} between the twin's and the kernel's CDF there), "
-          f"alpha within rtol 1e-5 on {alpha_ok:.8f} of rows (max rel {float(rel.max()):.3g}); "
-          f"the solve's lane sums run in another order than the twin's, so exact equality "
-          f"cannot be required", flush=True)
+          f"alpha within rtol 1e-5 on {alpha_ok:.8f} of rows (max rel {float(rel.max()):.3g})",
+          flush=True)
     if not child_ok:
-        fail("node_actions_multi child pointers differ where the actions agree")
+        fail(f"{label}: node_actions_multi child pointers differ where the actions agree")
     if frac_equal < 0.9999:
-        fail("node_actions_multi: fewer than 99.99% of draws equal the twin's")
+        fail(f"{label}: node_actions_multi: fewer than 99.99% of draws equal the twin's")
     if within_cdfs != n_mism:
-        fail("node_actions_multi: a mismatched draw is not explained by a CDF boundary")
+        fail(f"{label}: node_actions_multi: a mismatched draw is not explained by a CDF boundary")
     if alpha_ok < 0.9999 or float(rel.max()) > 1e-3:
-        fail("node_actions_multi: alpha disagrees with the twin")
+        fail(f"{label}: node_actions_multi: alpha disagrees with the twin")
+    return ka, kc, kalpha, ralpha
 
+
+def check_node_actions_multi(tree, cfg, draws, report):
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    mcfg = cfg.mcts_config()
+    B, T, A = tree.logits.shape
+    K = mcfg.leaves_per_pass
+    rands = draws.uniform((B, K, T))
+    kw = dict(n_iters=mcfg.solve_iters, accel=mcfg.solve_accel)
+    ka, kc, kalpha, ralpha = multi_agrees(tree, rands, kw, "9x9 grow tree")
+    args = (tree.logits, tree.n_edge, tree.w_edge, tree.children, rands, tree.c_puct,
+            search._q_bounds(tree))
+    steps = kernels.solve_steps(*args[:3], tree.c_puct, args[-1], **kw)
+    print(f"node_actions_multi at (B,T,A)=({B},{T},{A}), row layout (G, J) = "
+          f"{kernels.row_layout(A)}: {steps_line(steps, A)}", flush=True)
     k_ms = time_ms(lambda: kernels.node_actions_multi(*args, **kw), 20)
     r_ms = time_ms(lambda: kernels.node_actions_multi_ref(*args, **kw), 5)
     nbytes = (B * T * A * (4 + 2 + 4 + 1) + B * K * T * 4 + B * 4 + 8 + 2 * B * K * T * 4)
-    ops = B * T * A * _solve_ops_per_lane(mcfg.solve_iters, K)
+    ops = solve_ops(steps, A) + draw_ops(B * T, A, K)
     report["node_actions_multi"] = dict(
         ms=k_ms, plain_ms=r_ms, max_abs_err=float((kalpha - ralpha).abs().max()),
         bytes=nbytes, ops=ops)
@@ -283,6 +325,29 @@ def check_node_actions_multi(tree, cfg, draws, report):
           f"{nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
           f"{ops / 1e9:.2f} GFLOP -> f32 bound {ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
     return ka, kc
+
+
+def split_equals_fused(tree, rands, kw, label):
+    """`solve_probs` (both modes) + `sample_children_multi` against
+    `node_actions_multi` on one tree and rands (B,K,T): alpha and every draw
+    equal. Returns the probs and alpha."""
+    import torch
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    qb = search._q_bounds(tree)
+    rows = (tree.logits, tree.n_edge, tree.w_edge)
+    probs = kernels.solve_probs(*rows, tree.c_puct, qb, **kw)
+    alpha = kernels.solve_probs(*rows, tree.c_puct, qb, out="alpha", **kw)
+    fa, fc, f_alpha = kernels.node_actions_multi(*rows, tree.children, rands, tree.c_puct, qb,
+                                                 return_alpha=True, **kw)
+    sa, sc = kernels.sample_children_multi(probs, tree.children, rands)
+    sync()
+    if not torch.equal(alpha, f_alpha):
+        fail(f"{label}: solve_probs alpha differs from node_actions_multi's")
+    if not (torch.equal(sa, fa) and torch.equal(sc, fc)):
+        fail(f"{label}: solve_probs + sample_children_multi differ from node_actions_multi in "
+             f"{int((sa != fa).sum())} draws")
+    return probs, alpha
 
 
 def check_split_kernels(tree, cfg, draws, report):
@@ -298,14 +363,8 @@ def check_split_kernels(tree, cfg, draws, report):
     qb = search._q_bounds(tree)
     rows = (tree.logits, tree.n_edge, tree.w_edge)
     kw = dict(n_iters=mcfg.solve_iters, accel=mcfg.solve_accel)
-    probs = kernels.solve_probs(*rows, tree.c_puct, qb, **kw)
-    alpha = kernels.solve_probs(*rows, tree.c_puct, qb, out="alpha", **kw)
+    probs, alpha = split_equals_fused(tree, rands, kw, "9x9 scan tree")
     r_probs, r_alpha = search.node_probs(*rows, tree.c_puct, qb, return_alpha=True, **kw)
-    fa, fc, f_alpha = kernels.node_actions_multi(*rows, tree.children, rands, tree.c_puct, qb,
-                                                 return_alpha=True, **kw)
-    sync()
-    if not torch.equal(alpha, f_alpha):
-        fail("solve_probs alpha differs from node_actions_multi's")
 
     def close(x, ref):  # per row: every lane within rtol 1e-5, atol 1e-7
         return ((x - ref).abs() <= 1e-7 + 1e-5 * ref.abs()).all(-1)
@@ -330,23 +389,21 @@ def check_split_kernels(tree, cfg, draws, report):
 
     ka, kc = kernels.sample_children_multi(r_probs, tree.children, rands)
     ra, rc = kernels.sample_children_multi_ref(r_probs, tree.children, rands)
-    sa, sc = kernels.sample_children_multi(probs, tree.children, rands)
     sync()
     if not (torch.equal(ka, ra) and torch.equal(kc, rc)):
         fail(f"sample_children_multi differs from its twin in {int((ka != ra).sum())} draws")
-    if not (torch.equal(sa, fa) and torch.equal(sc, fc)):
-        fail(f"solve_probs + sample_children_multi differ from node_actions_multi in "
-             f"{int((sa != fa).sum())} draws")
     print(f"sample_children_multi at (B,K,T,A)=({B},{K},{T},{A}): all {ka.numel()} draws and "
           f"child pointers equal to the twin's on the twin's probs; solve_probs + "
           f"sample_children_multi equal to node_actions_multi in every draw", flush=True)
 
+    steps = kernels.solve_steps(*rows, tree.c_puct, qb, **kw)
+    print(f"solve_probs at (B,T,A)=({B},{T},{A}): {steps_line(steps, A)}", flush=True)
     k_ms = time_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, **kw), 20)
     a_ms = time_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, out="alpha", **kw), 20)
     r_ms = time_ms(lambda: search.node_probs(*rows, tree.c_puct, qb, **kw), 5)
     nbytes = B * T * A * (4 + 2 + 4 + 4) + B * 4 + 8
     a_bytes = B * T * A * (4 + 2 + 4) + B * T * 4 + B * 4 + 8
-    ops = B * T * A * _solve_only_ops_per_lane(mcfg.solve_iters)
+    ops = solve_ops(steps, A)
     report["solve_probs"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes, ops=ops)
     print(f"solve_probs: kernel {k_ms:.4f} ms (out='alpha' {a_ms:.4f} ms), twin {r_ms:.4f} ms "
           f"(median); {nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
@@ -356,7 +413,7 @@ def check_split_kernels(tree, cfg, draws, report):
     s_ms = time_ms(lambda: kernels.sample_children_multi(probs, tree.children, rands), 20)
     rs_ms = time_ms(lambda: kernels.sample_children_multi_ref(probs, tree.children, rands), 5)
     s_bytes = B * T * A * (4 + 1) + B * K * T * (4 + 4 + 4)
-    s_ops = B * T * A * (7 + 2 * K)
+    s_ops = draw_ops(B * T, A, K)
     report["sample_children_multi"] = dict(ms=s_ms, plain_ms=rs_ms, max_abs_err=0.0,
                                            bytes=s_bytes, ops=s_ops)
     print(f"sample_children_multi: kernel {s_ms:.4f} ms, twin {rs_ms:.4f} ms (median); "
@@ -458,48 +515,86 @@ def k1_mid_search_tree(cfg, model, draws, sims):
     return tree
 
 
-def check_node_actions(tree, rands, report):
-    import torch
+def node_actions_agrees(tree, rands, label):
+    """`node_actions` against its twin on the leading R rows of `tree`, rands
+    (B,R): at least 99.99% of draws equal, every mismatch within 1e-5 of the
+    twin's CDF at its boundary lane, child pointers equal where the actions
+    are. Returns the kernel's actions and children and the largest
+    |kernel - twin| action difference."""
     from boardlaw_tpu_torch.mcts import kernels, search
 
-    B, T, A = tree.logits.shape
+    B, R = rands.shape
+    A = tree.logits.shape[-1]
     qb = search._q_bounds(tree)
-    args = (tree.logits, tree.n_edge, tree.w_edge, tree.children, rands, tree.c_puct, qb)
+    args = (tree.logits[:, :R], tree.n_edge[:, :R], tree.w_edge[:, :R], tree.children[:, :R],
+            rands, tree.c_puct, qb)
     ka, kc = kernels.node_actions(*args)
     ra, rc = search.node_actions(*args)
     sync()
     mism = ka != ra
     n_mism = int(mism.sum())
     frac_equal = 1.0 - n_mism / ka.numel()
-    within_1e5 = within_cdfs = 0
+    err = float((ka - ra).abs().max())
+    within_1e5 = 0
     if n_mism:
         b, t = mism.nonzero(as_tuple=True)
-        _, ralpha = search.node_probs(tree.logits, tree.n_edge, tree.w_edge, tree.c_puct, qb,
-                                      return_alpha=True)
-        within_1e5, within_cdfs = boundary_counts(tree, qb, (b, t), rands[b, t], ka[b, t],
-                                                  ra[b, t], (ralpha,))
-    print(f"node_actions vs twin at (B,T,A)=({B},{T},{A}): draws equal {frac_equal:.8f} "
-          f"({n_mism} differ, {within_1e5} of them within 1e-5 of the twin's CDF at the "
-          f"boundary lane)", flush=True)
+        _, ralpha = search.node_probs(*args[:3], tree.c_puct, qb, return_alpha=True)
+        within_1e5, _ = boundary_counts(tree, qb, (b, t), rands[b, t], ka[b, t], ra[b, t],
+                                        (ralpha,))
+    print(f"{label}: node_actions vs twin at (B,T,A)=({B},{R},{A}): draws equal "
+          f"{frac_equal:.8f} ({n_mism} differ, {within_1e5} of them within 1e-5 of the twin's "
+          f"CDF at the boundary lane; max |action difference| {err:g})", flush=True)
     if not bool(((kc == rc) | mism).all()):
-        fail("node_actions child pointers differ where the actions agree")
+        fail(f"{label}: node_actions child pointers differ where the actions agree")
     if frac_equal < 0.9999:
-        fail("node_actions: fewer than 99.99% of draws equal the twin's")
+        fail(f"{label}: node_actions: fewer than 99.99% of draws equal the twin's")
     if within_1e5 != n_mism:
-        fail("node_actions: a mismatched draw is not explained by a CDF boundary")
-    k_ms = time_ms(lambda: kernels.node_actions(*args), 20)
-    r_ms = time_ms(lambda: search.node_actions(*args), 5)
-    nbytes = B * T * A * (4 + 2 + 4 + 1) + B * T * 4 + B * 4 + 8 + 2 * B * T * 4
-    ops = B * T * A * _solve_ops_per_lane(16, 1)
-    report["node_actions"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=0.0, bytes=nbytes, ops=ops,
-                                  draws_equal=frac_equal)
-    print(f"node_actions: kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms (median); "
-          f"{nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
-          f"{ops / 1e9:.2f} GFLOP -> f32 bound {ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
+        fail(f"{label}: node_actions: a mismatched draw is not explained by a CDF boundary")
+    return ka, kc, err
+
+
+def node_actions_cost(tree, R):
+    """Bytes and f32 operations `node_actions` needs on the leading R rows."""
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    B, _, A = tree.logits.shape
+    steps = kernels.solve_steps(tree.logits[:, :R], tree.n_edge[:, :R], tree.w_edge[:, :R],
+                                tree.c_puct, search._q_bounds(tree))
+    nbytes = B * R * A * (4 + 2 + 4 + 1) + B * R * 4 + B * 4 + 8 + 2 * B * R * 4
+    return nbytes, solve_ops(steps, A) + draw_ops(B * R, A, 1), steps
+
+
+def check_node_actions(tree, rands, report):
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    B, T, A = tree.logits.shape
+    ka, kc, err = node_actions_agrees(tree, rands, "6x6 K=1 tree")
+    qb = search._q_bounds(tree)
+    times = {}
+    # all T rows, and the R = tree.sim live rows the search hands over
+    for R in (T, tree.sim):
+        args = (tree.logits[:, :R], tree.n_edge[:, :R], tree.w_edge[:, :R],
+                tree.children[:, :R], rands[:, :R].contiguous(), tree.c_puct, qb)
+        k_ms = time_ms(lambda: kernels.node_actions(*args), 20)
+        r_ms = time_ms(lambda: search.node_actions(*args), 5)
+        nbytes, ops, steps = node_actions_cost(tree, R)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+        times[R] = (k_ms, r_ms, nbytes, ops)
+        print(f"node_actions at (B,T,A)=({B},{R},{A}), row layout (G, J) = "
+              f"{kernels.row_layout(A)}: {steps_line(steps, A)}; kernel {k_ms:.4f} ms, twin "
+              f"{r_ms:.4f} ms (median); {nbytes / 1e9:.3f} GB -> bytes bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {ops / 1e9:.2f} GFLOP -> f32 bound "
+              f"{ops / F32_FLOPS * 1e3:.4f} ms; bound {bound:.4f} ms", flush=True)
+    k_ms, r_ms, nbytes, ops = times[T]
+    report["node_actions"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes, ops=ops)
     return ka, kc
 
 
-def check_descend(tree, rands, acts, nxt, report):
+def descend_equals(tree, rands, acts, nxt, label):
+    """`descend` against `node_actions` + `walk` (equal on every env) and its
+    twin (equal on 99.99% of envs). Returns the walk's parents, halting
+    children and paths, and the largest |descend - twin| parent or action
+    difference."""
     import torch
     from boardlaw_tpu_torch.mcts import kernels, search
 
@@ -509,26 +604,70 @@ def check_descend(tree, rands, acts, nxt, report):
     rp, ra = search.descend_reference(tree, rands)
     sync()
     if not (torch.equal(kp, wp) and torch.equal(ka, wa)):
-        fail(f"descend differs from node_actions + walk on "
+        fail(f"{label}: descend differs from node_actions + walk on "
              f"{int(((kp != wp) | (ka != wa)).sum())} envs")
     twin_equal = float(((kp == rp) & (ka == ra)).float().mean())
+    err = float(torch.maximum((kp - rp).abs(), (ka - ra).abs()).max())
     levels = int((path >= 0).sum())
-    print(f"descend at (B,T,A)=({B},{T},{A}): parents and actions equal to node_actions + walk "
-          f"on every env; equal to the twin on {twin_equal:.8f} of envs; {levels} levels "
-          f"visited, deepest {int((path >= 0).sum(1).max())}", flush=True)
+    print(f"{label}: descend at (B,T,A)=({B},{T},{A}): parents and actions equal to "
+          f"node_actions + walk on every env; equal to the twin on {twin_equal:.8f} of envs "
+          f"(max |difference| {err:g}); {levels} levels visited, deepest {int((path >= 0).sum(1).max())}", flush=True)
     if twin_equal < 0.9999:
-        fail("descend: fewer than 99.99% of walks equal the twin's")
+        fail(f"{label}: descend: fewer than 99.99% of walks equal the twin's")
+    return wp, halt, path, err
+
+
+def check_descend(tree, rands, acts, nxt, report):
+    import torch
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    B, T, A = tree.logits.shape
+    wp, halt, path, err = descend_equals(tree, rands, acts, nxt, "6x6 K=1 tree")
+    levels = int((path >= 0).sum())
     k_ms = time_ms(lambda: kernels.descend(tree, rands), 20)
     r_ms = time_ms(lambda: search.descend_reference(tree, rands), 3)
     # each visited level reads its row (11 bytes a lane), its rand and the
     # child's terminal flag; per env the root flag, c_puct, two outputs
     nbytes = levels * (A * 11 + 4 + 1) + B * (1 + 4 + 8) + 8
-    ops = levels * A * _solve_ops_per_lane(16, 1)
-    report["descend"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=0.0, bytes=nbytes, ops=ops)
+    steps = kernels.solve_steps(tree.logits, tree.n_edge, tree.w_edge, tree.c_puct,
+                                search._q_bounds(tree))
+    visited = torch.gather(steps, 1, path.long().clamp_min(0))[path >= 0]
+    ops = solve_ops(visited, A) + draw_ops(levels, A, 1)
+    report["descend"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes, ops=ops)
     print(f"descend: kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms (median); {nbytes / 1e6:.2f} MB "
           f"-> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, {ops / 1e9:.3f} GFLOP -> "
           f"f32 bound {ops / F32_FLOPS * 1e3:.5f} ms", flush=True)
     return torch.where(halt == -1, wp, halt)
+
+
+def check_board_layouts(seed, n_envs=1024, sims=20):
+    """For each board the repo runs (3, 5, 6, 7, 9, 11: every lane layout of
+    the row kernels), a small K=1 tree after `sims` sims, on which
+    `node_actions` and `node_actions_multi` agree with their twins,
+    `descend` equals `node_actions` + `walk`, and the split pair equals
+    `node_actions_multi`."""
+    import torch
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.mcts import kernels
+
+    for boardsize in (3, 5, 6, 7, 9, 11):
+        cfg = train.make_config(boardsize, 64, 2, n_envs=n_envs, leaves_per_pass=1)
+        model = train.build_model(cfg, device=DEV,
+                                  generator=torch.Generator().manual_seed(seed + boardsize))
+        draws = Draws(seed + boardsize, DEV)
+        tree = k1_mid_search_tree(cfg, model, draws, sims)
+        B, T, A = tree.logits.shape
+        label = f"{boardsize}x{boardsize} (A={A}, row layout (G, J) = {kernels.row_layout(A)})"
+        rands = draws.uniform((B, T))
+        acts, nxt, _ = node_actions_agrees(tree, rands, label)
+        descend_equals(tree, rands, acts, nxt, label)
+        rands_k = draws.uniform((B, 8, T))
+        kw = dict(n_iters=6, accel=True)
+        multi_agrees(tree, rands_k, kw, label)
+        split_equals_fused(tree, rands_k, kw, label)
+        print(f"{label}: split pair equal to node_actions_multi in every draw and alpha",
+              flush=True)
 
 
 def tree_copy(tree):
@@ -810,6 +949,7 @@ def main(argv=None):
     parser.add_argument("--envs", type=int, default=32 * 1024)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--k1-learner-envs", type=int, default=32 * 1024)
+    parser.add_argument("--layout-envs", type=int, default=1024)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
     t_start = time.time()
@@ -860,6 +1000,11 @@ def main(argv=None):
         check_search_cpu_vs_gpu(cfg9s, model9)
         torch.cuda.empty_cache()
 
+    # 3c. every lane layout of the row kernels, one small tree per board
+    with Phase("row kernels at every board size"):
+        check_board_layouts(args.seed + 6, args.layout_envs)
+        torch.cuda.empty_cache()
+
     # 4. the K=1 kernels at the 6x6 path's shapes
     with Phase("K=1 kernels against their twins"):
         draws = Draws(args.seed + 2, DEV)
@@ -899,12 +1044,15 @@ def main(argv=None):
         sync()
         print(f"mix at 6x6: {time.time() - t0:.2f} s", flush=True)
         sims = mcfg6.n_nodes - 1
+        steps6 = max(2, args.steps)
         torch.cuda.reset_peak_memory_stats()
-        c, (_, step_s) = run_path("2 6x6 K=1 actor steps", {"node_actions": 2 * sims, "walk": 2 * sims},
-                                  lambda: actor_steps(cfg6, model6, worlds, draws, 2, 2 * sims))
+        c, (_, step_s) = run_path(
+            f"{steps6} 6x6 K=1 actor steps", {"node_actions": steps6 * sims, "walk": steps6 * sims},
+            lambda: actor_steps(cfg6, model6, worlds, draws, steps6, 2 * sims))
         launches["node_actions"] = c["node_actions"]
         print(f"K=1 actor step (6x6, 128x1, {cfg6.n_envs} envs, 64 nodes): steps {step_s} s, "
-              f"{cfg6.n_envs * sims / step_s[-1]:.0f} sims/s at the second, peak memory "
+              f"median after the first {steady(step_s):.4f} s/step, "
+              f"{cfg6.n_envs * sims / steady(step_s):.0f} sims/s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {card}", flush=True)
 
     # 5c. the K=1 kernel variants

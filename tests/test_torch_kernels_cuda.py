@@ -7,8 +7,10 @@ torch and numpy only, so it also runs where JAX is not installed:
 
 `walk` is pure integer logic and must be bit-equal. `node_actions_multi`
 and `node_actions` sum their lanes in another order than the twins, so the
-solved alpha agrees to rtol 1e-5; the draws are equal on these seeds, where
-no rand lies within 1e-6 of a CDF boundary (each case checks that).
+solved alpha agrees to rtol 1e-5; the draws are equal, since no rand lies
+within 1e-6 of a CDF boundary (the cases redraw any within 1e-5 and check).
+The row cases run at A = 9, 25, 36, 49, 81 and 121 (boards 3 to 11), so
+every lane layout of `kernels.row_layout` runs.
 `descend` shares the row code of `node_actions` and must equal
 `node_actions` + `walk` on the card exactly. `backup` and `backup_dense`
 make the twin's adds in the twin's order: n and n_edge exact, w and w_edge
@@ -102,6 +104,27 @@ def _min_boundary_gap(inp, rands, n_iters, accel):
     return float((cum[:, None] - r[..., None]).abs().min())
 
 
+def _away_from_boundaries(inp, rands, n_iters, accel, seed):
+    """rands (B,K,T) (or (B,T)) with every uniform within 1e-5 of the twin's
+    CDF redrawn, so that each draw must equal the twin's."""
+    gen = torch.Generator().manual_seed(seed + 1000)
+    probs = search.node_probs(inp["logits"], inp["n_edge"], inp["w_edge"], inp["c_puct"],
+                              inp["q_bounds"], n_iters=n_iters, accel=accel).double()
+    cum = probs.cumsum(-1)[:, None]  # (B,1,T,A)
+    rands = rands.clone()
+    for _ in range(20):
+        r = rands if rands.dim() == 3 else rands[:, None]
+        near = ((cum - r.double()[..., None]).abs() < 1e-5).any(-1)
+        near = near if rands.dim() == 3 else near[:, 0]
+        if not near.any():
+            return rands
+        rands[near] = torch.rand(int(near.sum()), generator=gen)
+    raise AssertionError("could not draw uniforms away from the CDF boundaries")
+
+
+BOARD_ACTIONS = [9, 25, 36, 49, 81, 121]  # boards 3, 5, 6, 7, 9, 11
+
+
 def _walk_inputs(seed, K):
     B, T, A = 16, 12, 7
     inp, terminal = _random_tree(seed, B, T, A)
@@ -125,12 +148,14 @@ def test_walk_kernel_matches_ref(cuda, K, max_levels):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("A", [7] + BOARD_ACTIONS)
 @pytest.mark.parametrize("seed,c_puct,n_iters,accel", [
     (9, 1.0, 16, False), (2, 0.0625, 16, False), (9, 1.0, 6, True), (2, 0.0625, 6, True)])
-def test_node_actions_multi_kernel_matches_ref(cuda, seed, c_puct, n_iters, accel):
-    B, T, A, K = 16, 12, 7, 4
+def test_node_actions_multi_kernel_matches_ref(cuda, seed, c_puct, n_iters, accel, A):
+    B, T, K = 16, 12, 4
     inp, _ = _random_tree(seed, B, T, A, c_puct)
     rands = torch.rand((B, K, T), generator=torch.Generator().manual_seed(seed))
+    rands = _away_from_boundaries(inp, rands, n_iters, accel, seed)
     assert _min_boundary_gap(inp, rands, n_iters, accel) > 1e-6
     ra, rc, ralpha = kernels.node_actions_multi_ref(rands=rands, n_iters=n_iters, accel=accel,
                                                     return_alpha=True, **inp)
@@ -145,15 +170,17 @@ def test_node_actions_multi_kernel_matches_ref(cuda, seed, c_puct, n_iters, acce
 
 
 @pytest.mark.gpu
-def test_node_actions_multi_kernel_wide_rows_and_slice(cuda):
-    # 81 actions spread over three lane groups, and a leading-row slice of the
-    # node axis as the grow passes hand it over (env stride > rows * A)
-    B, T, A, K, R = 8, 20, 81, 8, 9
+@pytest.mark.parametrize("A", BOARD_ACTIONS)
+def test_node_actions_multi_kernel_wide_rows_and_slice(cuda, A):
+    # rows in every lane layout, and a leading-row slice of the node axis as
+    # the grow passes hand it over (env stride > rows * A)
+    B, T, K, R = 8, 20, 8, 9
     inp, _ = _random_tree(4, B, T, A, c_puct=1 / 16)
+    ref = {k: (v[:, :R].contiguous() if v.dim() == 3 else v) for k, v in inp.items()}
     rands = torch.rand((B, K, R), generator=torch.Generator().manual_seed(4))
+    rands = _away_from_boundaries(ref, rands, 6, True, 4)
     sliced = {k: (v[:, :R] if v.dim() == 3 else v) for k, v in _to(inp, cuda).items()}
     ka, kc, kalpha = kernels.node_actions_multi(rands=rands.to(cuda), return_alpha=True, **sliced)
-    ref = {k: (v[:, :R].contiguous() if v.dim() == 3 else v) for k, v in inp.items()}
     assert _min_boundary_gap(ref, rands, 6, True) > 1e-6
     ra, rc, ralpha = kernels.node_actions_multi_ref(rands=rands, return_alpha=True, **ref)
     torch.cuda.synchronize()
@@ -182,13 +209,15 @@ def test_wrappers_raise_on_wrong_inputs(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed,c_puct,B,T,A,R", [
-    (9, 1.0, 16, 12, 7, 12), (2, 0.0625, 16, 12, 7, 12), (4, 1 / 16, 8, 20, 36, 9)])
-def test_node_actions_kernel_matches_ref(cuda, seed, c_puct, B, T, A, R):
+@pytest.mark.parametrize("A", [7] + BOARD_ACTIONS)
+@pytest.mark.parametrize("seed,c_puct,B,T,R", [
+    (9, 1.0, 16, 12, 12), (2, 0.0625, 16, 12, 12), (4, 1 / 16, 8, 20, 9)])
+def test_node_actions_kernel_matches_ref(cuda, seed, c_puct, B, T, R, A):
     # R < T: the live-row slice the K=1 search hands over (env stride T*A)
     inp, _ = _random_tree(seed, B, T, A, c_puct)
-    rands = torch.rand((B, R), generator=torch.Generator().manual_seed(seed))
     ref_inp = {k: (v[:, :R].contiguous() if v.dim() == 3 else v) for k, v in inp.items()}
+    rands = torch.rand((B, R), generator=torch.Generator().manual_seed(seed))
+    rands = _away_from_boundaries(ref_inp, rands, 16, False, seed)
     assert _min_boundary_gap(ref_inp, rands, 16, False) > 1e-6
     ra, rc = search.node_actions(rands=rands, **ref_inp)
     sliced = {k: (v[:, :R] if v.dim() == 3 else v) for k, v in _to(inp, cuda).items()}
@@ -202,12 +231,14 @@ def test_node_actions_kernel_matches_ref(cuda, seed, c_puct, B, T, A, R):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("A", [7] + BOARD_ACTIONS)
 @pytest.mark.parametrize("seed,c_puct", [(0, 1.0), (1, 0.0625), (2, 10.0)])
-def test_descend_kernel_matches_ref(cuda, seed, c_puct):
-    B, T, A = 16, 12, 7
+def test_descend_kernel_matches_ref(cuda, seed, c_puct, A):
+    B, T = 16, 12
     tree = _random_search_tree(seed, B, T, A, c_puct)
-    rands = torch.rand((B, T), generator=torch.Generator().manual_seed(seed))
     inp, _ = _random_tree(seed, B, T, A, c_puct)
+    rands = torch.rand((B, T), generator=torch.Generator().manual_seed(seed))
+    rands = _away_from_boundaries(inp, rands, 16, False, seed)
     assert _min_boundary_gap(inp, rands, 16, False) > 1e-6
     rp, ra = search.descend_reference(tree, rands)
     gtree = _tree_to(tree, cuda)
@@ -254,7 +285,8 @@ def _lead(inp, R, copy=False):
 @pytest.mark.gpu
 @pytest.mark.parametrize("out", ["probs", "alpha"])
 @pytest.mark.parametrize("seed,B,T,A,R,n_iters,accel", [
-    (9, 16, 12, 7, 12, 6, True), (2, 16, 12, 7, 12, 16, False), (4, 8, 20, 81, 9, 6, True)])
+    (9, 16, 12, 7, 12, 6, True), (2, 16, 12, 7, 12, 16, False), (4, 8, 20, 81, 9, 6, True)]
+    + [(5, 8, 20, A, 9, 6, True) for A in BOARD_ACTIONS if A != 81])
 def test_solve_probs_kernel_matches_ref(cuda, out, seed, B, T, A, R, n_iters, accel):
     # R < T: a leading-row slice of the node axis (env stride T*A)
     inp, _ = _random_tree(seed, B, T, A, c_puct=1 / 16)
@@ -275,7 +307,9 @@ def test_solve_probs_kernel_matches_ref(cuda, out, seed, B, T, A, R, n_iters, ac
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed,B,T,A,K,R", [(6, 16, 12, 7, 4, 12), (4, 8, 20, 81, 8, 9)])
+@pytest.mark.parametrize("seed,B,T,A,K,R", [(6, 16, 12, 7, 4, 12), (4, 8, 20, 81, 8, 9)]
+                         + [(5, 8, 20, A, 8, 9) for A in BOARD_ACTIONS if A != 81]
+                         + [(7, 8, 20, 36, 20, 9)])  # K > G: the draws in two rounds
 def test_sample_children_multi_kernel_matches_ref_and_fused(cuda, seed, B, T, A, K, R):
     inp, _ = _random_tree(seed, B, T, A, c_puct=1 / 16)
     sliced = _lead(_to(inp, cuda), R)

@@ -16,11 +16,12 @@ PyTorch twins and their launch counts.
   root->leaf walk, solving and sampling only the rows it visits. Twin:
   `search.descend_reference`.
 * `backup` (csrc/backup.cu) replaces the Pallas `backup`: the leaf->root
-  chase into dense node deltas, which the wrapper routes onto the edges with
-  `search._apply_deltas`. Twin: `search.backup`.
+  chase updating n, w, n_edge and w_edge in place in one launch, the edges
+  routed inside the kernel (the Pallas wrapper routes node deltas in XLA).
+  Twin: `search.backup`, bit for bit.
 * `backup_dense` (csrc/backup_dense.cu) replaces the Pallas `backup_dense`:
-  the same chase updating n, w, n_edge and w_edge in place. Twin:
-  `search.backup`.
+  the same chase with the Pallas kernel's two-seat edge value. Twin:
+  `search.backup`, bit for bit.
 * `solve_probs` (csrc/solve_probs.cu) replaces the Pallas `solve_probs`: the
   all-node solve alone, probs (B,R,A) or the roots alpha (B,R). Twin:
   `solve_probs_ref`, which is `search.node_probs`.
@@ -34,7 +35,9 @@ The five row kernels share one device solve, prefix sum and draw
 `solve_probs` + `sample_children_multi` draws what the fused
 `node_actions_multi` draws, and `descend` walks what `node_actions` + `walk`
 walk. `solve_steps` gives the solver steps each row needs, which the kernels
-run (a warp until all its rows are done) and the bounds count.
+run (a warp until all its rows are done) and the bounds count. The two
+backups share one chase (csrc/backup_walk.cuh), a lane group per env, its
+width fixed there.
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches the
 kernel or raises, with no fallback. Each launch adds one to the wrapper's
@@ -62,7 +65,7 @@ from . import search
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = ("walk.cu", "node_actions_multi.cu", "node_actions.cu", "descend.cu", "backup.cu",
             "backup_dense.cu", "solve_probs.cu", "sample_children_multi.cu")
-_HEADERS = ("row_solve.cuh",)
+_HEADERS = ("row_solve.cuh", "backup_walk.cuh")
 _BUILD_DIR = _PKG / "_build"
 # -fmad=false: no fused multiply-adds, so each element's float arithmetic
 # rounds like the plain twin's separate PyTorch ops
@@ -129,10 +132,9 @@ def build(verbose=False):
     lib.node_actions_launch.restype = i
     lib.descend_launch.argtypes = [p, p, p, p, p, i, i, i, p, p, p, p, p, i, i, p]
     lib.descend_launch.restype = i
-    lib.backup_launch.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, p, p, p]
-    lib.backup_launch.restype = i
-    lib.backup_dense_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p]
-    lib.backup_dense_launch.restype = i
+    for name in ("backup_launch", "backup_dense_launch"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p]
+        getattr(lib, name).restype = i
     lib.solve_probs_launch.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, i, i, p]
     lib.solve_probs_launch.restype = i
     lib.sample_children_multi_launch.argtypes = [p, i, p, i, i, i, i, i, p, p, p, i, i, p]
@@ -182,12 +184,21 @@ def _check_solve_args(rands, c_puct, q_bounds, rands_shape):
     _check_bounds(c_puct, q_bounds, rands_shape[0])
 
 
+def _check_stored(x, name, dtype, shape):
+    """A whole (B,T,...) tree tensor in its storage type, contiguous. The
+    message is built only on failure: the K=1 search calls this on every
+    launch, and its host time is the search's."""
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if x.shape != shape or not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {tuple(shape)}, got {tuple(x.shape)}")
+
+
 def _check_node(x, name, dtype, shape):
-    """A whole (B,T,...) tree tensor: CUDA, the storage type, contiguous."""
-    _check(x.is_cuda, f"{name} must be a CUDA tensor")
-    _check(x.dtype == dtype, f"{name} must be {dtype}, got {x.dtype}")
-    _check(tuple(x.shape) == tuple(shape) and x.is_contiguous(),
-           f"{name} must be contiguous {tuple(shape)}, got {tuple(x.shape)}")
+    """`_check_stored`, on the card."""
+    _check_stored(x, name, dtype, shape)
+    if not x.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
 
 
 def _raise_on(err, name):
@@ -417,65 +428,68 @@ descend.launches = 0
 # backup and backup_dense (K=1)
 # --------------------------------------------------------------------------
 
-def _check_backup(tree, leaves):
+def _check_backup(tree, leaves, n_per_visit):
+    """Every tensor the backup kernels read or write, in its storage type,
+    whole and contiguous: storage type and shape first, then the device, so
+    the refusals are testable on the CPU. Returns (B, T, A, S)."""
     B, T, S = tree.w.shape
-    _check(leaves.is_cuda and leaves.dtype == torch.int32 and tuple(leaves.shape) == (B,)
-           and leaves.is_contiguous(), "leaves must be contiguous (B,) int32 on the card")
-    _check_node(tree.v, "v", torch.float32, (B, T, S))
-    _check_node(tree.parents, "parents", torch.int32, (B, T))
-    _check_node(tree.terminal, "terminal", torch.bool, (B, T))
-    _check_node(tree.rewards, "rewards", torch.float32, (B, T, S))
-    _check(S <= 4, f"the backup kernels take at most 4 seats, got {S}")
-    return B, T, S
+    A = tree.n_edge.shape[-1]
+    _check_stored(leaves, "leaves", torch.int32, (B,))
+    stored = (("v", torch.float32, (B, T, S)), ("parents", torch.int32, (B, T)),
+              ("relation", torch.int32, (B, T)), ("seats", torch.int32, (B, T)),
+              ("terminal", torch.bool, (B, T)), ("rewards", torch.float32, (B, T, S)),
+              ("n", torch.int32, (B, T)), ("w", torch.float32, (B, T, S)),
+              ("n_edge", torch.bfloat16, (B, T, A)), ("w_edge", torch.float32, (B, T, A)))
+    for name, dtype, shape in stored:
+        _check_stored(getattr(tree, name), name, dtype, shape)
+    if S > 4:
+        raise ValueError(f"the backup kernels take at most 4 seats, got {S}")
+    if int(n_per_visit) != n_per_visit:
+        raise ValueError(f"n_per_visit must be whole, got {n_per_visit}")
+    if not leaves.is_cuda:
+        raise ValueError("leaves must be a CUDA tensor")
+    for name, _, _ in stored:
+        if not getattr(tree, name).is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+    return B, T, A, S
+
+
+def _backup_launch(name, tree, leaves, n_per_visit):
+    """Launch the backup kernel `name` ('backup' or 'backup_dense') on
+    `tree`, in place."""
+    B, T, A, S = _check_backup(tree, leaves, n_per_visit)
+    lib = build()
+    err = getattr(lib, f"{name}_launch")(
+        tree.v.data_ptr(), leaves.data_ptr(), tree.parents.data_ptr(), tree.relation.data_ptr(),
+        tree.seats.data_ptr(), tree.terminal.data_ptr(), tree.rewards.data_ptr(), B, T, A, S,
+        int(n_per_visit), tree.n.data_ptr(), tree.w.data_ptr(), tree.n_edge.data_ptr(),
+        tree.w_edge.data_ptr(), torch.cuda.current_stream(leaves.device).cuda_stream)
+    _raise_on(err, name)
 
 
 def backup(tree, leaves, n_per_visit):
-    """Back up each env's leaf (B,) int32 to the root, in place: the kernel
-    chases parent pointers into dense node deltas dn (B,T) and dw (B,T,S),
-    then `search._apply_deltas` adds them to n/w and routes them onto the
-    parent edges with `index_put_(accumulate=True)`. Returns the tree."""
+    """Back up each env's leaf (B,) int32 to the root, in place, in one
+    launch: n, w and the parent edges' n_edge, w_edge along each path, the
+    edge value at the parent's seat clamped to [0, S-1] (up to 4 seats).
+    Bit-equal to `search.backup`. Returns the tree."""
     if leaves.device.type == "cpu":
         return search.backup(tree, leaves, n_per_visit)
-    B, T, S = _check_backup(tree, leaves)
-    lib = build()
-    dev = leaves.device
-    dn = torch.empty((B, T), dtype=torch.float32, device=dev)
-    dw = torch.empty((B, T, S), dtype=torch.float32, device=dev)
-    err = lib.backup_launch(
-        tree.v.data_ptr(), leaves.data_ptr(), tree.parents.data_ptr(), tree.terminal.data_ptr(),
-        tree.rewards.data_ptr(), B, T, S, float(n_per_visit), dn.data_ptr(), dw.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "backup")
+    _backup_launch("backup", tree, leaves, n_per_visit)
     backup.launches += 1
-    return search._apply_deltas(tree, dn, dw)
+    return tree
 
 
 backup.launches = 0
 
 
 def backup_dense(tree, leaves, n_per_visit):
-    """`backup` with every statistic (n, w, n_edge, w_edge) updated in place
-    along each env's path by the kernel. Two-seat trees only: the edge value
-    is v[0] at seat 0 and v[S-1] otherwise, as in the Pallas kernel."""
+    """`backup` with the Pallas `backup_dense`'s edge value: v[0] at seat 0
+    and v[S-1] otherwise, so two-seat trees only. Bit-equal to
+    `search.backup`. Returns the tree."""
     _check(tree.w.shape[-1] == 2, f"backup_dense takes two-seat trees, got {tree.w.shape[-1]}")
     if leaves.device.type == "cpu":
         return search.backup(tree, leaves, n_per_visit)
-    B, T, S = _check_backup(tree, leaves)
-    A = tree.n_edge.shape[-1]
-    _check_node(tree.relation, "relation", torch.int32, (B, T))
-    _check_node(tree.seats, "seats", torch.int32, (B, T))
-    _check_node(tree.n, "n", torch.int32, (B, T))
-    _check_node(tree.w, "w", torch.float32, (B, T, S))
-    _check_node(tree.n_edge, "n_edge", torch.bfloat16, (B, T, A))
-    _check_node(tree.w_edge, "w_edge", torch.float32, (B, T, A))
-    lib = build()
-    dev = leaves.device
-    err = lib.backup_dense_launch(
-        tree.v.data_ptr(), leaves.data_ptr(), tree.parents.data_ptr(), tree.relation.data_ptr(),
-        tree.seats.data_ptr(), tree.terminal.data_ptr(), tree.rewards.data_ptr(), B, T, A, S,
-        int(n_per_visit), tree.n.data_ptr(), tree.w.data_ptr(), tree.n_edge.data_ptr(),
-        tree.w_edge.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "backup_dense")
+    _backup_launch("backup_dense", tree, leaves, n_per_visit)
     backup_dense.launches += 1
     return tree
 

@@ -748,7 +748,8 @@ def simulate(tree, eval_fn, rands, cfg: MCTSConfig):
     Routes, as `MCTSConfig` selects them: `node_actions` + `walk` +
     `backup_path` (the default, the JAX package's chip route); with
     `descend_kernel`, the `descend` kernel and then `backup` in torch ops or
-    the `backup` / `backup_dense` kernels."""
+    the `backup` / `backup_dense` kernel, each one launch that updates n, w,
+    n_edge and w_edge along the path in place, bit-equal to `backup`."""
     B, T, A = tree.children.shape
     b = torch.arange(B, device=rands.device)
     path = acts = None

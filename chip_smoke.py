@@ -21,13 +21,17 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      board of 3, 5, 6, 7, 9 and 11, a K=1 tree of `--layout-envs` envs after
      20 sims of a random 64x2 model, on which `node_actions` and `node_actions_multi`
      agree with their twins by the rules of phases 3 and 4, `descend` equals
-     `node_actions` + `walk` and the split pair equals `node_actions_multi`;
+     `node_actions` + `walk`, `backup` and `backup_dense` equal
+     `search.backup` bit for bit and the split pair equals
+     `node_actions_multi`;
   4. the K=1 kernels at the 6x6 path's shapes (`best_config(6)`, 32,768
      envs, T=64, A=36) on a real tree after 30 sims: `node_actions` draw for
      draw up to CDF boundaries (timed on all T rows and on the tree.sim live
      rows the search hands it), `descend` equal to `node_actions` + `walk`,
-     `backup` and `backup_dense` against `search.backup` (n, n_edge exact,
-     w, w_edge to atol 1e-5); a small 6x6 search on the card against the CPU;
+     `backup` and `backup_dense` equal to `search.backup` bit for bit in n,
+     w, n_edge and w_edge (timed there and on an all-chains tree of the same
+     shapes, every env a chain of depth T-1, also bit-equal); a small 6x6
+     search on the card against the CPU;
   5. the paths, each driven with every launch count set to 0 just before and
      read just after, failing unless each of its kernels ran the expected
      number of times:
@@ -39,6 +43,7 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         `backup_kernel` 'ops', 'delta', 'dense') from the same worlds and
         draws, 63 launches of each of its kernels, trees held against the
         default route's (equal on all but 0.1% of envs, w to atol 1e-4);
+        the four searches' seconds on one line;
      d. the 9x9 learner: `make_train`, `init`, a full warmup (64 actor steps)
         and `--steps` train steps, all aux finite, parameters moved;
      e. one 6x6 K=1 train step after its warmup, at `--k1-learner-envs`;
@@ -59,6 +64,10 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
 
 Each row kernel's f32 operation bound counts the solver steps its inputs
 need (`kernels.solve_steps`, printed as a histogram), not the step budget.
+A kernel's reported `ms` is the time of one call on an idle card
+(`time_ms`, the wrapper's host time before the launch included), as the
+twins' `plain_ms` are; `device_ms` beside it is its time on the card
+(calls enqueued behind a spin, so the host's time is hidden).
 """
 from __future__ import annotations
 
@@ -142,6 +151,55 @@ def time_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+_SPIN_CYCLES_PER_MS = []
+
+
+def device_ms(fn, reps):
+    """The card's time per call of `fn`, without the host's: after one
+    warm-up call, `reps` calls are enqueued behind a spin kernel that keeps
+    the card busy until the host has enqueued them all, and CUDA events
+    time them back to back. (`time_ms` starts its clock on an idle card, so
+    it also counts the host's time before the launch: the wrapper's checks
+    and the launch itself, some tens of microseconds.) A spin that ends
+    before the last call is enqueued is made 4 times longer once; if that
+    ends early too, `fn` synchronises, and the time says so."""
+    import torch
+
+    if not _SPIN_CYCLES_PER_MS:  # calibrate the spin once
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_MS.append(10 ** 7 / max(start.elapsed_time(end), 1e-3))
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    spin_ms = 2e3 * reps * (time.perf_counter() - t0) + 1.0
+    sync()
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * _SPIN_CYCLES_PER_MS[0]))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        starved = start.query()  # the spin ended before the last call was enqueued
+        end.synchronize()
+        if not starved:
+            break
+        spin_ms *= 4
+    else:
+        print("device_ms: the call synchronises; its time includes the host's", flush=True)
+    return start.elapsed_time(end) / reps
+
+
+def both_ms(fn, reps):
+    """(`device_ms`, `time_ms`): the card's time and the time of a call."""
+    return device_ms(fn, reps), time_ms(fn, reps)
 
 
 def fail(msg):
@@ -314,14 +372,15 @@ def check_node_actions_multi(tree, cfg, draws, report):
     steps = kernels.solve_steps(*args[:3], tree.c_puct, args[-1], **kw)
     print(f"node_actions_multi at (B,T,A)=({B},{T},{A}), row layout (G, J) = "
           f"{kernels.row_layout(A)}: {steps_line(steps, A)}", flush=True)
-    k_ms = time_ms(lambda: kernels.node_actions_multi(*args, **kw), 20)
+    k_ms, k_call = both_ms(lambda: kernels.node_actions_multi(*args, **kw), 20)
     r_ms = time_ms(lambda: kernels.node_actions_multi_ref(*args, **kw), 5)
     nbytes = (B * T * A * (4 + 2 + 4 + 1) + B * K * T * 4 + B * 4 + 8 + 2 * B * K * T * 4)
     ops = solve_ops(steps, A) + draw_ops(B * T, A, K)
     report["node_actions_multi"] = dict(
-        ms=k_ms, plain_ms=r_ms, max_abs_err=float((kalpha - ralpha).abs().max()),
-        bytes=nbytes, ops=ops)
-    print(f"node_actions_multi: kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms (median); "
+        ms=k_call, device_ms=k_ms, plain_ms=r_ms,
+        max_abs_err=float((kalpha - ralpha).abs().max()), bytes=nbytes, ops=ops)
+    print(f"node_actions_multi: kernel {k_ms:.4f} ms on the card ({k_call:.4f} ms a call), "
+          f"twin {r_ms:.4f} ms a call (median); "
           f"{nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
           f"{ops / 1e9:.2f} GFLOP -> f32 bound {ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
     return ka, kc
@@ -398,25 +457,29 @@ def check_split_kernels(tree, cfg, draws, report):
 
     steps = kernels.solve_steps(*rows, tree.c_puct, qb, **kw)
     print(f"solve_probs at (B,T,A)=({B},{T},{A}): {steps_line(steps, A)}", flush=True)
-    k_ms = time_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, **kw), 20)
-    a_ms = time_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, out="alpha", **kw), 20)
+    k_ms, k_call = both_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, **kw), 20)
+    a_ms, a_call = both_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, out="alpha", **kw),
+                           20)
     r_ms = time_ms(lambda: search.node_probs(*rows, tree.c_puct, qb, **kw), 5)
     nbytes = B * T * A * (4 + 2 + 4 + 4) + B * 4 + 8
     a_bytes = B * T * A * (4 + 2 + 4) + B * T * 4 + B * 4 + 8
     ops = solve_ops(steps, A)
-    report["solve_probs"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes, ops=ops)
-    print(f"solve_probs: kernel {k_ms:.4f} ms (out='alpha' {a_ms:.4f} ms), twin {r_ms:.4f} ms "
+    report["solve_probs"] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err,
+                                 bytes=nbytes, ops=ops)
+    print(f"solve_probs: kernel {k_ms:.4f} ms on the card, {k_call:.4f} ms a call (out='alpha' "
+          f"{a_ms:.4f}, {a_call:.4f} ms), twin {r_ms:.4f} ms a call "
           f"(median); {nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
           f"(alpha {a_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), {ops / 1e9:.2f} GFLOP -> f32 bound "
           f"{ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
 
-    s_ms = time_ms(lambda: kernels.sample_children_multi(probs, tree.children, rands), 20)
+    s_ms, s_call = both_ms(lambda: kernels.sample_children_multi(probs, tree.children, rands), 20)
     rs_ms = time_ms(lambda: kernels.sample_children_multi_ref(probs, tree.children, rands), 5)
     s_bytes = B * T * A * (4 + 1) + B * K * T * (4 + 4 + 4)
     s_ops = draw_ops(B * T, A, K)
-    report["sample_children_multi"] = dict(ms=s_ms, plain_ms=rs_ms, max_abs_err=0.0,
-                                           bytes=s_bytes, ops=s_ops)
-    print(f"sample_children_multi: kernel {s_ms:.4f} ms, twin {rs_ms:.4f} ms (median); "
+    report["sample_children_multi"] = dict(ms=s_call, device_ms=s_ms, plain_ms=rs_ms,
+                                           max_abs_err=0.0, bytes=s_bytes, ops=s_ops)
+    print(f"sample_children_multi: kernel {s_ms:.4f} ms on the card ({s_call:.4f} ms a call), "
+          f"twin {rs_ms:.4f} ms a call (median); "
           f"{s_bytes / 1e9:.3f} GB -> bytes bound {s_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
           f"{s_ops / 1e9:.2f} GFLOP -> f32 bound {s_ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
 
@@ -438,13 +501,15 @@ def check_walk(tree, acts_bkt, nxt_bkt, max_levels, report):
     depth = int((ref[3] >= 0).sum(1).max())
     print(f"walk vs twin at (N,T,L)=({K * B},{T},{max_levels}): all four outputs bit-equal; "
           f"{levels} levels visited, deepest {depth}", flush=True)
-    k_ms = time_ms(lambda: kernels.walk(tree.terminal, acts, nxt, max_levels), 20)
+    k_ms, k_call = both_ms(lambda: kernels.walk(tree.terminal, acts, nxt, max_levels), 20)
     r_ms = time_ms(lambda: kernels.walk_ref(tree.terminal, acts, nxt, max_levels), 5)
     N, L = ref[3].shape
     nbytes = levels * 9 + N * (L + 3) * 4  # useful bytes read, bytes written
     sectors = levels * 3 * 32 + N * (L + 3) * 4  # each level's 3 reads as whole sectors
-    report["walk"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=0.0, bytes=nbytes, ops=0)
-    print(f"walk: kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms (median); {nbytes / 1e6:.2f} MB "
+    report["walk"] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=0.0,
+                          bytes=nbytes, ops=0)
+    print(f"walk: kernel {k_ms:.4f} ms on the card ({k_call:.4f} ms a call), twin {r_ms:.4f} ms "
+          f"a call (median); {nbytes / 1e6:.2f} MB "
           f"-> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms; counted in 32-byte "
           f"sectors {sectors / 1e6:.2f} MB -> {sectors / HBM_BYTES_PER_S * 1e3:.5f} ms", flush=True)
 
@@ -575,18 +640,20 @@ def check_node_actions(tree, rands, report):
     for R in (T, tree.sim):
         args = (tree.logits[:, :R], tree.n_edge[:, :R], tree.w_edge[:, :R],
                 tree.children[:, :R], rands[:, :R].contiguous(), tree.c_puct, qb)
-        k_ms = time_ms(lambda: kernels.node_actions(*args), 20)
+        k_ms, k_call = both_ms(lambda: kernels.node_actions(*args), 20)
         r_ms = time_ms(lambda: search.node_actions(*args), 5)
         nbytes, ops, steps = node_actions_cost(tree, R)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-        times[R] = (k_ms, r_ms, nbytes, ops)
+        times[R] = (k_call, k_ms, r_ms, nbytes, ops)
         print(f"node_actions at (B,T,A)=({B},{R},{A}), row layout (G, J) = "
-              f"{kernels.row_layout(A)}: {steps_line(steps, A)}; kernel {k_ms:.4f} ms, twin "
-              f"{r_ms:.4f} ms (median); {nbytes / 1e9:.3f} GB -> bytes bound "
+              f"{kernels.row_layout(A)}: {steps_line(steps, A)}; kernel {k_ms:.4f} ms on the "
+              f"card ({k_call:.4f} ms a call), twin {r_ms:.4f} ms a call (median); "
+              f"{nbytes / 1e9:.3f} GB -> bytes bound "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {ops / 1e9:.2f} GFLOP -> f32 bound "
               f"{ops / F32_FLOPS * 1e3:.4f} ms; bound {bound:.4f} ms", flush=True)
-    k_ms, r_ms, nbytes, ops = times[T]
-    report["node_actions"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes, ops=ops)
+    k_call, k_ms, r_ms, nbytes, ops = times[T]
+    report["node_actions"] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err,
+                                  bytes=nbytes, ops=ops)
     return ka, kc
 
 
@@ -624,7 +691,7 @@ def check_descend(tree, rands, acts, nxt, report):
     B, T, A = tree.logits.shape
     wp, halt, path, err = descend_equals(tree, rands, acts, nxt, "6x6 K=1 tree")
     levels = int((path >= 0).sum())
-    k_ms = time_ms(lambda: kernels.descend(tree, rands), 20)
+    k_ms, k_call = both_ms(lambda: kernels.descend(tree, rands), 20)
     r_ms = time_ms(lambda: search.descend_reference(tree, rands), 3)
     # each visited level reads its row (11 bytes a lane), its rand and the
     # child's terminal flag; per env the root flag, c_puct, two outputs
@@ -633,8 +700,10 @@ def check_descend(tree, rands, acts, nxt, report):
                                 search._q_bounds(tree))
     visited = torch.gather(steps, 1, path.long().clamp_min(0))[path >= 0]
     ops = solve_ops(visited, A) + draw_ops(levels, A, 1)
-    report["descend"] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes, ops=ops)
-    print(f"descend: kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms (median); {nbytes / 1e6:.2f} MB "
+    report["descend"] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err,
+                             bytes=nbytes, ops=ops)
+    print(f"descend: kernel {k_ms:.4f} ms on the card ({k_call:.4f} ms a call), twin "
+          f"{r_ms:.4f} ms a call (median); {nbytes / 1e6:.2f} MB "
           f"-> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, {ops / 1e9:.3f} GFLOP -> "
           f"f32 bound {ops / F32_FLOPS * 1e3:.5f} ms", flush=True)
     return torch.where(halt == -1, wp, halt)
@@ -644,7 +713,8 @@ def check_board_layouts(seed, n_envs=1024, sims=20):
     """For each board the repo runs (3, 5, 6, 7, 9, 11: every lane layout of
     the row kernels), a small K=1 tree after `sims` sims, on which
     `node_actions` and `node_actions_multi` agree with their twins,
-    `descend` equals `node_actions` + `walk`, and the split pair equals
+    `descend` equals `node_actions` + `walk`, both backups equal their twin
+    bit for bit from the walks' leaves, and the split pair equals
     `node_actions_multi`."""
     import torch
     from boardlaw_tpu_torch import train
@@ -661,7 +731,8 @@ def check_board_layouts(seed, n_envs=1024, sims=20):
         label = f"{boardsize}x{boardsize} (A={A}, row layout (G, J) = {kernels.row_layout(A)})"
         rands = draws.uniform((B, T))
         acts, nxt, _ = node_actions_agrees(tree, rands, label)
-        descend_equals(tree, rands, acts, nxt, label)
+        wp, halt, _, _ = descend_equals(tree, rands, acts, nxt, label)
+        backups_equal(tree, torch.where(halt == -1, wp, halt), label)
         rands_k = draws.uniform((B, 8, T))
         kw = dict(n_iters=6, accel=True)
         multi_agrees(tree, rands_k, kw, label)
@@ -677,34 +748,98 @@ def tree_copy(tree):
                           for k, v in tree.__dict__.items()})
 
 
-def check_backups(tree, leaves, report):
+BACKUPS = ("backup", "backup_dense")
+BACKUP_STATS = ("n", "w", "n_edge", "w_edge")
+
+
+def backups_equal(tree, leaves, label):
     """Both backup kernels against `search.backup` from `leaves` (B,) int32
-    (existing nodes, so every chase is a real path)."""
+    (existing nodes, so every chase is a real path): n, w, n_edge and w_edge
+    bit-equal. Returns the levels the chases visited and each kernel's
+    largest |kernel - twin| difference over the four statistics."""
     import torch
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    npv = tree.w.shape[-1]
+    ref = search.backup(tree_copy(tree), leaves, npv)
+    errs = {}
+    for name in BACKUPS:
+        out = getattr(kernels, name)(tree_copy(tree), leaves, npv)
+        sync()
+        differ = [k for k in BACKUP_STATS if not torch.equal(getattr(out, k), getattr(ref, k))]
+        errs[name] = max(float((getattr(out, k).float() - getattr(ref, k).float()).abs().max())
+                         for k in BACKUP_STATS)
+        if differ:
+            fail(f"{label}: {name} differs from the twin in {differ} (max |difference| "
+                 f"{errs[name]:.3g})")
+    levels = int((ref.n - tree.n).sum()) // npv
+    print(f"{label}: backup and backup_dense bit-equal to the twin in n, w, n_edge and w_edge "
+          f"({levels} levels visited)", flush=True)
+    return levels, errs
+
+
+def chain_tree(tree, seed):
+    """A tree of `tree`'s shapes in which every env is one chain of depth
+    T-1 (node c's parent c-1) with random relations, seats, terminal flags,
+    rewards, values and statistics, made on the device from a seed: the
+    backups' worst case."""
+    import torch
+
+    B, T, S = tree.w.shape
+    A = tree.n_edge.shape[-1]
+    dev = tree.w.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    relation = ints(A, (B, T))
+    relation[:, 0] = -1
+    return replace(
+        tree, parents=(torch.arange(T, dtype=torch.int32, device=dev) - 1).repeat(B, 1),
+        relation=relation, seats=ints(S, (B, T)),
+        terminal=torch.rand((B, T), generator=gen, device=dev) < 0.15,
+        rewards=normal(B, T, S), v=normal(B, T, S), n=ints(100, (B, T)), w=normal(B, T, S),
+        n_edge=ints(100, (B, T, A)).to(torch.bfloat16), w_edge=normal(B, T, A), sim=T)
+
+
+def time_backups(tree, leaves, label, twin_reps=3):
+    """Median ms of each backup kernel and of the twin on `tree`, and the
+    bytes they need."""
     from boardlaw_tpu_torch.mcts import kernels, search
 
     B, T, S = tree.w.shape
     npv = S
-    ref = search.backup(tree_copy(tree), leaves, npv)
-    levels = int((ref.n - tree.n).sum()) // npv
+    levels, errs = backups_equal(tree, leaves, label)
     nbytes = levels * BACKUP_BYTES_PER_LEVEL + B * (4 + 4 * S)
-    for name in ("backup", "backup_dense"):
-        wrapper = getattr(kernels, name)
-        out = wrapper(tree_copy(tree), leaves, npv)
-        sync()
-        if not (torch.equal(out.n, ref.n) and torch.equal(out.n_edge, ref.n_edge)):
-            fail(f"{name}: n or n_edge differ from the twin")
-        err = max(float((out.w - ref.w).abs().max()), float((out.w_edge - ref.w_edge).abs().max()))
-        if err > 1e-5:
-            fail(f"{name}: w/w_edge differ from the twin by {err:.3g}")
-        scratch = tree_copy(tree)
-        k_ms = time_ms(lambda: wrapper(scratch, leaves, npv), 20)
-        r_ms = time_ms(lambda: search.backup(scratch, leaves, npv), 3)
-        report[name] = dict(ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes, ops=0)
-        print(f"{name} at (B,T,S)=({B},{T},{S}), {levels} levels: n/n_edge equal to the twin, "
-              f"max |w|,|w_edge| difference {err:.3g}; kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms "
-              f"(median); {nbytes / 1e6:.2f} MB -> bytes bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms", flush=True)
+    scratch = tree_copy(tree)
+    r_ms = time_ms(lambda: search.backup(scratch, leaves, npv), twin_reps)
+    out = {}
+    for name in BACKUPS:
+        k_ms, k_call = both_ms(lambda: getattr(kernels, name)(scratch, leaves, npv), 20)
+        out[name] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=errs[name],
+                         bytes=nbytes, ops=0)
+        print(f"{label}: {name} at (B,T,S)=({B},{T},{S}), {levels} levels: kernel {k_ms:.4f} ms "
+              f"on the card ({k_call:.4f} ms a call), twin {r_ms:.4f} ms a call (median); "
+              f"{nbytes / 1e6:.2f} MB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms",
+              flush=True)
+    return out
+
+
+def check_backups(tree, leaves, report, seed):
+    """Both backup kernels against `search.backup`, bit for bit, and timed:
+    on `tree` from `leaves` (the kernel table's row) and on its all-chains
+    twin (`chain_tree`) from every env's deepest node."""
+    import torch
+
+    report.update(time_backups(tree, leaves, "6x6 K=1 tree"))
+    chains = chain_tree(tree, seed)
+    B, T = chains.parents.shape
+    time_backups(chains, torch.full((B,), T - 1, dtype=torch.int32, device=leaves.device),
+                 f"all-chains tree (depth {T - 1})", twin_reps=1)
 
 
 # --------------------------------------------------------------------------
@@ -757,7 +892,11 @@ def check_k1_variants(cfg, model, worlds, seed):
     mcfg = cfg.mcts_config()
     sims = mcfg.n_nodes - 1
     eval_fn = make_eval_fn(model)
+    sync()
+    t0 = time.time()
     ref = search.mcts(worlds, eval_fn, Draws(seed, DEV), mcfg)
+    sync()
+    seconds = {"default route": time.time() - t0}
     counts = {}
     for variant, kernels_run in (("ops", ("descend",)), ("delta", ("descend", "backup")),
                                  ("dense", ("descend", "backup_dense"))):
@@ -767,6 +906,7 @@ def check_k1_variants(cfg, model, worlds, seed):
                            {k: sims for k in kernels_run},
                            lambda: search.mcts(worlds, eval_fn, Draws(seed, DEV), vcfg))
         secs = time.time() - t0
+        seconds[f"descend + {variant!r}"] = secs
         for k in kernels_run:
             counts[k] = counts.get(k, 0) + c[k]
         same = ((tree.children == ref.children).flatten(1).all(1) & (tree.n == ref.n).all(1)
@@ -778,6 +918,8 @@ def check_k1_variants(cfg, model, worlds, seed):
               f"the others {w_err:.3g}", flush=True)
         if n_diff > 0.001 * same.numel() or w_err > 1e-4:
             fail(f"the K=1 variant {variant!r} disagrees with the default route")
+    print("K=1 search seconds, same worlds and draws: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items()), flush=True)
     return counts
 
 
@@ -1013,7 +1155,7 @@ def main(argv=None):
         rands = draws.uniform((B, T))
         acts, nxt = check_node_actions(tree, rands, report)
         leaves = check_descend(tree, rands, acts, nxt, report)
-        check_backups(tree, leaves, report)
+        check_backups(tree, leaves, report, args.seed + 7)
         del tree, acts, nxt, leaves
         check_search_cpu_vs_gpu(cfg6, model6)
         torch.cuda.empty_cache()
@@ -1112,7 +1254,7 @@ def main(argv=None):
         rows.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,

@@ -1,7 +1,7 @@
 """Where the time of the PyTorch/CUDA port's steps goes, on one GPU.
 
     python3 scripts/torch_profile_actor.py [--envs 32768] [--mix 2500] [--scan]
-        [--out output/profile_actor.txt]
+        [--k1-search ROUTE [ROUTE ...]] [--out output/profile_actor.txt]
 
 Profiles three steps, each after two warm-up calls of the same step, under
 torch.profiler (CPU and CUDA activities):
@@ -19,9 +19,18 @@ over all 65 rows, `solve_kernel="probs"`, `sample_kernel=True`: the
 `solve_probs`, `sample_children_multi` and `walk` kernels), and step 3 is
 left out.
 
-For each it prints the card line, the step's wall time, the device busy
-share (sum of kernel times over the wall time) and the CUDA kernels by total
-time; the full tables go to --out.
+With --k1-search ROUTE [ROUTE ...], only 6x6 K=1 searches are profiled, one
+per route named, each from the same worlds: 'default' (`node_actions`,
+`walk`, `backup_path` in torch ops), or 'ops', 'delta', 'dense' (the
+`descend` kernel with that `backup_kernel`: the torch-ops chase, the
+`backup` kernel, the `backup_dense` kernel).
+
+For each it prints the card line, the step's wall time under the profiler
+and that of the warm-up call before it, the device busy share (sum of
+kernel times over the profiled wall time) and the CUDA kernels by total
+time; the full tables go to --out. --package-root imports
+`boardlaw_tpu_torch` from another checkout (an unpacked `git archive` of an
+earlier commit), so that one call can profile two trees on one card.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -38,9 +48,12 @@ def profile_step(label, fn, out):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(2):  # the second warm-up call's wall is the unprofiled reading
+        torch.cuda.synchronize()
+        t0 = time.time()
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        bare = time.time() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
@@ -49,9 +62,10 @@ def profile_step(label, fn, out):
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_us = sum(e.self_device_time_total for e in events)
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
-    out.write(f"== {label}\nwall {wall:.4f} s, device busy {device_us / 1e6:.4f} s\n{table}\n")
-    print(f"== {label}: wall {wall:.4f} s, kernels {device_us / 1e6:.4f} s, "
-          f"device busy share {device_us / 1e6 / wall:.3f}")
+    out.write(f"== {label}\nwall {wall:.4f} s ({bare:.4f} s unprofiled), device busy "
+              f"{device_us / 1e6:.4f} s\n{table}\n")
+    print(f"== {label}: wall {wall:.4f} s ({bare:.4f} s unprofiled), kernels "
+          f"{device_us / 1e6:.4f} s, device busy share {device_us / 1e6 / wall:.3f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"{e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
 
@@ -62,13 +76,21 @@ def main(argv=None):
     parser.add_argument("--mix", type=int, default=2500)
     parser.add_argument("--scan", action="store_true",
                         help="profile the 9x9 scan-mode actor and train steps only")
+    parser.add_argument("--k1-search", nargs="+", choices=("default", "ops", "delta", "dense"),
+                        help="profile one 6x6 K=1 search per route named, and nothing else")
+    parser.add_argument("--package-root", default=None,
+                        help="import boardlaw_tpu_torch from this checkout")
     parser.add_argument("--out", default="output/profile_actor.txt")
     args = parser.parse_args(argv)
+    if args.package_root is not None:
+        sys.path.insert(0, os.path.abspath(args.package_root))
 
     import torch
 
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.mcts import search
+    from boardlaw_tpu_torch.models.networks import make_eval_fn
 
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -80,6 +102,20 @@ def main(argv=None):
     with open(args.out, "w") as out:
         out.write(f"{card}\n")
         draws = Draws(0, "cuda")
+
+        if args.k1_search:
+            cfg6 = train.best_config(6, n_envs=args.envs, mix_steps=args.mix)
+            model6 = train.build_model(cfg6, device="cuda",
+                                       generator=torch.Generator().manual_seed(0))
+            worlds6 = train.init_worlds(cfg6, draws)
+            eval_fn = make_eval_fn(model6)
+            for route in args.k1_search:
+                mcfg = cfg6.mcts_config()
+                if route != "default":
+                    mcfg = replace(mcfg, descend_kernel=True, backup_kernel=route)
+                profile_step(f"6x6 K=1 search, route {route!r} ({args.envs} envs)",
+                             lambda: search.mcts(worlds6, eval_fn, draws, mcfg), out)
+            return 0
 
         scan = {}
         if args.scan:

@@ -13,7 +13,8 @@ held in the port's storage types (f32 logits, bf16 n_edge, int8 children).
   draw for draw, under the same boundary check; `search.descend_reference`
   equals `S.descend` and `PK.descend`; `search.backup`, the twin of both
   backup kernels, equals `S.backup`, `PK.backup` and `PK.backup_dense`: n
-  exact, w/n_edge/w_edge to atol 1e-5.
+  exact, w/n_edge/w_edge to atol 1e-5, also at three seats (`PK.backup`) and
+  on chains 36 levels deep with terminal nodes on the path (both).
 * The split K>1 twins: `solve_probs_ref` equals `PK.solve_probs` in both
   output modes to rtol 1e-5, atol 1e-7; `sample_children_multi_ref` equals
   `PK.sample_children_multi` bit for bit on the same probs; the 'matmul'
@@ -25,6 +26,8 @@ held in the port's storage types (f32 logits, bf16 n_edge, int8 children).
 The CUDA kernels themselves are held against these twins on the card in
 tests/test_torch_kernels_cuda.py, which imports no JAX.
 """
+from dataclasses import replace
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -39,7 +42,9 @@ from test_torch_search import _models, _port_tree, _worlds
 torch.set_num_threads(2)
 
 
-def _random_tree(rng, B, T, A, Sn=2, c_puct=1.0):
+def _random_tree(rng, B, T, A, Sn=2, c_puct=1.0, chain=False):
+    """With `chain`, every env is one chain (node c's parent c-1) with a
+    terminal node at T // 2."""
     children = np.full((B, T, A), -1, np.int32)
     parents = np.full((B, T), -1, np.int32)
     relation = np.full((B, T), -1, np.int32)
@@ -47,7 +52,7 @@ def _random_tree(rng, B, T, A, Sn=2, c_puct=1.0):
     terminal = np.zeros((B, T), bool)
     for b in range(B):
         for c in range(1, T):
-            p = rng.integers(0, c)
+            p = c - 1 if chain else rng.integers(0, c)
             free = np.flatnonzero(children[b, p] == -1)
             if len(free) == 0:
                 continue
@@ -56,6 +61,8 @@ def _random_tree(rng, B, T, A, Sn=2, c_puct=1.0):
             parents[b, c] = p
             relation[b, c] = a
             terminal[b, c] = rng.random() < 0.15
+    if chain:
+        terminal[:, T // 2] = True
 
     logits = rng.normal(0, 1, (B, T, A)).astype(np.float32)
     logits -= np.log(np.exp(logits).sum(-1, keepdims=True))
@@ -250,6 +257,38 @@ def test_backup_twin_matches_xla_and_pallas(npv, variant):
                                        atol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("npv", [1, 2])
+@pytest.mark.parametrize("case", ["three seats", "chain"])
+def test_backup_twin_matches_pallas_three_seats_and_chains(case, npv):
+    # three seats: the 'delta' edge value at the parent's clamped seat; a
+    # chain: every leaf 36 levels deep (one env's at the root), a terminal
+    # node on each path, past it only the rewards reach the root
+    rng = np.random.default_rng(7)
+    if case == "three seats":
+        B, T, A = 16, 12, 7
+        tree = _random_tree(rng, B, T, A, Sn=3)
+        leaves = rng.integers(0, T, B)
+    else:
+        B, T, A = 8, 37, 7
+        tree = _random_tree(rng, B, T, A, chain=True)
+        leaves = np.full(B, T - 1)
+        leaves[1] = 0
+    leaves = jnp.asarray(leaves, jnp.int32)
+
+    outs = [S.backup(tree, leaves, npv), PK.backup(tree, leaves, npv, block_envs=8, interpret=True)]
+    if case == "chain":
+        outs.append(PK.backup_dense(tree, leaves, npv, block_envs=8, interpret=True))
+    ttree = kernels.backup(_port_tree(tree), _t(leaves), npv)  # CPU: search.backup, in place
+    if case == "chain":  # each deep path visits all T nodes, the root leaf one
+        assert int((ttree.n - _t(tree.n)).sum()) == npv * (T * (B - 1) + 1)
+    for out in outs:
+        np.testing.assert_array_equal(ttree.n.numpy(), np.asarray(out.n))
+        for name in ("w", "n_edge", "w_edge"):
+            np.testing.assert_allclose(getattr(ttree, name).float().numpy(),
+                                       np.asarray(getattr(out, name), np.float32),
+                                       atol=1e-5, err_msg=name)
+
+
 def test_cuda_wrappers_refuse_bad_inputs():
     # checks run before any launch, so they are testable without a card
     with pytest.raises(ValueError):
@@ -261,6 +300,22 @@ def test_cuda_wrappers_refuse_bad_inputs():
     three = _port_tree(_random_tree(rng, 2, 4, 3, Sn=3))
     with pytest.raises(ValueError):
         kernels.backup_dense(three, torch.zeros((2,), dtype=torch.int32), 1)
+    # the backups check every tensor they read or write, storage type and
+    # shape before the device
+    tree = _port_tree(_random_tree(rng, 2, 4, 3))
+    leaves = torch.zeros((2,), dtype=torch.int32)
+    for name, bad in (("n", tree.n.long()), ("w", tree.w.double()),
+                      ("n_edge", tree.n_edge.float()), ("w_edge", tree.w_edge[:, :, :2]),
+                      ("relation", tree.relation.long()), ("seats", tree.seats[:1]),
+                      ("parents", tree.parents.t())):
+        with pytest.raises(ValueError, match=f"^{name} must be"):
+            kernels._check_backup(replace(tree, **{name: bad}), leaves, 1)
+    with pytest.raises(ValueError, match="^leaves must be"):
+        kernels._check_backup(tree, leaves.long(), 1)
+    with pytest.raises(ValueError, match="^n_per_visit must be whole"):
+        kernels._check_backup(tree, leaves, 1.5)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):  # a good tree, on the CPU
+        kernels._check_backup(tree, leaves, 2)
 
 
 @pytest.mark.parametrize("seed,c_puct,n_iters,accel", [(0, 1.0, 6, True), (2, 0.0625, 16, False)])

@@ -13,13 +13,16 @@ The row cases run at A = 9, 25, 36, 49, 81 and 121 (boards 3 to 11), so
 every lane layout of `kernels.row_layout` runs.
 `descend` shares the row code of `node_actions` and must equal
 `node_actions` + `walk` on the card exactly. `backup` and `backup_dense`
-make the twin's adds in the twin's order: n and n_edge exact, w and w_edge
-to atol 1e-5. `solve_probs` runs the solve of `node_actions_multi`: its
+make the twin's adds in the twin's order: n, w, n_edge and w_edge equal it
+bit for bit, at T = 12, 37, 64 and 65, on chains T-1 levels deep, from the
+root and at three seats (`backup`). `solve_probs` runs the solve of `node_actions_multi`: its
 probs agree with the twin's to rtol 1e-5 and its alpha is
 `node_actions_multi`'s, bit for bit; `sample_children_multi` adds in the
 twin's order and is bit-equal to it, and the split pair draws what
 `node_actions_multi` draws.
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -36,18 +39,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _random_search_tree(seed, B, T, A, c_puct=1.0):
+def _random_search_tree(seed, B, T, A, c_puct=1.0, n_seats=2, chains=False):
     """A random port tree (the tree of tests/test_pallas.py `_random_tree`,
-    in numpy) in the port's storage types, with sim = T."""
+    in numpy) in the port's storage types, with sim = T. With `chains`, each
+    even env is one chain (node c's parent c-1) with a terminal node at
+    T // 2."""
     rng = np.random.default_rng(seed)
     children = np.full((B, T, A), -1, np.int32)
     parents = np.full((B, T), -1, np.int32)
     relation = np.full((B, T), -1, np.int32)
-    seats = rng.integers(0, 2, (B, T))
+    seats = rng.integers(0, n_seats, (B, T))
     terminal = np.zeros((B, T), bool)
     for b in range(B):
         for c in range(1, T):
-            p = rng.integers(0, c)
+            p = c - 1 if chains and b % 2 == 0 else rng.integers(0, c)
             free = np.flatnonzero(children[b, p] == -1)
             if len(free) == 0:
                 continue
@@ -55,17 +60,19 @@ def _random_search_tree(seed, B, T, A, c_puct=1.0):
             children[b, p, a] = c
             parents[b, c], relation[b, c] = p, a
             terminal[b, c] = rng.random() < 0.15
+        if chains and b % 2 == 0:
+            terminal[b, T // 2] = True
     logits = rng.normal(0, 1, (B, T, A)).astype(np.float32)
     logits -= np.log(np.exp(logits).sum(-1, keepdims=True))
     n = rng.integers(1, 20, (B, T))
-    w = rng.normal(0, 2, (B, T, 2)).astype(np.float32)
+    w = rng.normal(0, 2, (B, T, n_seats)).astype(np.float32)
     expanded = children >= 0
     c = np.where(expanded, children, 0)
     bb = np.arange(B)[:, None, None]
     n_edge = np.where(expanded, n[bb, c], 0).astype(np.float32)
     w_edge = np.where(expanded, w[bb, c, seats[:, :, None]], 0).astype(np.float32)
-    v = rng.normal(0, 1, (B, T, 2)).astype(np.float32)
-    rewards = rng.normal(0, 0.5, (B, T, 2)).astype(np.float32)
+    v = rng.normal(0, 1, (B, T, n_seats)).astype(np.float32)
+    rewards = rng.normal(0, 0.5, (B, T, n_seats)).astype(np.float32)
     t = torch.tensor
     return search.Tree(
         children=t(children).to(torch.int8), parents=t(parents), relation=t(relation),
@@ -202,8 +209,14 @@ def test_wrappers_raise_on_wrong_inputs(cuda):
     with pytest.raises(ValueError):
         kernels.node_actions(rands=torch.rand((4, 6), device=cuda), **bad)
     tree = _tree_to(_random_search_tree(1, 4, 6, 7), cuda)
+    leaves = torch.zeros((4,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):  # leaves must be int32
-        kernels.backup(tree, torch.zeros((4,), dtype=torch.int64, device=cuda), 1)
+        kernels.backup(tree, leaves.long(), 1)
+    for wrapper in (kernels.backup, kernels.backup_dense):  # the tensors the kernels write
+        for name, bad in (("n", tree.n.float()), ("w_edge", tree.w_edge[:, :5]),
+                          ("n_edge", tree.n_edge.float()), ("seats", tree.seats.cpu())):
+            with pytest.raises(ValueError, match=f"^{name} must be"):
+                wrapper(replace(tree, **{name: bad}), leaves, 1)
     with pytest.raises(ValueError):  # rands must be (B,T)
         kernels.descend(tree, torch.rand((4, 5), device=cuda))
 
@@ -254,22 +267,26 @@ def test_descend_kernel_matches_ref(cuda, seed, c_puct, A):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("npv", [1, 2])
-@pytest.mark.parametrize("variant", ["delta", "dense"])
-def test_backup_kernels_match_ref(cuda, variant, npv):
-    B, T, A = 16, 12, 7
-    tree = _random_search_tree(3, B, T, A)
-    leaves = torch.tensor(np.random.default_rng(3).integers(0, T, B), dtype=torch.int32)
+@pytest.mark.parametrize("T", [12, 37, 64, 65])
+@pytest.mark.parametrize("variant,n_seats", [("delta", 2), ("delta", 3), ("dense", 2)])
+def test_backup_kernels_match_ref(cuda, variant, n_seats, T, npv):
+    # even envs are chains with their leaf T-1 levels deep and a terminal
+    # node on the path; envs 1, 5, 9, 13 back up from the root (depth 0)
+    B, A = 16, 7
+    tree = _random_search_tree(T, B, T, A, n_seats=n_seats, chains=True)
+    leaves = np.random.default_rng(T).integers(0, T, B)
+    leaves[0::2] = T - 1
+    leaves[1::4] = 0
+    leaves = torch.tensor(leaves, dtype=torch.int32)
     ref = search.backup(_tree_to(tree, "cpu"), leaves, npv)
     wrapper = kernels.backup if variant == "delta" else kernels.backup_dense
     n0 = wrapper.launches
     out = wrapper(_tree_to(tree, cuda), leaves.to(cuda), npv)
     torch.cuda.synchronize()
     assert wrapper.launches == n0 + 1
-    assert torch.equal(out.n.cpu(), ref.n)
-    assert torch.equal(out.n_edge.cpu(), ref.n_edge)
-    for name in ("w", "w_edge"):
-        torch.testing.assert_close(getattr(out, name).cpu(), getattr(ref, name), rtol=0,
-                                   atol=1e-5)
+    for name in ("n", "w", "n_edge", "w_edge"):  # the twin's adds: bit for bit
+        assert torch.equal(getattr(out, name).cpu(), getattr(ref, name)), name
+    assert int((ref.n - tree.n)[0::2].sum()) == npv * T * B // 2
 
 
 def _solve_inputs(inp):

@@ -193,9 +193,12 @@ class Hex:
         return sel.reshape(self.n_envs, -1)
 
     def step(self, actions, reset=True):
-        """Step every env with a flat action in the acting player's frame.
+        """Step every env with a flat action in the acting player's frame,
+        or with (n_envs, 2) row/col pairs, flattened to row * S + col.
         Terminal envs are auto-reset: board cleared, black to move, flagged
         in the returned Transition."""
+        if actions.dim() == 2:
+            actions = actions[:, 0] * self.boardsize + actions[:, 1]
         new_board, rewards = _step_boards(self.board, self.seats, actions)
         if reset:
             terminal = (rewards > 0).any(-1)

@@ -2,8 +2,9 @@
 PyTorch twins and their launch counts.
 
 * `walk` (csrc/walk.cu) replaces the Pallas `walk` of
-  boardlaw_tpu/mcts/pallas_kernels.py: the root->leaf pointer chase.
-  Twin: `walk_ref`, which is `search._walk` after the halting test.
+  boardlaw_tpu/mcts/pallas_kernels.py: the root->leaf pointer chase, by the
+  design `walk_design` picks for the shape. Twin: `walk_ref`, which is
+  `search._walk` after the halting test.
 * `node_actions_multi` (csrc/node_actions_multi.cu) replaces the Pallas
   `node_actions_multi`: every node's regularized-policy solve, the log-shift
   prefix sum and K inverse-CDF draws with their child lookups.
@@ -122,7 +123,8 @@ def build(verbose=False):
             os.replace(tmp_so, so)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.walk_launch.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p]
+    q = ctypes.c_longlong
+    lib.walk_launch.argtypes = [p, p, p, i, i, i, q, q, q, i, i, p, p]
     lib.walk_launch.restype = i
     # the row kernels end in (group, blocks, stream): `row_grid`'s layout
     lib.node_actions_multi_launch.argtypes = [
@@ -256,7 +258,11 @@ def solve_steps(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=16, accel=Fals
 # --------------------------------------------------------------------------
 
 def walk_ref(terminal, acts, nxt, max_levels=None):
-    """Plain twin of `walk`: the halting test plus `search._walk`."""
+    """Plain twin of `walk`: the halting test plus `search._walk`. acts and
+    nxt as `walk` takes them; a (K,B,R) view is copied to rows here."""
+    if acts.dim() == 3:
+        K, B, R = acts.shape
+        acts, nxt = acts.reshape(K * B, R), nxt.reshape(K * B, R)
     N, T = acts.shape
     B = terminal.shape[0]
     term = terminal[None].expand(N // B, B, T).reshape(N, T)
@@ -264,40 +270,89 @@ def walk_ref(terminal, acts, nxt, max_levels=None):
     return search._walk(acts, nxt, halt, term[:, 0], max_levels=max_levels)
 
 
-def walk(terminal, acts, nxt, max_levels=None):
-    """Root->leaf pointer chase for N = K*B independent rows.
+# csrc/walk.cu's two designs, by the number walk_launch takes
+WALK_DESIGNS = {"block": 0, "chase": 1, "gather": 2}
 
-    terminal (B,T) bool (row r reads env r % B; the node axis may be a
-    leading slice of a wider one); acts, nxt (N,T) int32, contiguous: each
-    node's sampled action and child pointer (-1 unexpanded).
-    -> parents, actions, halt_child (N,) int32 and path (N, L) int32, with
-    L = min(T, max_levels) levels and -1 past the halting depth. Bit-exact
-    with `walk_ref`."""
-    if acts.device.type == "cpu":
-        return walk_ref(terminal, acts, nxt, max_levels)
-    N, T = acts.shape
+
+def walk_design(K, R):
+    """The walk kernel's design for K walks per env over rows of R nodes, the
+    one place it is chosen: 'block' (each env's rows and terminal row copied
+    to shared memory, chased there), 'gather' (the terminal row in shared
+    memory, the rows chased in device memory) or 'chase' (a thread per row,
+    all in device memory). Each is the fastest measured on the H100 at 32,768
+    envs (scripts/torch_walk_bytes.py, chip_smoke.py): 'block' for K = 1
+    (rows of up to 64 nodes, walks up to 63 deep); for K = 8, 'chase' on the
+    first grow pass's 9 rows, where every walk stops at the root, and
+    'gather' from 17 rows up, on every grow and scan pass after it."""
+    if K == 1:
+        return "block"
+    return "chase" if R <= 9 else "gather"
+
+
+def _walk_rows(terminal, acts, nxt):
+    """(K, B, R, K stride, B stride) of `walk`'s inputs, or a ValueError
+    naming what is wrong. The common case costs a few attribute reads: the
+    K=1 search calls this on every sim."""
     B = terminal.shape[0]
-    L = T if max_levels is None else min(T, max_levels)
+    if acts.dim() == 2:
+        N, R = acts.shape
+        K = N // B if B else 0
+        ok = K * B == N and acts.is_contiguous()
+        sK, sB = B * R, R
+    elif acts.dim() == 3:
+        K, B3, R = acts.shape
+        sK, sB, s2 = acts.stride()
+        ok = B3 == B and (s2 == 1 or R == 1)
+    else:
+        K = B3 = R = sK = sB = ok = 0
+    if (ok and B > 0 and acts.dtype is torch.int32 and nxt.dtype is torch.int32
+            and nxt.shape == acts.shape and nxt.stride() == acts.stride()
+            and terminal.dtype is torch.bool and terminal.dim() == 2 and terminal.shape[1] == R
+            and terminal.stride(1) == 1 and acts.is_cuda and nxt.is_cuda and terminal.is_cuda):
+        return K, B, R, sK, sB
     _check(acts.is_cuda and nxt.is_cuda and terminal.is_cuda, "walk inputs must be CUDA tensors")
     _check(acts.dtype == torch.int32 and nxt.dtype == torch.int32, "acts/nxt must be int32")
     _check(terminal.dtype == torch.bool, "terminal must be bool")
-    _check(acts.is_contiguous() and nxt.is_contiguous(), "acts/nxt must be contiguous")
-    _check(tuple(nxt.shape) == (N, T), "nxt must match acts")
-    _check(B > 0 and N % B == 0 and terminal.shape[1] == T and terminal.stride(1) == 1,
-           "terminal must be (B,T) with N = K*B rows and contiguous node rows")
-    lib = build()
-    dev = acts.device
-    parents = torch.empty((N,), dtype=torch.int32, device=dev)
-    actions = torch.empty((N,), dtype=torch.int32, device=dev)
-    halt_child = torch.empty((N,), dtype=torch.int32, device=dev)
-    path = torch.empty((N, L), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.walk_launch(
-        acts.data_ptr(), nxt.data_ptr(), terminal.data_ptr(), N, B, T, terminal.stride(0), L,
-        parents.data_ptr(), actions.data_ptr(), halt_child.data_ptr(), path.data_ptr(), stream)
+    _check(acts.dim() in (2, 3), "acts/nxt must be (N,R) rows or a (K,B,R) view")
+    _check(nxt.shape == acts.shape and nxt.stride() == acts.stride(),
+           "nxt must match acts in shape and strides")
+    _check(acts.dim() == 3 or acts.is_contiguous(), "(N,R) acts/nxt must be contiguous")
+    _check(acts.dim() == 2 or acts.stride(2) == 1, "(K,B,R) acts/nxt need a contiguous last axis")
+    _check(B > 0 and terminal.dim() == 2 and terminal.shape[1] == R and terminal.stride(1) == 1,
+           "terminal must be (B,R) with contiguous node rows")
+    _check(False, "acts/nxt must hold K*B rows of terminal's B envs")
+
+
+def walk(terminal, acts, nxt, max_levels=None):
+    """Root->leaf pointer chase of K walks per env.
+
+    terminal (B,R) bool (the node axis may be a leading slice of a wider
+    one); acts, nxt int32, each node's sampled action and child pointer (-1
+    unexpanded), either as N = K*B contiguous (N,R) rows (row r reads env
+    r % B) or as a (K,B,R) view with a contiguous last axis and any K and B
+    strides (the sampler's (B,K,R) buffer, permuted).
+    -> parents, actions, halt_child (K*B,) int32 and path (K*B, L) int32 in
+    k-major row order, with L = min(R, max_levels) levels and -1 past the
+    halting depth: views of one packed buffer. Bit-exact with `walk_ref`."""
+    if acts.device.type == "cpu":
+        return walk_ref(terminal, acts, nxt, max_levels)
+    return _walk_launch(terminal, acts, nxt, max_levels)
+
+
+def _walk_launch(terminal, acts, nxt, max_levels, design=None):
+    """`walk` on the card, by `design` ('block' or 'chase'; None:
+    `walk_design`'s)."""
+    K, B, R, sK, sB = _walk_rows(terminal, acts, nxt)
+    L = R if max_levels is None else min(R, max_levels)
+    N = K * B
+    out = torch.empty(((3 + L) * N,), dtype=torch.int32, device=acts.device)
+    err = build().walk_launch(
+        acts.data_ptr(), nxt.data_ptr(), terminal.data_ptr(), K, B, R, sK, sB,
+        terminal.stride(0), L, WALK_DESIGNS[design or walk_design(K, R)], out.data_ptr(),
+        torch.cuda.current_stream(acts.device).cuda_stream)
     _raise_on(err, "walk")
     walk.launches += 1
-    return parents, actions, halt_child, path
+    return out[:N], out[N:2 * N], out[2 * N:3 * N], out[3 * N:].view(N, L)
 
 
 walk.launches = 0

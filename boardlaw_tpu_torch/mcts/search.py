@@ -847,8 +847,8 @@ def simulate_multi(tree, eval_fn, rands, cfg: MCTSConfig, rows, max_levels):
     acts, nxts = _solve_and_sample(tree, rands, cfg, R)  # (K,B,R)
 
     L = min(R, max_levels)
-    p_f, a_f, h_f, path_f = kernels.walk(
-        tree.terminal[:, :R], acts.reshape(K * B, R), nxts.reshape(K * B, R), max_levels=L)
+    # the (K,B,R) views go to the kernel as they are: no copy to rows
+    p_f, a_f, h_f, path_f = kernels.walk(tree.terminal[:, :R], acts, nxts, max_levels=L)
     parents = p_f.view(K, B)
     actions = a_f.view(K, B)
     halt_child = h_f.view(K, B)

@@ -7,10 +7,15 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
   2. build the eight CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a);
   3. the K=8 kernels against their plain PyTorch twins at the shapes of the
-     9x9 main path's last pass, on a real mid-search tree: `walk` bit-exact,
+     9x9 main path's last pass, on a real mid-search tree:
      `node_actions_multi` draw for draw up to roundoff at CDF boundaries and
-     its alpha to rtol 1e-5; a small 9x9 search on the card against the same
-     search on the CPU (twins);
+     its alpha to rtol 1e-5; `walk` on its (K,B,R) views of the sampler's
+     (B,K,R) buffers, as the search hands them, at the first and the last
+     grow pass's shapes ((R, L) = (9, 2) on a tree before its first pass,
+     (65, 9) on the mid-search tree): every design of csrc/walk.cu
+     (`kernels.WALK_DESIGNS`) bit-equal to the twin in all four outputs and
+     timed, with the byte counts of `walk_bytes`; a small 9x9 search on the
+     card against the same search on the CPU (twins);
   3b. the split K=8 kernels at the 9x9 scan pass's shapes ((B,T,A) =
      (32768, 65, 81)), on a real tree after 5 scan passes: `solve_probs`
      probs against `search.node_probs` (rtol 1e-5, atol 1e-7), its alpha
@@ -30,8 +35,9 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      rows the search hands it), `descend` equal to `node_actions` + `walk`,
      `backup` and `backup_dense` equal to `search.backup` bit for bit in n,
      w, n_edge and w_edge (timed there and on an all-chains tree of the same
-     shapes, every env a chain of depth T-1, also bit-equal); a small 6x6
-     search on the card against the CPU;
+     shapes, every env a chain of depth T-1, also bit-equal); `walk` by
+     every design on the tree's (B,T) rows and on depth-63 chains, bit-equal
+     to the twin and timed; a small 6x6 search on the card against the CPU;
   5. the paths, each driven with every launch count set to 0 just before and
      read just after, failing unless each of its kernels ran the expected
      number of times:
@@ -59,7 +65,9 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         the warm solve) from the same worlds and draws, each with its launch
         counts, the trees held against 5g's route (equal on all but 1% of
         envs, w to atol 1e-4; the warm solve's invariants only);
-  6. a JSON line of kernel numbers, and the last line
+  6. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
+     shape, with its figures at the first grow pass, the 6x6 K=1 tree and
+     the chains beside, and each design's times), and the last line
      {"ok": true, "device": {...}}.
 
 Each row kernel's f32 operation bound counts the solver steps its inputs
@@ -484,34 +492,101 @@ def check_split_kernels(tree, cfg, draws, report):
           f"{s_ops / 1e9:.2f} GFLOP -> f32 bound {s_ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
 
 
-def check_walk(tree, acts_bkt, nxt_bkt, max_levels, report):
+def walk_bytes(levels, K, B, R, L):
+    """Byte counts of one walk call, each with the K*B*(L+3) int32 outputs
+    written once: the useful bytes the bound counts (9 a visited level:
+    acts, nxt, the child's terminal flag), and what each design of
+    csrc/walk.cu reads: 'block' each env's K acts and nxt rows and its
+    terminal row, 'gather' its terminal row and 2 whole 32-byte sectors a
+    visited level, 'chase' 3 sectors a visited level."""
+    out = K * B * (L + 3) * 4
+    return dict(useful=levels * 9 + out, block=B * K * R * 8 + B * R + out,
+                gather=levels * 2 * 32 + B * R + out, chase=levels * 3 * 32 + out)
+
+
+def time_walk(label, terminal, acts, nxt, max_levels, twin_reps=5):
+    """`walk` by each design of csrc/walk.cu on acts/nxt as given (a (K,B,R)
+    view or (N,R) rows), each bit-equal to the twin in all four outputs, and
+    timed. Returns the figures of the design `kernels.walk_design` picks,
+    with the others' times under "designs"."""
     import torch
     from boardlaw_tpu_torch.mcts import kernels
 
-    B, K, T = acts_bkt.shape
-    acts = acts_bkt.permute(1, 0, 2).reshape(K * B, T)
-    nxt = nxt_bkt.permute(1, 0, 2).reshape(K * B, T)
-    out = kernels.walk(tree.terminal, acts, nxt, max_levels)
-    ref = kernels.walk_ref(tree.terminal, acts, nxt, max_levels)
+    if acts.dim() == 3:
+        K, B, R = acts.shape
+    else:
+        B, R = terminal.shape[0], acts.shape[1]
+        K = acts.shape[0] // B
+    ref = kernels.walk_ref(terminal, acts, nxt, max_levels)
     sync()
-    for name, o, r in zip(("parents", "actions", "halt_child", "path"), out, ref):
-        if not torch.equal(o, r):
-            fail(f"walk {name} differs from the twin ({int((o != r).sum())} entries)")
+    designs = {}
+    for design in kernels.WALK_DESIGNS:
+        out = kernels._walk_launch(terminal, acts, nxt, max_levels, design)
+        sync()
+        for name, o, r in zip(("parents", "actions", "halt_child", "path"), out, ref):
+            if not torch.equal(o, r):
+                fail(f"{label}: walk ({design!r}) {name} differs from the twin "
+                     f"({int((o != r).sum())} entries)")
+        designs[design] = both_ms(
+            lambda: kernels._walk_launch(terminal, acts, nxt, max_levels, design), 20)
+    L = ref[3].shape[1]
     levels = int((ref[3] >= 0).sum())
     depth = int((ref[3] >= 0).sum(1).max())
-    print(f"walk vs twin at (N,T,L)=({K * B},{T},{max_levels}): all four outputs bit-equal; "
-          f"{levels} levels visited, deepest {depth}", flush=True)
-    k_ms, k_call = both_ms(lambda: kernels.walk(tree.terminal, acts, nxt, max_levels), 20)
-    r_ms = time_ms(lambda: kernels.walk_ref(tree.terminal, acts, nxt, max_levels), 5)
-    N, L = ref[3].shape
-    nbytes = levels * 9 + N * (L + 3) * 4  # useful bytes read, bytes written
-    sectors = levels * 3 * 32 + N * (L + 3) * 4  # each level's 3 reads as whole sectors
-    report["walk"] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=0.0,
-                          bytes=nbytes, ops=0)
-    print(f"walk: kernel {k_ms:.4f} ms on the card ({k_call:.4f} ms a call), twin {r_ms:.4f} ms "
-          f"a call (median); {nbytes / 1e6:.2f} MB "
-          f"-> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms; counted in 32-byte "
-          f"sectors {sectors / 1e6:.2f} MB -> {sectors / HBM_BYTES_PER_S * 1e3:.5f} ms", flush=True)
+    r_ms = time_ms(lambda: kernels.walk_ref(terminal, acts, nxt, max_levels), twin_reps)
+    nbytes = walk_bytes(levels, K, B, R, L)
+    pick = kernels.walk_design(K, R)
+    k_ms, k_call = designs[pick]
+    times = "; ".join(f"{d!r} {dm:.4f} ms on the card ({cm:.4f} a call)"
+                      for d, (dm, cm) in designs.items())
+    reads = "; ".join(f"{k} {v / 1e6:.2f} MB -> {v / HBM_BYTES_PER_S * 1e3:.5f} ms"
+                      for k, v in nbytes.items())
+    print(f"{label}: walk at (K,B,R,L)=({K},{B},{R},{L}), acts/nxt strides "
+          f"{tuple(acts.stride())}: all four outputs bit-equal to the twin in every design; "
+          f"{levels} levels visited, deepest {depth}; {times}; picked {pick!r}; twin "
+          f"{r_ms:.4f} ms a call; bytes (the bound counts the useful ones) {reads}", flush=True)
+    return dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=0.0,
+                bytes=nbytes["useful"], ops=0,
+                shape=[K, B, R, L], levels=levels,
+                designs={d: dict(device_ms=dm, ms=cm) for d, (dm, cm) in designs.items()})
+
+
+def check_walk(tree, acts_bkt, nxt_bkt, first_tree, draws, mcfg, report):
+    """`walk` at the first and the last grow pass's shapes, on the sampler's
+    (B,K,R) buffers as the search hands them: their (K,B,R) views, no copy.
+    acts_bkt, nxt_bkt are `node_actions_multi`'s on all T rows of `tree`
+    (the last pass's rows); the first pass's are drawn on `first_tree`, a
+    tree before its first pass."""
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    R, L = search.pass_shape(mcfg, 0)
+    B, K = acts_bkt.shape[:2]
+    a_bkr, n_bkr = kernels.node_actions_multi(
+        first_tree.logits[:, :R], first_tree.n_edge[:, :R], first_tree.w_edge[:, :R],
+        first_tree.children[:, :R], draws.uniform((B, K, R)), first_tree.c_puct,
+        search._q_bounds(first_tree), n_iters=mcfg.solve_iters, accel=mcfg.solve_accel)
+    first = time_walk("9x9 grow pass 0", first_tree.terminal[:, :R], a_bkr.permute(1, 0, 2),
+                      n_bkr.permute(1, 0, 2), L)
+    R, L = search.pass_shape(mcfg, mcfg.n_passes - 1)
+    last = time_walk(f"9x9 grow pass {mcfg.n_passes - 1}", tree.terminal[:, :R],
+                     acts_bkt[:, :, :R].permute(1, 0, 2), nxt_bkt[:, :, :R].permute(1, 0, 2), L)
+    report["walk"] = dict(last, first_grow_pass=first)
+
+
+def check_walk_k1(tree, acts, nxt, report, seed):
+    """`walk` at the 6x6 K=1 path's shapes: on the tree's (B,T) rows with
+    L = T, as `search.descend` hands them, and on a depth-63 chain (every
+    row nxt[t] = t+1, no terminal node), its deepest case."""
+    import torch
+
+    B, T = acts.shape
+    report["walk"]["k1"] = time_walk("6x6 K=1 tree", tree.terminal, acts, nxt, T, twin_reps=3)
+    gen = torch.Generator(device=acts.device).manual_seed(seed)
+    c_acts = torch.randint(0, 36, (B, T), generator=gen, device=acts.device, dtype=torch.int32)
+    chain = torch.arange(1, T + 1, dtype=torch.int32, device=acts.device).repeat(B, 1)
+    chain[:, -1] = -1
+    no_term = torch.zeros_like(tree.terminal)
+    report["walk"]["k1_chain"] = time_walk(f"depth-{T - 1} chains", no_term, c_acts, chain, T,
+                                           twin_reps=1)
 
 
 def cpu_draws(seed, device):
@@ -1127,9 +1202,9 @@ def main(argv=None):
         draws = Draws(args.seed + 1, DEV)
         tree = mid_search_tree(cfg9, model9, draws, cfg9.n_envs, passes=5)
         ka, kc = check_node_actions_multi(tree, cfg9, draws, report)
-        # the last grow pass's shapes: all T rows, p+2 = n_passes+1 levels
-        check_walk(tree, ka, kc, mcfg9.n_passes + 1, report)
-        del tree, ka, kc
+        first_tree = mid_search_tree(cfg9, model9, draws, cfg9.n_envs, passes=0)
+        check_walk(tree, ka, kc, first_tree, draws, mcfg9, report)
+        del tree, ka, kc, first_tree
         check_search_cpu_vs_gpu(cfg9, model9)
         torch.cuda.empty_cache()
 
@@ -1155,6 +1230,7 @@ def main(argv=None):
         rands = draws.uniform((B, T))
         acts, nxt = check_node_actions(tree, rands, report)
         leaves = check_descend(tree, rands, acts, nxt, report)
+        check_walk_k1(tree, acts, nxt, report, args.seed + 8)
         check_backups(tree, leaves, report, args.seed + 7)
         del tree, acts, nxt, leaves
         check_search_cpu_vs_gpu(cfg6, model6)
@@ -1192,6 +1268,7 @@ def main(argv=None):
             f"{steps6} 6x6 K=1 actor steps", {"node_actions": steps6 * sims, "walk": steps6 * sims},
             lambda: actor_steps(cfg6, model6, worlds, draws, steps6, 2 * sims))
         launches["node_actions"] = c["node_actions"]
+        report["walk"]["k1"]["launches"] = c["walk"]
         print(f"K=1 actor step (6x6, 128x1, {cfg6.n_envs} envs, 64 nodes): steps {step_s} s, "
               f"median after the first {steady(step_s):.4f} s/step, "
               f"{cfg6.n_envs * sims / steady(step_s):.0f} sims/s, peak memory "
@@ -1246,19 +1323,25 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     # 6. the records
+    def figures(r):
+        bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = r["ops"] / F32_FLOPS * 1e3
+        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
-        bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = r["ops"] / F32_FLOPS * 1e3
-        rows.append({
-            "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-        })
+        row = {"name": name, "route": route, "source": source, "replaces": replaces,
+               "launches": launches[name], **figures(r), "library_ms": None}
+        if name == "walk":  # the other shapes it runs at: the first grow pass, K=1
+            for shape in ("first_grow_pass", "k1", "k1_chain"):
+                row[shape] = {**figures(r[shape]), "shape": r[shape]["shape"],
+                              "designs": r[shape]["designs"]}
+            row["k1"]["launches"] = r["k1"]["launches"]
+            row["designs"] = r["designs"]
+        rows.append(row)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -27,8 +27,11 @@ per route named, each from the same worlds: 'default' (`node_actions`,
 
 For each it prints the card line, the step's wall time under the profiler
 and that of the warm-up call before it, the device busy share (sum of
-kernel times over the profiled wall time) and the CUDA kernels by total
-time; the full tables go to --out. --package-root imports
+kernel times over the profiled wall time), the CUDA kernels by total time,
+and two sums: the `walk` kernel's time and calls, and those of every copy
+kernel (PyTorch's `direct_copy_kernel` and memcpy; on a tree whose
+`simulate_multi` copies the sampler's buffers to rows for `walk`, those
+copies are among them); the full tables go to --out. --package-root imports
 `boardlaw_tpu_torch` from another checkout (an unpacked `git archive` of an
 earlier commit), so that one call can profile two trees on one card.
 """
@@ -68,6 +71,12 @@ def profile_step(label, fn, out):
           f"{device_us / 1e6:.4f} s, device busy share {device_us / 1e6 / wall:.3f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"{e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    for name, match in (("walk", lambda k: "walk" in k), ("copy", lambda k: "copy" in k.lower())):
+        chosen = [e for e in events if match(e.key)]
+        line = (f"{name} kernels: {sum(e.self_device_time_total for e in chosen) / 1e3:.3f} ms "
+                f"in {sum(e.count for e in chosen)} calls")
+        out.write(line + "\n")
+        print(f"== {label}: {line}")
 
 
 def main(argv=None):

@@ -61,6 +61,47 @@ def test_golden_equivalence(boardsize):
             np.testing.assert_array_equal(transition.rewards[e].numpy(), g_rewards)
 
 
+def _step_both(jw, tw, pairs):
+    """Step both packages with the same (n_envs, 2) int32 row/col pairs and
+    compare boards, seats, terminal flags and rewards exactly."""
+    jw, jtr = _jstep(jw, jnp.asarray(pairs))
+    tw, ttr = tw.step(torch.from_numpy(pairs))
+    np.testing.assert_array_equal(tw.board.numpy(), np.asarray(jw.board))
+    np.testing.assert_array_equal(tw.seats.numpy(), np.asarray(jw.seats))
+    np.testing.assert_array_equal(ttr.terminal.numpy(), np.asarray(jtr.terminal))
+    np.testing.assert_array_equal(ttr.rewards.numpy(), np.asarray(jtr.rewards))
+    return jw, tw, ttr
+
+
+@pytest.mark.parametrize("pairs", [[[0, 1], [2, 3]], [[4, 4], [0, 0], [3, 1]]])
+def test_row_col_actions_match_jax(pairs):
+    pairs = np.array(pairs, np.int32)
+    n_envs = len(pairs)
+    jw = jhex.Hex.initial(n_envs=n_envs, boardsize=5)
+    tw = thex.Hex.initial(n_envs=n_envs, boardsize=5, device="cpu")
+    _, tw, _ = _step_both(jw, tw, pairs)
+    flat = pairs[:, 0] * 5 + pairs[:, 1]
+    # black's stone at row * S + col of each env, and no other stone
+    assert (tw.board.flatten(1) != thex.EMPTY).sum(1).tolist() == [1] * n_envs
+    assert [int(tw.board.flatten(1)[e, a]) != thex.EMPTY for e, a in enumerate(flat)] == [True] * n_envs
+
+
+@pytest.mark.parametrize("boardsize", [5, 9])
+def test_random_row_col_games_match_jax(boardsize):
+    rng = np.random.default_rng(300 + boardsize)
+    n_envs = 8
+    jw = jhex.Hex.initial(n_envs=n_envs, boardsize=boardsize)
+    tw = thex.Hex.initial(n_envs=n_envs, boardsize=boardsize, device="cpu")
+    n_terminal = 0
+    for _ in range(2 * boardsize * boardsize):
+        valid = tw.valid.numpy()
+        flat = np.array([rng.choice(np.flatnonzero(v)) for v in valid])
+        pairs = np.stack(np.divmod(flat, boardsize), -1).astype(np.int32)
+        jw, tw, ttr = _step_both(jw, tw, pairs)
+        n_terminal += int(ttr.terminal.sum())
+    assert n_terminal > 0  # the row/col games reached terminal states
+
+
 def test_flood_and_reset_cases():
     # the JAX package's regression boards (tests/test_hex.py), on the port
     board = torch.tensor([[[0, 6, 6], [1, 1, 1], [0, 2, 0]]], dtype=torch.uint8)

@@ -2,7 +2,9 @@
 interpret mode, on `_random_tree` inputs (copied from tests/test_pallas.py),
 held in the port's storage types (f32 logits, bf16 n_edge, int8 children).
 
-* `walk_ref` is bit-equal to `PK.walk` and to `search._walk`.
+* `walk_ref` is bit-equal to `PK.walk` and to `search._walk`, also on the
+  (K,B,R) view of a (B,K,R) buffer; on every sampler route `simulate_multi`
+  hands `walk` views of the sampler's own outputs, with no copy between.
 * `node_actions_multi_ref` equals `PK.node_actions_multi` draw for draw at
   (n_iters, accel) = (16, False) and (6, True). The exp and the lane sums are
   computed by other code than XLA's, so the solved probs agree only to float32
@@ -152,6 +154,78 @@ def test_walk_ref_folded_k_matches_xla(max_levels):
         pp = PK.walk(term, jnp.asarray(acts), jnp.asarray(nxt), block_envs=8, interpret=True)
         for j, t in zip(pp, tp):
             np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+def _sampler_view(x, K):
+    """(K*B, T) rows as the search hands them to `walk`: the (K,B,T) view of
+    a (B,K,T) buffer, as the sampler kernels return it."""
+    B = x.shape[0] // K
+    buf = _t(x).reshape(K, B, -1).permute(1, 0, 2).contiguous()  # (B,K,T)
+    return buf.permute(1, 0, 2)
+
+
+@pytest.mark.parametrize("max_levels", [None, 3])
+def test_walk_ref_on_sampler_view_matches_xla_and_pallas(max_levels):
+    K = 4
+    tree, acts, nxt = _walk_inputs(5, K=K)
+    term = jnp.broadcast_to(tree.terminal[None], (K,) + tree.terminal.shape).reshape(acts.shape)
+    halt = S._halt_of(S.Tree(**{**tree.__dict__, "terminal": term}), jnp.asarray(nxt))
+    jp = S._walk(jnp.asarray(acts), jnp.asarray(nxt), halt, term[:, 0], max_levels=max_levels)
+    va, vn = _sampler_view(acts, K), _sampler_view(nxt, K)
+    assert not va.is_contiguous() and va.stride() == (12, 4 * 12, 1)
+    tp = kernels.walk(_t(tree.terminal), va, vn, max_levels=max_levels)  # the twin on the CPU
+    for j, t in zip(jp, tp):
+        assert t.dtype == torch.int32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    if max_levels is None:
+        pp = PK.walk(term, jnp.asarray(acts), jnp.asarray(nxt), block_envs=8, interpret=True)
+        for j, t in zip(pp, tp):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("route", [
+    dict(solve_kernel="fused"), dict(solve_kernel="probs", sample_kernel=True),
+    dict(solve_kernel="alpha"), dict(solve_kernel="ops", sample_kernel=True),
+    dict(solve_kernel="ops"), dict(solve_kernel="ops", warm_solve=True),
+], ids=["fused", "probs+sampler", "alpha+torch", "ops+sampler", "ops+torch", "warm"])
+def test_simulate_multi_hands_walk_the_sampler_buffers(monkeypatch, route):
+    # every pass's walk gets (K,B,R) views of the sampler's own outputs
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.envs import hex as thex
+    from boardlaw_tpu_torch.models.networks import make_eval_fn
+
+    sampled, walked = [], []
+
+    def spy(fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            sampled.append(out[:2])
+            return out
+        return wrapped
+
+    monkeypatch.setattr(kernels, "node_actions_multi", spy(kernels.node_actions_multi))
+    monkeypatch.setattr(kernels, "sample_children_multi", spy(kernels.sample_children_multi))
+    monkeypatch.setattr(TS, "_sample_children_multi", spy(TS._sample_children_multi))
+    walk = kernels.walk
+
+    def walk_spy(terminal, acts, nxt, max_levels=None):
+        # the sampler that ran last is the one whose outputs the pass uses
+        walked.append((acts, nxt, sampled[-1]))
+        return walk(terminal, acts, nxt, max_levels)
+
+    monkeypatch.setattr(kernels, "walk", walk_spy)
+    B, K = 4, 4
+    cfg = TS.MCTSConfig(n_nodes=13, leaves_per_pass=K, **route)
+    model = train.build_model(train.make_config(5, 16, 1, n_envs=B), device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    tree = TS.mcts(thex.Hex.initial(B, 5, device="cpu"), make_eval_fn(model), Draws(0, "cpu"), cfg)
+    assert len(walked) == cfg.n_passes and (tree.n[:, 0] == 2 * K * cfg.n_passes).all()
+    for acts, nxt, out in walked:
+        assert acts.shape == nxt.shape == (K, B, TS.tree_size(cfg))
+        for x, o in zip((acts, nxt), out):
+            assert x.untyped_storage().data_ptr() == o.untyped_storage().data_ptr()
+            assert x.data_ptr() == o.data_ptr() and x.numel() == o.numel()
 
 
 @pytest.mark.parametrize("seed,c_puct,n_iters,accel", [

@@ -5,7 +5,8 @@ torch and numpy only, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-`walk` is pure integer logic and must be bit-equal. `node_actions_multi`
+`walk` is pure integer logic and must be bit-equal, in each of its designs,
+on (N,R) rows and on the (K,B,R) view of a (B,K,R) buffer. `node_actions_multi`
 and `node_actions` sum their lanes in another order than the twins, so the
 solved alpha agrees to rtol 1e-5; the draws are equal, since no rand lies
 within 1e-6 of a CDF boundary (the cases redraw any within 1e-5 and check).
@@ -132,26 +133,95 @@ def _away_from_boundaries(inp, rands, n_iters, accel, seed):
 BOARD_ACTIONS = [9, 25, 36, 49, 81, 121]  # boards 3, 5, 6, 7, 9, 11
 
 
-def _walk_inputs(seed, K):
-    B, T, A = 16, 12, 7
-    inp, terminal = _random_tree(seed, B, T, A)
-    rands = torch.rand((B, K, T), generator=torch.Generator().manual_seed(seed))
-    a, c = kernels.node_actions_multi_ref(rands=rands, **inp)  # (B,K,T)
-    return terminal, a.permute(1, 0, 2).reshape(K * B, T), c.permute(1, 0, 2).reshape(K * B, T)
+def _walk_inputs(seed, K, R=12):
+    """terminal (B,R) and acts, nxt (K*B, R) rows drawn from a random tree."""
+    B, A = 16, 7
+    inp, terminal = _random_tree(seed, B, R, A)
+    rands = torch.rand((B, K, R), generator=torch.Generator().manual_seed(seed))
+    a, c = kernels.node_actions_multi_ref(rands=rands, **inp)  # (B,K,R)
+    return terminal, a.permute(1, 0, 2).reshape(K * B, R), c.permute(1, 0, 2).reshape(K * B, R)
+
+
+def _walk_form(x, K, form):
+    """(K*B, R) rows as `walk` takes them: the rows themselves, or the
+    (K,B,R) view of a (B,K,R) buffer, as the search hands the sampler's."""
+    if form == "rows":
+        return x
+    B = x.shape[0] // K
+    return x.view(K, B, -1).permute(1, 0, 2).contiguous().permute(1, 0, 2)
+
+
+def _walk_matches(cuda, terminal, acts, nxt, K, max_levels, form, design, gterm=None):
+    """The kernel by `design` on the card, with acts/nxt in `form` and
+    terminal `gterm` (default: `terminal` on the card), against `walk_ref`
+    on the rows: all four outputs bit-equal, one launch. Where `design` is
+    the one `walk_design` picks, `walk` itself gives the same."""
+    ref = kernels.walk_ref(terminal, acts, nxt, max_levels=max_levels)
+    gterm = terminal.to(cuda) if gterm is None else gterm
+    ga, gn = (_walk_form(x.to(cuda), K, form) for x in (acts, nxt))
+    n0 = kernels.walk.launches
+    outs = [kernels._walk_launch(gterm, ga, gn, max_levels, design)]
+    if design == kernels.walk_design(K, acts.shape[1]):
+        outs.append(kernels.walk(gterm, ga, gn, max_levels=max_levels))
+    torch.cuda.synchronize()
+    assert kernels.walk.launches == n0 + len(outs)
+    for out in outs:
+        for name, r, o in zip(("parents", "actions", "halt_child", "path"), ref, out):
+            assert o.dtype == torch.int32 and o.shape == r.shape, name
+            assert torch.equal(o.cpu(), r), name
+    return ref
+
+
+WALK_DESIGNS = list(kernels.WALK_DESIGNS)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,max_levels", [(1, None), (4, None), (4, 3)])
-def test_walk_kernel_matches_ref(cuda, K, max_levels):
-    terminal, acts, nxt = _walk_inputs(6, K)
-    ref = kernels.walk_ref(terminal, acts, nxt, max_levels=max_levels)
-    n0 = kernels.walk.launches
-    out = kernels.walk(terminal.to(cuda), acts.to(cuda), nxt.to(cuda), max_levels=max_levels)
-    torch.cuda.synchronize()
-    assert kernels.walk.launches == n0 + 1
-    for r, o in zip(ref, out):
-        assert o.dtype == torch.int32
-        assert torch.equal(o.cpu(), r)
+@pytest.mark.parametrize("design", WALK_DESIGNS)
+@pytest.mark.parametrize("form", ["rows", "view"])
+@pytest.mark.parametrize("K,max_levels,R", [
+    (1, None, 12), (4, None, 12), (4, 3, 12),  # the first three cases, on both forms
+    (8, 2, 12), (1, 5, 37), (4, None, 37), (8, 9, 37), (1, None, 64), (4, 9, 64),
+    (8, None, 64), (1, 7, 65), (4, None, 65), (8, 9, 65), (8, None, 65)])
+def test_walk_kernel_matches_ref(cuda, K, max_levels, R, form, design):
+    terminal, acts, nxt = _walk_inputs(6, K, R)
+    _walk_matches(cuda, terminal, acts, nxt, K, max_levels, form, design)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", WALK_DESIGNS)
+@pytest.mark.parametrize("form", ["rows", "view"])
+@pytest.mark.parametrize("K", [1, 8])
+@pytest.mark.parametrize("kind", ["chain", "terminal_root", "terminal_mid", "wide_terminal"])
+def test_walk_kernel_special_trees(cuda, kind, K, form, design):
+    # chain: every row a chain nxt[t] = t+1, 63 levels deep at R = 64;
+    # terminal_root: a terminal root in every other env (rows stay inactive);
+    # terminal_mid: chains that halt at a terminal child at depth 30;
+    # wide_terminal: terminal as the leading R of a wider node axis
+    B, R = 16, 64
+    gen = torch.Generator().manual_seed(11)
+    acts = torch.randint(0, 36, (K * B, R), generator=gen, dtype=torch.int32)
+    chain = torch.arange(1, R + 1, dtype=torch.int32).repeat(K * B, 1)
+    chain[:, -1] = -1
+    terminal = torch.zeros((B, R), dtype=torch.bool)
+    nxt, gterm = chain, None
+    if kind == "terminal_root":
+        terminal[::2, 0] = True
+    elif kind == "terminal_mid":
+        terminal[:, 30] = True
+    elif kind == "wide_terminal":
+        terminal, acts, nxt = _walk_inputs(8, K, R)
+        wide = torch.rand((B, R + 7), generator=gen) < 0.3
+        wide[:, :R] = terminal
+        gterm = wide.to(cuda)[:, :R]
+        assert gterm.stride(0) == R + 7
+    ref = _walk_matches(cuda, terminal, acts, nxt, K, None, form, design, gterm)
+    depth = (ref[3] >= 0).sum(1)
+    if kind == "chain":
+        assert (depth == R).all() and (ref[2] == -1).all()  # 63 steps down, no halting child
+    elif kind == "terminal_root":
+        assert (depth.view(K, B)[:, ::2] == 0).all() and (depth.view(K, B)[:, 1::2] == R).all()
+    elif kind == "terminal_mid":
+        assert (depth == 30).all() and (ref[2] == 30).all()
 
 
 @pytest.mark.gpu
@@ -199,8 +269,19 @@ def test_node_actions_multi_kernel_wide_rows_and_slice(cuda, A):
 @pytest.mark.gpu
 def test_wrappers_raise_on_wrong_inputs(cuda):
     terminal, acts, nxt = _walk_inputs(6, 2)
+    ga, gn, gt = acts.to(cuda), nxt.to(cuda), terminal.to(cuda)
     with pytest.raises(ValueError):
-        kernels.walk(terminal.to(cuda), acts.to(cuda).long(), nxt.to(cuda))
+        kernels.walk(gt, ga.long(), gn)
+    view = ga.view(2, 16, 12)
+    for bad in (ga.view(2, 16, 12)[:, :, ::2], ga.view(2, 16, 12).transpose(1, 2)):
+        with pytest.raises(ValueError, match="acts/nxt"):  # no unit stride along the nodes
+            kernels.walk(gt[:, :bad.shape[2]], bad, bad)
+    with pytest.raises(ValueError, match="nxt must match acts"):  # the strides differ
+        kernels.walk(gt, view, gn.view(16, 2, 12).permute(1, 0, 2))
+    with pytest.raises(ValueError, match="terminal"):
+        kernels.walk(gt[:, :11], ga, gn)
+    with pytest.raises(ValueError, match="K\\*B rows"):
+        kernels.walk(gt, ga[:31], gn[:31])
     inp, _ = _random_tree(1, 4, 6, 7)
     bad = _to(inp, cuda)
     bad["n_edge"] = bad["n_edge"].float()  # the kernel reads bf16 counts as stored

@@ -12,23 +12,27 @@
 // (pallas_kernels.py:674-723). Sharing the row code and kernels.row_layout
 // makes this bit-equal to node_actions + walk on the same tree and rands.
 //
+// The logits are read in their storage type, f32 or bf16 (the tree_dtype
+// of MCTSConfig); a bf16 logit is widened at its load, so the bf16
+// instantiation walks what the f32 one walks on the logits' f32 copy.
+//
 // What bounds it on the H100: the dependent chain, then bytes. A walk of
 // depth d is d row solves in sequence, each needing its row (11 bytes per
-// lane) before it can start and the child pointer before the next one. The
-// useful bytes are the visited rows plus one rand and a terminal flag per
-// level: at 32,768 envs and 6x6 rows of 36 lanes, some tens of MB, a bound of
-// some microseconds at 3.35 TB/s. One lane group per env keeps 32,768 chains
-// in flight to hide the latency of each; a warp's groups walk to different
-// depths, and the warp runs until its deepest walk ends.
+// lane, 9 with bf16 logits) before it can start and the child pointer before
+// the next one. The useful bytes are the visited rows plus one rand and a
+// terminal flag per level: at 32,768 envs and 6x6 rows of 36 lanes, some tens
+// of MB, a bound of some microseconds at 3.35 TB/s. One lane group per env
+// keeps 32,768 chains in flight to hide the latency of each; a warp's groups
+// walk to different depths, and the warp runs until its deepest walk ends.
 
 #include "row_solve.cuh"
 
 namespace {
 
-template <int G>
+template <int G, typename TL>
 __global__ void __launch_bounds__(row_solve::kThreads, row_solve::kMinBlocks)
 descend_kernel(
-    const float* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
+    const TL* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
     const float* __restrict__ w_edge, const int8_t* __restrict__ children,
     const uint8_t* __restrict__ terminal, int B, int T, int A,
     const float* __restrict__ rands, const float* __restrict__ c_puct,
@@ -54,8 +58,8 @@ descend_kernel(
     const int64_t base = env + (int64_t)t * A;
     row_solve::Row<G> row;
     row_solve::load_children<G>(children + base, A, active, L, row);
-    row_solve::solve_row<G, false>(logits + base, n_edge + base, w_edge + base, A, cp, qlo, qhi,
-                                   16, active, L, row);
+    row_solve::solve_row<G, false, TL>(logits + base, n_edge + base, w_edge + base, A, cp,
+                                       qlo, qhi, 16, active, L, row);
     row_solve::prefix<G>(A, L, row);
     const int a = row_solve::draw<G>(row, active ? __ldg(rand + t) : 0.f, A, L);
     const int child = row_solve::child_of<G>(row, a, L);
@@ -77,17 +81,21 @@ descend_kernel(
 
 }  // namespace
 
-extern "C" int descend_launch(const void* logits, const void* n_edge, const void* w_edge,
-                              const void* children, const void* terminal, int B, int T, int A,
+extern "C" int descend_launch(const void* logits, int logits_bf16, const void* n_edge,
+                              const void* w_edge, const void* children, const void* terminal,
+                              int B, int T, int A,
                               const void* rands, const void* c_puct, const void* q_bounds,
                               void* parents_out, void* actions_out, int group, int blocks,
                               void* stream) {
-  return row_solve::with_group(group, A, B, blocks, [&](auto g) {
-    descend_kernel<decltype(g)::value>
-        <<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
-            (const float*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge,
-            (const int8_t*)children, (const uint8_t*)terminal, B, T, A, (const float*)rands,
-            (const float*)c_puct, (const float*)q_bounds, (int32_t*)parents_out,
-            (int32_t*)actions_out);
+  return row_solve::with_logits(logits_bf16, [&](auto tl) {
+    using TL = typename decltype(tl)::type;
+    return row_solve::with_group(group, A, B, blocks, [&](auto g) {
+      descend_kernel<decltype(g)::value, TL>
+          <<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
+              (const TL*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge,
+              (const int8_t*)children, (const uint8_t*)terminal, B, T, A,
+              (const float*)rands, (const float*)c_puct, (const float*)q_bounds,
+              (int32_t*)parents_out, (int32_t*)actions_out);
+    });
   });
 }

@@ -11,12 +11,16 @@
 // the one-sided err < 1e-3 test, no acceleration. The K=1 search always runs
 // them, whatever MCTSConfig.solve_iters/solve_accel say.
 //
+// The logits are read in their storage type, f32 or bf16 (the tree_dtype
+// of MCTSConfig); a bf16 logit is widened at its load, so the bf16
+// instantiation draws what the f32 one draws on the logits' f32 copy.
+//
 // What bounds it on the H100: device-memory bytes in principle. Each (row,
-// lane) reads 11 bytes (logits f32, n_edge bf16, w_edge f32, children int8),
-// each row a rand and writes two int32s: at 32,768 envs x 64 nodes x 36
-// actions (6x6) about 0.85 GB, 0.25 ms at 3.35 TB/s. In practice the warp
-// instructions a row executes bound it: two divisions a lane a step and the
-// group sums.
+// lane) reads 11 bytes (logits f32, n_edge bf16, w_edge f32, children int8; 9
+// with bf16 logits), each row a rand and writes two int32s: at 32,768 envs x
+// 64 nodes x 36 actions (6x6) about 0.85 GB, 0.25 ms at 3.35 TB/s. In
+// practice the warp instructions a row executes bound it: two divisions a
+// lane a step and the group sums.
 //
 // What the design does about it: the solve loop leaves once every row of
 // the warp has converged (about 3-4 of the 16 steps on live rows); at A <=
@@ -30,10 +34,10 @@
 
 namespace {
 
-template <int G>
+template <int G, typename TL>
 __global__ void __launch_bounds__(row_solve::kThreads, row_solve::kMinBlocks)
 node_actions_kernel(
-    const float* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
+    const TL* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
     const float* __restrict__ w_edge, const int8_t* __restrict__ children,
     int B, int T, int A, int64_t env_stride,
     const float* __restrict__ rands, const float* __restrict__ c_puct,
@@ -50,9 +54,9 @@ node_actions_kernel(
 
   row_solve::Row<G> row;
   row_solve::load_children<G>(children + base, A, valid, L, row);
-  row_solve::solve_row<G, false>(logits + base, n_edge + base, w_edge + base, A,
-                                 __ldg(c_puct + b), __ldg(q_bounds), __ldg(q_bounds + 1), 16,
-                                 valid, L, row);
+  row_solve::solve_row<G, false, TL>(logits + base, n_edge + base, w_edge + base, A,
+                                     __ldg(c_puct + b), __ldg(q_bounds), __ldg(q_bounds + 1),
+                                     16, valid, L, row);
   row_solve::prefix<G>(A, L, row);
   row_solve::draw_k<G>(row, rands + row_id, 1, 1, A, valid, L, actions_out + row_id,
                        child_out + row_id);
@@ -61,16 +65,19 @@ node_actions_kernel(
 }  // namespace
 
 extern "C" int node_actions_launch(
-    const void* logits, const void* n_edge, const void* w_edge, const void* children,
-    int B, int T, int A, int env_stride, const void* rands, const void* c_puct,
-    const void* q_bounds, void* actions_out, void* child_out, int group, int blocks,
-    void* stream) {
-  return row_solve::with_group(group, A, (int64_t)B * T, blocks, [&](auto g) {
-    node_actions_kernel<decltype(g)::value>
-        <<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
-            (const float*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge,
-            (const int8_t*)children, B, T, A, (int64_t)env_stride, (const float*)rands,
-            (const float*)c_puct, (const float*)q_bounds, (int32_t*)actions_out,
-            (int32_t*)child_out);
+    const void* logits, int logits_bf16, const void* n_edge, const void* w_edge,
+    const void* children, int B, int T, int A, int env_stride, const void* rands,
+    const void* c_puct, const void* q_bounds, void* actions_out, void* child_out, int group,
+    int blocks, void* stream) {
+  return row_solve::with_logits(logits_bf16, [&](auto tl) {
+    using TL = typename decltype(tl)::type;
+    return row_solve::with_group(group, A, (int64_t)B * T, blocks, [&](auto g) {
+      node_actions_kernel<decltype(g)::value, TL>
+          <<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
+              (const TL*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge,
+              (const int8_t*)children, B, T, A, (int64_t)env_stride, (const float*)rands,
+              (const float*)c_puct, (const float*)q_bounds, (int32_t*)actions_out,
+              (int32_t*)child_out);
+    });
   });
 }

@@ -10,10 +10,14 @@
 // and descend.cu. Here: up to n_iters Newton or (accel) safeguarded-Halley
 // steps, then for each of the K rands the draw and that lane's child pointer.
 //
-// What bounds it on the H100: device-memory bytes in principle. The tree
-// rows are read once each in their storage types (logits f32, n_edge bf16,
-// w_edge f32, children int8: 11 bytes per (row, lane)), plus the (B,K,T)
-// rands and two (B,K,T) int32 outputs: at 32,768 envs x 65 nodes x 81
+// The logits are read in their storage type, f32 or bf16 (the tree_dtype
+// of MCTSConfig); a bf16 logit is widened at its load, so the bf16
+// instantiation draws what the f32 one draws on the logits' f32 copy.
+//
+// What bounds it on the H100: device-memory bytes in principle. The tree rows
+// are read once each in their storage types (logits f32, n_edge bf16, w_edge
+// f32, children int8: 11 bytes per (row, lane); 9 with bf16 logits), plus the
+// (B,K,T) rands and two (B,K,T) int32 outputs: at 32,768 envs x 65 nodes x 81
 // actions about 2.1 GB, 0.63 ms at 3.35 TB/s. In practice the warp
 // instructions a row executes bound it: the solve's divisions and sums, then
 // K draws.
@@ -31,10 +35,10 @@
 
 namespace {
 
-template <int G, bool kAccel>
+template <int G, bool kAccel, typename TL>
 __global__ void __launch_bounds__(row_solve::kThreads, row_solve::kMinBlocks)
 node_actions_multi_kernel(
-    const float* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
+    const TL* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
     const float* __restrict__ w_edge, const int8_t* __restrict__ children,
     int B, int T, int A, int K, int64_t env_stride,
     const float* __restrict__ rands, const float* __restrict__ c_puct,
@@ -52,9 +56,9 @@ node_actions_multi_kernel(
 
   row_solve::Row<G> row;
   row_solve::load_children<G>(children + base, A, valid, L, row);
-  row_solve::solve_row<G, kAccel>(logits + base, n_edge + base, w_edge + base, A,
-                                  __ldg(c_puct + b), __ldg(q_bounds), __ldg(q_bounds + 1),
-                                  n_iters, valid, L, row);
+  row_solve::solve_row<G, kAccel, TL>(logits + base, n_edge + base, w_edge + base, A,
+                                      __ldg(c_puct + b), __ldg(q_bounds),
+                                      __ldg(q_bounds + 1), n_iters, valid, L, row);
   row_solve::prefix<G>(A, L, row);
   const int64_t o = (int64_t)b * K * T + t;
   row_solve::draw_k<G>(row, rands + o, T, K, A, valid, L, actions_out + o, child_out + o);
@@ -64,18 +68,21 @@ node_actions_multi_kernel(
 }  // namespace
 
 extern "C" int node_actions_multi_launch(
-    const void* logits, const void* n_edge, const void* w_edge, const void* children,
-    int B, int T, int A, int K, int env_stride,
+    const void* logits, int logits_bf16, const void* n_edge, const void* w_edge,
+    const void* children, int B, int T, int A, int K, int env_stride,
     const void* rands, const void* c_puct, const void* q_bounds, int n_iters, int accel,
     void* actions_out, void* child_out, void* alpha_out, int group, int blocks, void* stream) {
-  return row_solve::with_group(group, A, (int64_t)B * T, blocks, [&](auto g) {
-    constexpr int kG = decltype(g)::value;
-    auto kernel =
-        accel ? node_actions_multi_kernel<kG, true> : node_actions_multi_kernel<kG, false>;
-    kernel<<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge,
-        (const int8_t*)children, B, T, A, K, (int64_t)env_stride, (const float*)rands,
-        (const float*)c_puct, (const float*)q_bounds, n_iters, (int32_t*)actions_out,
-        (int32_t*)child_out, (float*)alpha_out);
+  return row_solve::with_logits(logits_bf16, [&](auto tl) {
+    using TL = typename decltype(tl)::type;
+    return row_solve::with_group(group, A, (int64_t)B * T, blocks, [&](auto g) {
+      constexpr int kG = decltype(g)::value;
+      auto kernel = accel ? node_actions_multi_kernel<kG, true, TL>
+                          : node_actions_multi_kernel<kG, false, TL>;
+      kernel<<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
+          (const TL*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge,
+          (const int8_t*)children, B, T, A, K, (int64_t)env_stride, (const float*)rands,
+          (const float*)c_puct, (const float*)q_bounds, n_iters, (int32_t*)actions_out,
+          (int32_t*)child_out, (float*)alpha_out);
+    });
   });
 }

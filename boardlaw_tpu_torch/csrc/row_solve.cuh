@@ -33,9 +33,12 @@
 //   (packed four bytes a word) and each draw's child is shuffled from the
 //   lane that holds it; lane k of a group loads rand k and stores draw k.
 //
-// The row is read once, in its storage types (f32 logits and w_edge, bf16
-// n_edge, int8 children). Built with -fmad=false so each element's
-// arithmetic rounds like the plain twin's separate PyTorch ops; only the
+// The row is read once, in its storage types (f32 or bf16 logits, f32
+// w_edge, bf16 n_edge, int8 children): a bf16 logit is widened to f32 at its
+// load, which is exact, so a kernel on bf16 logits computes what it computes
+// on their f32 copy, bit for bit, without the copy. Built with -fmad=false
+// so each element's arithmetic rounds like the plain twin's separate
+// PyTorch ops; only the
 // lane sums run in another order than the twin's (and than another G's), so
 // alpha agrees to float32 roundoff and a draw can differ only where its
 // uniform lies within roundoff of a CDF boundary.
@@ -130,11 +133,18 @@ __device__ __forceinline__ int child_of(const Row<G>& row, int act, const Lane<G
   return act >= 0 ? (int)(int8_t)(uint8_t)(word >> (8 * (j % 4))) : 0;
 }
 
+// A logit as f32, from its storage type.
+__device__ __forceinline__ float load_logit(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_logit(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
 // Solve the row whose action 0 is at logits/n_edge/w_edge (all lanes of the
 // warp call this together; an invalid row reads nothing and is done from the
-// start): row.alpha and row.probs (0 on slots >= A).
-template <int G, bool kAccel>
-__device__ __forceinline__ void solve_row(const float* __restrict__ logits,
+// start): row.alpha and row.probs (0 on slots >= A). TL is the logits'
+// storage type, float or __nv_bfloat16.
+template <int G, bool kAccel, typename TL>
+__device__ __forceinline__ void solve_row(const TL* __restrict__ logits,
                                           const __nv_bfloat16* __restrict__ n_edge,
                                           const float* __restrict__ w_edge, int A, float cp,
                                           float qlo, float qhi, int n_iters, bool valid,
@@ -148,7 +158,7 @@ __device__ __forceinline__ void solve_row(const float* __restrict__ logits,
     pi[j] = 0.f;
     q[j] = 0.f;
     if (j < J && valid && a < A) {
-      const float lg = __ldg(logits + a);
+      const float lg = load_logit(logits + a);
       const float ne = __bfloat162float(n_edge[a]);
       const float we = __ldg(w_edge + a);
       const bool expanded = ne > 0.f;
@@ -332,6 +342,19 @@ inline int with_group(int G, int A, int64_t rows, int blocks, F&& launch) {
     case 16: return go(std::integral_constant<int, 16>{});
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// A type as a value, for the launchers' generic lambdas.
+template <class T>
+struct TypeTag {
+  using type = T;
+};
+
+// Launch `launch(TypeTag<TL>{})` for TL the logits' storage type: float, or
+// __nv_bfloat16 when `logits_bf16`. Returns the launch's result.
+template <class F>
+inline int with_logits(int logits_bf16, F&& launch) {
+  return logits_bf16 ? launch(TypeTag<__nv_bfloat16>{}) : launch(TypeTag<float>{});
 }
 
 constexpr int kThreads = kWarpsPerBlock * kWarp;

@@ -13,11 +13,16 @@
 // drawing from these probs with the shared prefix sum, draws what
 // node_actions_multi draws.
 //
+// The logits are read in their storage type, f32 or bf16 (the tree_dtype
+// of MCTSConfig), as the Pallas kernel streams them; a bf16 logit is
+// widened at its load, so the bf16 instantiation solves what the f32 one
+// solves on the logits' f32 copy, bit for bit.
+//
 // What bounds it on the H100: device-memory bytes in principle. Each (row,
-// lane) reads 10 bytes (logits f32, n_edge bf16, w_edge f32) and, in probs
-// mode, writes 4: at 32,768 envs x 65 nodes x 81 actions (the 9x9 scan pass)
-// about 2.4 GB, 0.72 ms at 3.35 TB/s (1.7 GB, 0.52 ms in alpha mode). In
-// practice the solve's divisions and group sums.
+// lane) reads 10 bytes (logits f32, n_edge bf16, w_edge f32; 8 with bf16
+// logits) and, in probs mode, writes 4: at 32,768 envs x 65 nodes x 81
+// actions (the 9x9 scan pass) about 2.4 GB, 0.72 ms at 3.35 TB/s (1.7 GB,
+// 0.52 ms in alpha mode). In practice the solve's divisions and group sums.
 //
 // What the design does about it: each row is read once, straight in its
 // storage types, the whole iteration stays in registers and leaves once
@@ -30,10 +35,10 @@
 
 namespace {
 
-template <int G, bool kAccel>
+template <int G, bool kAccel, typename TL>
 __global__ void __launch_bounds__(row_solve::kThreads, row_solve::kMinBlocks)
 solve_probs_kernel(
-    const float* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
+    const TL* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
     const float* __restrict__ w_edge, int B, int R, int A, int64_t env_stride,
     const float* __restrict__ c_puct, const float* __restrict__ q_bounds, int n_iters,
     int out_alpha, float* __restrict__ out) {
@@ -47,9 +52,9 @@ solve_probs_kernel(
   const int64_t base = (int64_t)b * env_stride + (int64_t)t * A;
 
   row_solve::Row<G> row;
-  row_solve::solve_row<G, kAccel>(logits + base, n_edge + base, w_edge + base, A,
-                                  __ldg(c_puct + b), __ldg(q_bounds), __ldg(q_bounds + 1),
-                                  n_iters, valid, L, row);
+  row_solve::solve_row<G, kAccel, TL>(logits + base, n_edge + base, w_edge + base, A,
+                                      __ldg(c_puct + b), __ldg(q_bounds),
+                                      __ldg(q_bounds + 1), n_iters, valid, L, row);
   if (!valid) return;
   if (out_alpha) {
     if (L.gl == 0) out[row_id] = row.alpha;
@@ -66,15 +71,19 @@ solve_probs_kernel(
 }  // namespace
 
 extern "C" int solve_probs_launch(
-    const void* logits, const void* n_edge, const void* w_edge, int B, int R, int A,
-    int env_stride, const void* c_puct, const void* q_bounds, int n_iters, int accel,
+    const void* logits, int logits_bf16, const void* n_edge, const void* w_edge, int B, int R,
+    int A, int env_stride, const void* c_puct, const void* q_bounds, int n_iters, int accel,
     int out_alpha, void* out, int group, int blocks, void* stream) {
-  return row_solve::with_group(group, A, (int64_t)B * R, blocks, [&](auto g) {
-    constexpr int kG = decltype(g)::value;
-    auto kernel = accel ? solve_probs_kernel<kG, true> : solve_probs_kernel<kG, false>;
-    kernel<<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge, B, R, A,
-        (int64_t)env_stride, (const float*)c_puct, (const float*)q_bounds, n_iters, out_alpha,
-        (float*)out);
+  return row_solve::with_logits(logits_bf16, [&](auto tl) {
+    using TL = typename decltype(tl)::type;
+    return row_solve::with_group(group, A, (int64_t)B * R, blocks, [&](auto g) {
+      constexpr int kG = decltype(g)::value;
+      auto kernel =
+          accel ? solve_probs_kernel<kG, true, TL> : solve_probs_kernel<kG, false, TL>;
+      kernel<<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
+          (const TL*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge, B, R, A,
+          (int64_t)env_stride, (const float*)c_puct, (const float*)q_bounds, n_iters,
+          out_alpha, (float*)out);
+    });
   });
 }

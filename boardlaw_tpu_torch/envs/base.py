@@ -29,6 +29,8 @@ class Transition:
 
 
 # Space descriptors, used by the space-driven head factories (models/heads.py).
-# The JAX package's Empty, Discrete and Vector come with the envs that use them.
+Empty = namedtuple("Empty", ())
+Discrete = namedtuple("Discrete", ("dim",))
 Masked = namedtuple("Masked", ("dim",))
+Vector = namedtuple("Vector", ("dim",))
 Tensor = namedtuple("Tensor", ("dim",))

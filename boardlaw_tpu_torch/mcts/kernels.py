@@ -40,9 +40,17 @@ run (a warp until all its rows are done) and the bounds count. The two
 backups share one chase (csrc/backup_walk.cuh), a lane group per env, its
 width fixed there.
 
+The four kernels that read the tree's logits (`node_actions_multi`,
+`node_actions`, `descend`, `solve_probs`) read them in their storage type,
+float32 or bfloat16 (`search.MCTSConfig.tree_dtype`), in place: each has a
+bf16 instantiation that widens a logit to float32 at its load, so on bf16
+logits it computes bit for bit what the f32 kernel computes on their f32
+copy, without making that copy. The twins read `logits.float()`.
+
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches the
 kernel or raises, with no fallback. Each launch adds one to the wrapper's
-`launches` attribute and nowhere else.
+`launches` attribute and nowhere else; a launch of a bf16 instantiation adds
+one to `wrapper.bf16.launches` instead.
 
 The kernels are compiled at first use with nvcc for sm_90a, one object per
 source in parallel, linked into one shared library with a plain C interface
@@ -58,6 +66,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -127,17 +136,18 @@ def build(verbose=False):
     lib.walk_launch.argtypes = [p, p, p, i, i, i, q, q, q, i, i, p, p]
     lib.walk_launch.restype = i
     # the row kernels end in (group, blocks, stream): `row_grid`'s layout
+    # the logits' kernels take (logits, logits_bf16, ...)
     lib.node_actions_multi_launch.argtypes = [
-        p, p, p, p, i, i, i, i, i, p, p, p, i, i, p, p, p, i, i, p]
+        p, i, p, p, p, i, i, i, i, i, p, p, p, i, i, p, p, p, i, i, p]
     lib.node_actions_multi_launch.restype = i
-    lib.node_actions_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, i, i, p]
+    lib.node_actions_launch.argtypes = [p, i, p, p, p, i, i, i, i, p, p, p, p, p, i, i, p]
     lib.node_actions_launch.restype = i
-    lib.descend_launch.argtypes = [p, p, p, p, p, i, i, i, p, p, p, p, p, i, i, p]
+    lib.descend_launch.argtypes = [p, i, p, p, p, p, i, i, i, p, p, p, p, p, i, i, p]
     lib.descend_launch.restype = i
     for name in ("backup_launch", "backup_dense_launch"):
         getattr(lib, name).argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p]
         getattr(lib, name).restype = i
-    lib.solve_probs_launch.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, i, i, p]
+    lib.solve_probs_launch.argtypes = [p, i, p, p, i, i, i, i, p, p, i, i, i, p, i, i, p]
     lib.solve_probs_launch.restype = i
     lib.sample_children_multi_launch.argtypes = [p, i, p, i, i, i, i, i, p, p, p, i, i, p]
     lib.sample_children_multi_launch.restype = i
@@ -160,10 +170,30 @@ def _check_rows(x, name, dtype, B, T, A):
            f"{name} must have contiguous (T,A) rows")
 
 
+# the storage types of the tree's logits that the row kernels read
+LOGITS_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_logits_dtype(logits):
+    _check(logits.dtype in LOGITS_DTYPES,
+           f"logits must be float32 or bfloat16, got {logits.dtype}")
+
+
+def _is_bf16(logits):
+    """The launchers' `logits_bf16` flag: 1 for bf16 logits, else 0."""
+    return int(logits.dtype == torch.bfloat16)
+
+
+def _launched(wrapper, logits):
+    """Count one launch of `wrapper`'s instantiation for `logits`."""
+    (wrapper.bf16 if _is_bf16(logits) else wrapper).launches += 1
+
+
 def _check_tree_rows(logits, n_edge, w_edge, children, B, T, A):
     """The solve's (B,T,A) row inputs (children may be None) in their
-    storage types, sharing one env stride."""
-    _check_rows(logits, "logits", torch.float32, B, T, A)
+    storage types, sharing one env stride; logits f32 or bf16."""
+    _check_logits_dtype(logits)
+    _check_rows(logits, "logits", logits.dtype, B, T, A)
     _check_rows(n_edge, "n_edge", torch.bfloat16, B, T, A)
     _check_rows(w_edge, "w_edge", torch.float32, B, T, A)
     strides = {logits.stride(0), n_edge.stride(0), w_edge.stride(0)}
@@ -377,10 +407,10 @@ def node_actions_multi(logits, n_edge, w_edge, children, rands, c_puct, q_bounds
                        n_iters=6, accel=True, return_alpha=False):
     """All-node solve + K draws.
 
-    logits f32, n_edge bf16, w_edge f32, children int8, each (B,T,A) with
-    contiguous (T,A) rows (a leading-T slice of a wider node axis is fine);
-    rands (B,K,T) f32; c_puct (B,) f32; q_bounds (2,) f32 on the device
-    (lo, hi). -> actions, children (B,K,T) int32, plus the solved alpha
+    logits f32 or bf16, n_edge bf16, w_edge f32, children int8, each
+    (B,T,A) with contiguous (T,A) rows (a leading-T slice of a wider node
+    axis is fine); rands (B,K,T) f32; c_puct (B,) f32; q_bounds (2,) f32 on
+    the device (lo, hi). -> actions, children (B,K,T) int32, plus the solved alpha
     (B,T) f32 when `return_alpha` (a debug output for checking the solve)."""
     if logits.device.type == "cpu":
         return node_actions_multi_ref(logits, n_edge, w_edge, children, rands, c_puct,
@@ -396,17 +426,18 @@ def node_actions_multi(logits, n_edge, w_edge, children, rands, c_puct, q_bounds
     alpha = torch.empty((B, T), dtype=torch.float32, device=dev) if return_alpha else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.node_actions_multi_launch(
-        logits.data_ptr(), n_edge.data_ptr(), w_edge.data_ptr(), children.data_ptr(),
-        B, T, A, K, logits.stride(0),
+        logits.data_ptr(), _is_bf16(logits), n_edge.data_ptr(), w_edge.data_ptr(),
+        children.data_ptr(), B, T, A, K, logits.stride(0),
         rands.data_ptr(), c_puct.data_ptr(), q_bounds.data_ptr(), n_iters, int(accel),
         actions.data_ptr(), childs.data_ptr(), alpha.data_ptr() if return_alpha else None,
         *row_grid(B * T, A), stream)
     _raise_on(err, "node_actions_multi")
-    node_actions_multi.launches += 1
+    _launched(node_actions_multi, logits)
     return (actions, childs, alpha) if return_alpha else (actions, childs)
 
 
 node_actions_multi.launches = 0
+node_actions_multi.bf16 = SimpleNamespace(launches=0)
 
 
 # --------------------------------------------------------------------------
@@ -417,10 +448,10 @@ def node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds):
     """The K=1 all-node solve (up to 16 Newton steps, one-sided test) and
     one draw per node.
 
-    logits f32, n_edge bf16, w_edge f32, children int8, each (B,T,A) with
-    contiguous (T,A) rows (a leading-T slice of a wider node axis is fine);
-    rands (B,T) f32; c_puct (B,) f32; q_bounds (2,) f32 on the device.
-    -> actions, children (B,T) int32."""
+    logits f32 or bf16, n_edge bf16, w_edge f32, children int8, each
+    (B,T,A) with contiguous (T,A) rows (a leading-T slice of a wider node
+    axis is fine); rands (B,T) f32; c_puct (B,) f32; q_bounds (2,) f32 on
+    the device. -> actions, children (B,T) int32."""
     if logits.device.type == "cpu":
         return search.node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds)
     B, T, A = logits.shape
@@ -431,16 +462,17 @@ def node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds):
     actions = torch.empty((B, T), dtype=torch.int32, device=dev)
     childs = torch.empty((B, T), dtype=torch.int32, device=dev)
     err = lib.node_actions_launch(
-        logits.data_ptr(), n_edge.data_ptr(), w_edge.data_ptr(), children.data_ptr(),
-        B, T, A, logits.stride(0), rands.data_ptr(), c_puct.data_ptr(), q_bounds.data_ptr(),
-        actions.data_ptr(), childs.data_ptr(), *row_grid(B * T, A),
+        logits.data_ptr(), _is_bf16(logits), n_edge.data_ptr(), w_edge.data_ptr(),
+        children.data_ptr(), B, T, A, logits.stride(0), rands.data_ptr(), c_puct.data_ptr(),
+        q_bounds.data_ptr(), actions.data_ptr(), childs.data_ptr(), *row_grid(B * T, A),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "node_actions")
-    node_actions.launches += 1
+    _launched(node_actions, logits)
     return actions, childs
 
 
 node_actions.launches = 0
+node_actions.bf16 = SimpleNamespace(launches=0)
 
 
 # --------------------------------------------------------------------------
@@ -450,12 +482,13 @@ node_actions.launches = 0
 def descend(tree, rands):
     """Each env's root->leaf walk over `tree` (a `search.Tree`), solving and
     sampling each visited row with rands (B,T) f32 -> (parents, actions)
-    (B,) int32. Bit-equal to `search.node_actions` + `walk` on the same tree
-    and rands."""
+    (B,) int32; the tree's logits f32 or bf16. Bit-equal to
+    `search.node_actions` + `walk` on the same tree and rands."""
     if rands.device.type == "cpu":
         return search.descend_reference(tree, rands)
     B, T, A = tree.logits.shape
-    _check_node(tree.logits, "logits", torch.float32, (B, T, A))
+    _check_logits_dtype(tree.logits)
+    _check_node(tree.logits, "logits", tree.logits.dtype, (B, T, A))
     _check_node(tree.n_edge, "n_edge", torch.bfloat16, (B, T, A))
     _check_node(tree.w_edge, "w_edge", torch.float32, (B, T, A))
     _check_node(tree.children, "children", torch.int8, (B, T, A))
@@ -467,16 +500,17 @@ def descend(tree, rands):
     parents = torch.empty((B,), dtype=torch.int32, device=dev)
     actions = torch.empty((B,), dtype=torch.int32, device=dev)
     err = lib.descend_launch(
-        tree.logits.data_ptr(), tree.n_edge.data_ptr(), tree.w_edge.data_ptr(),
-        tree.children.data_ptr(), tree.terminal.data_ptr(), B, T, A, rands.data_ptr(),
-        tree.c_puct.data_ptr(), q_bounds.data_ptr(), parents.data_ptr(), actions.data_ptr(),
-        *row_grid(B, A), torch.cuda.current_stream(dev).cuda_stream)
+        tree.logits.data_ptr(), _is_bf16(tree.logits), tree.n_edge.data_ptr(),
+        tree.w_edge.data_ptr(), tree.children.data_ptr(), tree.terminal.data_ptr(), B, T, A,
+        rands.data_ptr(), tree.c_puct.data_ptr(), q_bounds.data_ptr(), parents.data_ptr(),
+        actions.data_ptr(), *row_grid(B, A), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "descend")
-    descend.launches += 1
+    _launched(descend, tree.logits)
     return parents, actions
 
 
 descend.launches = 0
+descend.bf16 = SimpleNamespace(launches=0)
 
 
 # --------------------------------------------------------------------------
@@ -567,8 +601,8 @@ def solve_probs_ref(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=6, accel=T
 def solve_probs(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=6, accel=True, out="probs"):
     """The all-node solve alone.
 
-    logits f32, n_edge bf16, w_edge f32, each (B,R,A) with contiguous (R,A)
-    rows and one env stride (a leading-R slice of a wider node axis is
+    logits f32 or bf16, n_edge bf16, w_edge f32, each (B,R,A) with
+    contiguous (R,A) rows and one env stride (a leading-R slice of a wider node axis is
     fine); c_puct (B,) f32; q_bounds (2,) f32 on the device (lo, hi).
     -> probs (B,R,A) f32, contiguous, or with out="alpha" the roots (B,R)
     f32, the same floats as `node_actions_multi(..., return_alpha=True)`'s."""
@@ -582,15 +616,17 @@ def solve_probs(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=6, accel=True,
     dev = logits.device
     res = torch.empty((B, R) if out == "alpha" else (B, R, A), dtype=torch.float32, device=dev)
     err = lib.solve_probs_launch(
-        logits.data_ptr(), n_edge.data_ptr(), w_edge.data_ptr(), B, R, A, logits.stride(0),
+        logits.data_ptr(), _is_bf16(logits), n_edge.data_ptr(), w_edge.data_ptr(), B, R, A,
+        logits.stride(0),
         c_puct.data_ptr(), q_bounds.data_ptr(), n_iters, int(accel), int(out == "alpha"),
         res.data_ptr(), *row_grid(B * R, A), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "solve_probs")
-    solve_probs.launches += 1
+    _launched(solve_probs, logits)
     return res
 
 
 solve_probs.launches = 0
+solve_probs.bf16 = SimpleNamespace(launches=0)
 
 
 def sample_children_multi_ref(probs, children, rands):

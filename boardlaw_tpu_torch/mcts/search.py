@@ -57,11 +57,16 @@ class MCTSConfig:
 
     The knobs that describe only TPU dataflow are not carried: the
     `pallas_*` switches and block sizes, `use_pallas`, `write_mode`,
-    `gather_mode`, `mesh`/`mesh_axis`, `tree_dtype` and `compact`. The port
-    runs its kernels on the card, stores logits in float32 and keeps the
-    compact tree (int8 children, bf16 edge counts). Its kernels sample with
-    the log-shift prefix sum (the JAX `sample_cum='shift'` order); the K>1
-    torch sampler follows `sample_cum`.
+    `gather_mode`, `mesh`/`mesh_axis` and `compact`. The port runs its
+    kernels on the card and keeps the compact tree (int8 children, bf16 edge
+    counts). Its kernels sample with the log-shift prefix sum (the JAX
+    `sample_cum='shift'` order); the K>1 torch sampler follows `sample_cum`.
+
+    `tree_dtype` is the storage type of the tree's logits, torch.float32 or
+    torch.bfloat16 (the JAX flagship's): every write rounds into it, every
+    solve reads it widened to float32 (the row kernels at their loads). In
+    bf16 the -inf proxy -1e4 is stored as -9984, and `root()`'s prior holds
+    -9984 at invalid actions where float32 gives -inf, as in JAX.
 
     Two fields pick the kernel variants of the K=1 `simulate` and affect
     nothing else:
@@ -105,6 +110,7 @@ class MCTSConfig:
     backup_kernel: str = "ops"
     solve_kernel: str = "fused"
     sample_kernel: bool = False
+    tree_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
         if self.leaves_per_pass < 1:
@@ -117,6 +123,9 @@ class MCTSConfig:
         if self.warm_solve and self.solve_kernel != "ops":
             raise ValueError(f"warm_solve warm-starts the torch solve: it needs "
                              f"solve_kernel='ops', got {self.solve_kernel!r}")
+        if self.tree_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"tree_dtype must be torch.float32 or torch.bfloat16, "
+                             f"got {self.tree_dtype}")
         if self.backup_n not in ("seats", "visits"):
             raise ValueError(f"backup_n must be 'seats' or 'visits', got {self.backup_n!r}")
         if self.backup_kernel not in ("ops", "delta", "dense"):
@@ -150,7 +159,7 @@ class Tree:
     seats: torch.Tensor  # (B,T) int32 seat to play per node
     terminal: torch.Tensor  # (B,T) bool
     rewards: torch.Tensor  # (B,T,S) f32
-    logits: torch.Tensor  # (B,T,A) f32 log-prior per node (clamped)
+    logits: torch.Tensor  # (B,T,A) tree_dtype log-prior per node (clamped)
     v: torch.Tensor  # (B,T,S) f32 network value per node
     n: torch.Tensor  # (B,T) int32 visit counts
     w: torch.Tensor  # (B,T,S) f32 value sums
@@ -190,7 +199,7 @@ def build(world, cfg: MCTSConfig):
         seats=world.seats.to(torch.int32)[:, None].expand(B, T).clone(),
         terminal=zeros(B, T, dtype=torch.bool),
         rewards=zeros(B, T, S),
-        logits=zeros(B, T, A),
+        logits=zeros(B, T, A, dtype=cfg.tree_dtype),
         v=zeros(B, T, S),
         n=zeros(B, T, dtype=torch.int32),
         w=zeros(B, T, S),
@@ -205,6 +214,8 @@ def build(world, cfg: MCTSConfig):
 
 
 # Finite stand-in for -inf inside tree tensors: exp(-1e4) underflows to 0.
+# bf16 tree logits store it as -9984, above the proxy, so `_unclamp_logits`
+# leaves it finite there (as the JAX package does).
 NEG_INF_PROXY = -1e4
 
 

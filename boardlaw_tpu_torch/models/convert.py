@@ -4,10 +4,15 @@ the port's.
 `from_flax` takes the flax parameter tree as nested dicts of numpy arrays
 (`{'params': {'intake': {'Dense_0': {'kernel', 'bias'}}, 'block_i': {...,
 'alpha'}, 'policy': ..., 'value': ...}}`, or the inner 'params' dict) and
-returns a state dict for `networks.FCModel`. A flax Dense kernel is
-(in, out) and a torch Linear weight is (out, in), so kernels are transposed.
-The intake flattens the channels-last (B,S,S,2) observation in C order on
-both sides, so its kernel rows keep their order.
+returns a state dict for `networks.FCModel`; a tree that holds only some of
+these keys gives the entries of those. A flax Dense kernel is (in, out) and
+a torch Linear weight is (out, in), so kernels are transposed. The intake
+layouts are the heads' (models/heads.py): `intake/Dense_0` (Tensor,
+Vector), `intake/bias` (Empty), and `intake/intake_{k}/...` plus
+`intake/Dense_0` (a dict of spaces, each key's intake under `intakes.{k}`).
+The Tensor intake flattens the channels-last (B,S,S,2) observation in C
+order on both sides, so its kernel rows keep their order. The parameters
+are float32 under either compute dtype.
 
 `adam_from_optax` carries an `optax.adam` state (count, mu, nu) into a
 `torch.optim.Adam` (step, exp_avg, exp_avg_sq); `train_state_from_jax`
@@ -30,17 +35,30 @@ def _dense(tree, prefix):
     }
 
 
+def _intake(tree, prefix):
+    """An intake's entries, for every layout of `heads.intake_module`."""
+    sd = {}
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = torch.tensor(np.asarray(tree["bias"], np.float32))
+    for k, sub in tree.items():
+        if k.startswith("intake_"):
+            sd.update(_intake(sub, f"{prefix}.intakes.{k[len('intake_'):]}"))
+    if "Dense_0" in tree:
+        sd.update(_dense(tree, prefix))
+    return sd
+
+
 def from_flax(params):
     tree = params.get("params", params)
-    sd = {}
-    sd.update(_dense(tree["intake"], "intake"))
+    sd = _intake(tree["intake"], "intake") if "intake" in tree else {}
     depth = sum(1 for k in tree if k.startswith("block_"))
     for i in range(depth):
         block = tree[f"block_{i}"]
         sd.update(_dense(block, f"blocks.{i}"))
         sd[f"blocks.{i}.alpha"] = torch.tensor(np.asarray(block["alpha"], np.float32))
-    sd.update(_dense(tree["policy"], "policy"))
-    sd.update(_dense(tree["value"], "value"))
+    for head in ("policy", "value"):
+        if head in tree:
+            sd.update(_dense(tree[head], head))
     return sd
 
 

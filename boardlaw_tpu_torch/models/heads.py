@@ -1,11 +1,16 @@
 """Space-driven network intakes and outputs. Counterpart of
-boardlaw_tpu/models/heads.py, for the spaces the Hex slice uses: a Tensor
-observation intake, a Masked policy output and the per-seat value head.
+boardlaw_tpu/models/heads.py: the observation and action spaces
+(envs/base.py: Empty, Vector, Tensor, dicts of spaces; Discrete, Masked)
+pick the intake and output modules (`intake_module`, `output_module`).
 
-Layers compute in float32; the 512-wide products are plain `nn.Linear`s
-(the JAX package leaves them to XLA too). Weights are initialised like
-flax's: lecun-normal kernels by default, orthogonal where the JAX module
-asks for it, zero biases.
+Every layer has a compute `dtype`, as flax's `Dense(dtype=...)` has: the
+parameters stay float32, inputs and weights are cast to `dtype` per call,
+the product runs in `dtype` and the bias is added after it, in `dtype` (the
+product rounded, then the sum: flax's order). In float32 that is one
+`F.linear` with its bias. The heads upcast to float32 before the masked
+log-softmax and the tanh. Weights are initialised like flax's: lecun-normal
+kernels by default, orthogonal where the JAX module asks for it, zero
+biases.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -27,33 +33,102 @@ def orthogonal_(weight, gain=2 ** 0.5, generator=None):
     return nn.init.orthogonal_(weight, gain=gain, generator=generator)
 
 
-def dense(n_in, n_out, init=lecun_normal_, generator=None):
-    layer = nn.Linear(n_in, n_out)
-    with torch.no_grad():
-        init(layer.weight, generator=generator)
-        layer.bias.zero_()
-    return layer
+class Dense(nn.Linear):
+    """flax's `Dense(dtype=...)`: float32 parameters, computed in `dtype`."""
+
+    def __init__(self, n_in, n_out, dtype=torch.float32, init=lecun_normal_, generator=None):
+        super().__init__(n_in, n_out)
+        self.dtype = dtype
+        with torch.no_grad():
+            init(self.weight, generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x):
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+def _size(space):
+    return int(np.prod(space.dim))
+
+
+class EmptyIntake(nn.Module):
+    """No observation: a learned (width,) bias for every env."""
+
+    def __init__(self, space, width, dtype=torch.float32, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.bias = nn.Parameter(torch.zeros(width))
+
+    def forward(self, obs):
+        return self.bias.to(self.dtype)[None].expand(obs.shape[0], -1)
 
 
 class TensorIntake(nn.Module):
     """Flattens a fixed-shape observation (channels-last, C order) into one
     dense layer."""
 
-    def __init__(self, space, width, generator=None):
+    def __init__(self, space, width, dtype=torch.float32, generator=None):
         super().__init__()
-        self.dense = dense(int(np.prod(space.dim)), width, generator=generator)
+        self.dense = Dense(_size(space), width, dtype, generator=generator)
 
     def forward(self, obs):
         return self.dense(obs.reshape(obs.shape[0], -1))
 
 
+class VectorIntake(TensorIntake):
+    """A (B, dim) observation through one dense layer (the flatten is the
+    identity on it)."""
+
+
+class ConcatIntake(nn.Module):
+    """A dict of spaces: each key's intake (`intakes[k]`, flax's
+    `intake_{k}`), their outputs concatenated in the dict's order through
+    one dense core."""
+
+    def __init__(self, space, width, dtype=torch.float32, generator=None):
+        super().__init__()
+        self.intakes = nn.ModuleDict(
+            {k: intake_module(v, width, dtype, generator=generator) for k, v in space.items()})
+        self.dense = Dense(width * len(space), width, dtype, generator=generator)
+
+    def forward(self, obs):
+        return self.dense(torch.cat([m(obs[k]) for k, m in self.intakes.items()], -1))
+
+
+def intake_module(space, width, dtype=torch.float32, generator=None):
+    """The intake for an observation space: a dict of spaces, Empty, Vector
+    or Tensor."""
+    if isinstance(space, dict):
+        return ConcatIntake(space, width, dtype, generator=generator)
+    cls = {"Empty": EmptyIntake, "Vector": VectorIntake,
+           "Tensor": TensorIntake}.get(type(space).__name__)
+    if cls is None:
+        raise ValueError(f"Can't handle {space}")
+    return cls(space, width, dtype, generator=generator)
+
+
+class DiscreteOutput(nn.Module):
+    """Policy head over every action: a log-softmax in float32."""
+
+    def __init__(self, space, width, dtype=torch.float32, generator=None):
+        super().__init__()
+        dim = _size(space) if hasattr(space, "dim") else int(space)
+        self.dense = Dense(width, dim, dtype, generator=generator)
+
+    def forward(self, x, valid=None):
+        return torch.log_softmax(self.dense(x).float(), -1)
+
+
 class MaskedOutput(nn.Module):
     """Policy head: logits with -inf at invalid actions, then a log-softmax
-    over the valid entries."""
+    over the valid entries, in float32."""
 
-    def __init__(self, space, width, generator=None):
+    def __init__(self, space, width, dtype=torch.float32, generator=None):
         super().__init__()
-        self.dense = dense(width, int(np.prod(space.dim)), generator=generator)
+        self.dense = Dense(width, _size(space), dtype, generator=generator)
 
     def forward(self, x, valid):
         ninf = torch.tensor(-torch.inf, dtype=torch.float32, device=x.device)
@@ -62,6 +137,14 @@ class MaskedOutput(nn.Module):
         z = torch.where(valid, y - ymax, ninf)
         lse = torch.log(torch.where(valid, torch.exp(z), 0.0).sum(-1, keepdim=True))
         return torch.where(valid, z - lse, ninf)
+
+
+def output_module(space, width, dtype=torch.float32, generator=None):
+    """The policy head for an action space: Discrete or Masked."""
+    cls = {"Discrete": DiscreteOutput, "Masked": MaskedOutput}.get(type(space).__name__)
+    if cls is None:
+        raise ValueError(f"Can't handle {space}")
+    return cls(space, width, dtype, generator=generator)
 
 
 def scatter_values(v, seats):
@@ -75,12 +158,16 @@ def scatter_values(v, seats):
 
 
 class ValueOutput(nn.Module):
-    """tanh scalar value head scattered to the two seats' +-v (the JAX
-    package's one-seat form comes with the one-seat envs)."""
+    """tanh scalar value head, in float32: (B,1) for one-seat games, else
+    scattered to the two seats' +-v."""
 
-    def __init__(self, width, generator=None):
+    def __init__(self, width, n_seats=2, dtype=torch.float32, generator=None):
         super().__init__()
-        self.dense = dense(width, 1, generator=generator)
+        self.n_seats = n_seats
+        self.dense = Dense(width, 1, dtype, generator=generator)
 
     def forward(self, x, valid, seats):
-        return scatter_values(torch.tanh(self.dense(x).float()[..., 0]), seats)
+        v = torch.tanh(self.dense(x).float()[..., 0])
+        if self.n_seats == 1:
+            return v[:, None]
+        return scatter_values(v, seats)

@@ -1,8 +1,11 @@
 """Policy/value networks. Counterpart of boardlaw_tpu/models/networks.py: a
-fully-connected ReZero residual tower over the flattened board, with a
-masked-softmax policy head and a tanh value head.
+fully-connected ReZero residual tower over the observation, with a policy
+head (masked softmax for Hex) and a tanh value head.
 
-Computes in float32 with TF32 off for both matmuls and cuDNN
+`dtype` is the compute type of every layer, float32 (the default) or
+bfloat16 (the JAX flagship's): float32 parameters, the tower and its
+residual sums in `dtype`, the heads' softmax and tanh in float32
+(models/heads.py). Float32 runs with TF32 off for both matmuls and cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`, set by `FCModel`): TF32 keeps
 about three decimal digits, and the JAX reference computes these products in
@@ -18,37 +21,44 @@ from ..utils import resolve_device
 
 
 class ReZeroResidual(nn.Module):
-    """x + alpha * W relu(x), alpha initialised to 0."""
+    """x + alpha * W relu(x) in `dtype` (alpha, float32, cast to it),
+    alpha initialised to 0."""
 
-    def __init__(self, width, generator=None):
+    def __init__(self, width, dtype=torch.float32, generator=None):
         super().__init__()
-        self.dense = heads.dense(width, width, init=heads.orthogonal_, generator=generator)
+        self.dtype = dtype
+        self.dense = heads.Dense(width, width, dtype, init=heads.orthogonal_,
+                                 generator=generator)
         self.alpha = nn.Parameter(torch.zeros(()))
 
     def forward(self, x):
-        return x + self.alpha * self.dense(torch.relu(x))
+        return x + self.alpha.to(self.dtype) * self.dense(torch.relu(x))
 
 
 class FCModel(nn.Module):
     """Intake -> depth x ReZero -> (masked policy, per-seat tanh value).
 
     Call with (obs, valid, seats); returns {'logits': (B,A) f32 log-probs with
-    -inf at invalid actions, 'v': (B,2) f32}. Weights are made on the
-    CPU from `generator` (or torch's default one) and then moved to `device`,
-    so a seed gives the same weights on every device.
+    -inf at invalid actions, 'v': (B, n_seats) f32}. The intake and policy
+    head are the spaces' (`heads.intake_module`, `heads.output_module`);
+    `dtype` is the compute type (torch.float32 or torch.bfloat16). Weights
+    are float32, made on the CPU from `generator` (or torch's default one)
+    and then moved to `device`, so a seed gives the same weights on every
+    device.
     """
 
-    def __init__(self, obs_space, action_space, width=256, depth=64, device=None,
-                 generator=None):
+    def __init__(self, obs_space, action_space, width=256, depth=64, n_seats=2,
+                 dtype=torch.float32, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.intake = heads.TensorIntake(obs_space, width, generator=generator)
+        self.dtype = dtype
+        self.intake = heads.intake_module(obs_space, width, dtype, generator=generator)
         self.blocks = nn.ModuleList(
-            [ReZeroResidual(width, generator=generator) for _ in range(depth)])
-        self.policy = heads.MaskedOutput(action_space, width, generator=generator)
-        self.value = heads.ValueOutput(width, generator=generator)
+            [ReZeroResidual(width, dtype, generator=generator) for _ in range(depth)])
+        self.policy = heads.output_module(action_space, width, dtype, generator=generator)
+        self.value = heads.ValueOutput(width, n_seats, dtype, generator=generator)
         self.to(device)
 
     def forward(self, obs, valid, seats):

@@ -49,7 +49,9 @@ class TrainConfig:
     `run`'s switch to K=8 grow passes for boards of 7 and up. The search
     fields are `MCTSConfig`'s; `solve_kernel` and `sample_kernel` are the
     port's counterparts of the JAX `pallas_nodes`/`pallas_solve` and
-    `pallas_sample` switches."""
+    `pallas_sample` switches. `dtype` (the network's compute type) and
+    `tree_dtype` (the tree's logits) are torch dtype names, "float32" or
+    "bfloat16" (the JAX flagship runs both in bf16)."""
 
     boardsize: int
     width: int
@@ -62,6 +64,8 @@ class TrainConfig:
     lr: float = 1e-3
     mix_steps: int = 2500
     seed: int = 0  # the initial weights
+    dtype: str = "float32"  # network compute dtype
+    tree_dtype: str = "float32"  # MCTS tree logits storage
     # replay logits/prior storage; losses upcast to f32
     buffer_dtype: str = "bfloat16"
     leaves_per_pass: int = 1
@@ -73,6 +77,10 @@ class TrainConfig:
     sample_cum: str = "matmul"
     solve_kernel: str = "fused"
     sample_kernel: bool = False
+
+    @property
+    def compute_dtype(self):
+        return getattr(torch, self.dtype)
 
     def mcts_config(self):
         return MCTSConfig(
@@ -88,6 +96,7 @@ class TrainConfig:
             sample_cum=self.sample_cum,
             solve_kernel=self.solve_kernel,
             sample_kernel=self.sample_kernel,
+            tree_dtype=getattr(torch, self.tree_dtype),
         )
 
 
@@ -112,7 +121,8 @@ def best_config(boardsize, **overrides):
 def build_model(cfg: TrainConfig, device=None, generator=None):
     world = hex.Hex.initial(1, cfg.boardsize, device="cpu")
     return FCModel(world.obs_space, world.action_space, width=cfg.width, depth=cfg.depth,
-                   device=device, generator=generator)
+                   n_seats=world.n_seats, dtype=cfg.compute_dtype, device=device,
+                   generator=generator)
 
 
 def make_optimizer(cfg: TrainConfig, params):

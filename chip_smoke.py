@@ -5,7 +5,9 @@
 
 Phases, each a hard failure with a non-zero exit, each printing its seconds:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-  2. build the eight CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a);
+  2. build the eight CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a),
+     four of them (`node_actions_multi`, `node_actions`, `descend`,
+     `solve_probs`) also in their bf16-logits instantiation;
   3. the K=8 kernels against their plain PyTorch twins at the shapes of the
      9x9 main path's last pass, on a real mid-search tree:
      `node_actions_multi` draw for draw up to roundoff at CDF boundaries and
@@ -23,12 +25,23 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      twin in every draw, the split pair equal to `node_actions_multi` in
      every draw; a small 9x9 scan search on the card against the CPU;
   3c. the row kernels in every lane layout (`kernels.row_layout`): for each
-     board of 3, 5, 6, 7, 9 and 11, a K=1 tree of `--layout-envs` envs after
-     20 sims of a random 64x2 model, on which `node_actions` and `node_actions_multi`
-     agree with their twins by the rules of phases 3 and 4, `descend` equals
-     `node_actions` + `walk`, `backup` and `backup_dense` equal
-     `search.backup` bit for bit and the split pair equals
-     `node_actions_multi`;
+     board of 3, 5, 6, 7, 9 and 11, with f32 and with bf16 tree logits, a
+     K=1 tree of `--layout-envs` envs after 20 sims of a random 64x2 model,
+     on which `node_actions` and `node_actions_multi` agree with their twins
+     by the rules of phases 3 and 4, `descend` equals `node_actions` +
+     `walk`, `backup` and `backup_dense` equal `search.backup` bit for bit
+     and the split pair equals `node_actions_multi`; on the bf16 trees each
+     bf16 instantiation equals the f32 kernel on the logits' f32 copy bit for
+     bit;
+  3d. the bf16 instantiations on real trees of the bf16 flagship
+     configuration (`make_config(9, 512, 4, dtype="bfloat16",
+     tree_dtype="bfloat16")`, and `best_config(6)` with the same two fields)
+     at the shapes of phases 3, 3b and 4, by their rules: `node_actions_multi`
+     on the 9x9 grow tree, `solve_probs` (and the split pair) on the scan
+     tree, `node_actions` and `descend` on the 6x6 K=1 tree; each timed,
+     bit-equal to the f32 kernel on `logits.float()` (the bf16 logits' f32
+     copy), and allocating less than half an f32 copy of the logits (they
+     are read in place);
   4. the K=1 kernels at the 6x6 path's shapes (`best_config(6)`, 32,768
      envs, T=64, A=36) on a real tree after 30 sims: `node_actions` draw for
      draw up to CDF boundaries (timed on all T rows and on the tree.sim live
@@ -54,7 +67,8 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         and `--steps` train steps, all aux finite, parameters moved;
      e. one 6x6 K=1 train step after its warmup, at `--k1-learner-envs`;
      f. a tiny train step on the card against the same step on the CPU:
-        losses to rtol 1e-4;
+        losses to rtol 1e-4; the same with a bf16 network and bf16 tree
+        logits, losses to rtol `BF16_STEP_RTOL`;
      g. the 9x9 scan path (`make_config(9, 512, 4, grow_passes=False,
         solve_kernel="probs", sample_kernel=True)`) from 5a's worlds:
         `--steps` actor steps with 8 launches each of `solve_probs`,
@@ -65,10 +79,21 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         the warm solve) from the same worlds and draws, each with its launch
         counts, the trees held against 5g's route (equal on all but 1% of
         envs, w to atol 1e-4; the warm solve's invariants only);
+     i. the bf16 flagship, `make_config(9, 512, 4, dtype="bfloat16",
+        tree_dtype="bfloat16")`, from 5a's worlds: `--steps` actor steps
+        with 8 launches each of `node_actions_multi.bf16` and `walk` and 128
+        root visits, then the learner (a full warmup and `--steps` train
+        steps, aux finite, parameters moved); one `best_config(6)` K=1 actor
+        step with the same two fields (63 launches of `node_actions.bf16`),
+        the K=1 kernel variants on its bf16 trees (`descend.bf16`), one 9x9
+        scan actor step (8 of `solve_probs.bf16`); the step seconds and peak
+        memory beside 5a's, 5b's, 5d's and 5g's float32 ones;
   6. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
      shape, with its figures at the first grow pass, the 6x6 K=1 tree and
-     the chains beside, and each design's times), and the last line
-     {"ok": true, "device": {...}}.
+     the chains beside, and each design's times; the four bf16
+     instantiations as entries of their own, `node_actions_multi.bf16`, ...,
+     with their launches from phase 5i and bounds with 2-byte logits), and
+     the last line {"ok": true, "device": {...}}.
 
 Each row kernel's f32 operation bound counts the solver steps its inputs
 need (`kernels.solve_steps`, printed as a histogram), not the step budget.
@@ -228,29 +253,45 @@ class Phase:
         print(f"== {self.name}: {time.time() - self.t0:.2f} s", flush=True)
 
 
-def reset_counts():
+def counter(name):
+    """What counts the launches of `name` in `KERNELS`: a wrapper of
+    `kernels`, or the counter of its bf16 instantiation ("node_actions.bf16"
+    is `kernels.node_actions.bf16`)."""
     from boardlaw_tpu_torch.mcts import kernels
 
+    obj = kernels
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def reset_counts():
     for name in KERNELS:
-        getattr(kernels, name).launches = 0
+        counter(name).launches = 0
 
 
 def read_counts():
-    from boardlaw_tpu_torch.mcts import kernels
+    return {name: counter(name).launches for name in KERNELS}
 
-    return {name: getattr(kernels, name).launches for name in KERNELS}
+
+def logits_kernel(name, mcfg):
+    """The `KERNELS` name of the instantiation of `name` (a kernel that reads
+    the tree's logits) that `mcfg`'s tree launches."""
+    import torch
+
+    return f"{name}.bf16" if mcfg.tree_dtype == torch.bfloat16 else name
 
 
 def search_launches(mcfg):
     """The kernel launches of one search under `mcfg`'s route."""
     if mcfg.leaves_per_pass == 1:
-        return {"walk": mcfg.n_nodes - 1, "node_actions": mcfg.n_nodes - 1}
+        return {"walk": mcfg.n_nodes - 1, logits_kernel("node_actions", mcfg): mcfg.n_nodes - 1}
     P = mcfg.n_passes
     if mcfg.solve_kernel == "fused":
-        return {"walk": P, "node_actions_multi": P}
+        return {"walk": P, logits_kernel("node_actions_multi", mcfg): P}
     out = {"walk": P}
     if mcfg.solve_kernel in ("probs", "alpha"):
-        out["solve_probs"] = P
+        out[logits_kernel("solve_probs", mcfg)] = P
     if mcfg.sample_kernel:
         out["sample_children_multi"] = P
     return out
@@ -311,7 +352,7 @@ def boundary_counts(tree, q_bounds, mism, rands_at, ka, ra, alphas):
     A = tree.logits.shape[-1]
     q, counts = search._edge_q_counts(tree.n_edge[b, t], tree.w_edge[b, t], q_bounds)
     N = counts.sum(-1)
-    lampi = (tree.c_puct[b] * N / (N + A))[:, None] * torch.exp(tree.logits[b, t])
+    lampi = (tree.c_puct[b] * N / (N + A))[:, None] * torch.exp(tree.logits[b, t].float())
     lane = torch.minimum(ka, ra).long().clamp_min(0)[:, None]
     r = rands_at[:, None]
     cums = [search._shift_cumsum(lampi / (alpha[b, t][:, None] - q)).gather(1, lane)
@@ -366,7 +407,10 @@ def multi_agrees(tree, rands, kw, label):
     return ka, kc, kalpha, ralpha
 
 
-def check_node_actions_multi(tree, cfg, draws, report):
+def check_node_actions_multi(tree, cfg, draws, report, key="node_actions_multi"):
+    """`node_actions_multi` on `tree` against its twin (`multi_agrees`),
+    timed; its figures go to report[key]. Returns the kernel's actions and
+    children (B,K,T)."""
     from boardlaw_tpu_torch.mcts import kernels, search
 
     mcfg = cfg.mcts_config()
@@ -374,20 +418,21 @@ def check_node_actions_multi(tree, cfg, draws, report):
     K = mcfg.leaves_per_pass
     rands = draws.uniform((B, K, T))
     kw = dict(n_iters=mcfg.solve_iters, accel=mcfg.solve_accel)
-    ka, kc, kalpha, ralpha = multi_agrees(tree, rands, kw, "9x9 grow tree")
+    ka, kc, kalpha, ralpha = multi_agrees(tree, rands, kw, f"9x9 grow tree, {key}")
     args = (tree.logits, tree.n_edge, tree.w_edge, tree.children, rands, tree.c_puct,
             search._q_bounds(tree))
     steps = kernels.solve_steps(*args[:3], tree.c_puct, args[-1], **kw)
-    print(f"node_actions_multi at (B,T,A)=({B},{T},{A}), row layout (G, J) = "
+    print(f"{key} at (B,T,A)=({B},{T},{A}), row layout (G, J) = "
           f"{kernels.row_layout(A)}: {steps_line(steps, A)}", flush=True)
     k_ms, k_call = both_ms(lambda: kernels.node_actions_multi(*args, **kw), 20)
     r_ms = time_ms(lambda: kernels.node_actions_multi_ref(*args, **kw), 5)
-    nbytes = (B * T * A * (4 + 2 + 4 + 1) + B * K * T * 4 + B * 4 + 8 + 2 * B * K * T * 4)
+    lb = tree.logits.element_size()
+    nbytes = (B * T * A * (lb + 2 + 4 + 1) + B * K * T * 4 + B * 4 + 8 + 2 * B * K * T * 4)
     ops = solve_ops(steps, A) + draw_ops(B * T, A, K)
-    report["node_actions_multi"] = dict(
+    report[key] = dict(
         ms=k_call, device_ms=k_ms, plain_ms=r_ms,
         max_abs_err=float((kalpha - ralpha).abs().max()), bytes=nbytes, ops=ops)
-    print(f"node_actions_multi: kernel {k_ms:.4f} ms on the card ({k_call:.4f} ms a call), "
+    print(f"{key}: kernel {k_ms:.4f} ms on the card ({k_call:.4f} ms a call), "
           f"twin {r_ms:.4f} ms a call (median); "
           f"{nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
           f"{ops / 1e9:.2f} GFLOP -> f32 bound {ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
@@ -417,20 +462,18 @@ def split_equals_fused(tree, rands, kw, label):
     return probs, alpha
 
 
-def check_split_kernels(tree, cfg, draws, report):
-    """`solve_probs` and `sample_children_multi` against their twins and
-    against `node_actions_multi`, on one tree and one set of rands."""
-    import torch
+def check_solve_probs(tree, cfg, rands, report, key="solve_probs"):
+    """`solve_probs` against its twin and, with `sample_children_multi`,
+    against `node_actions_multi`, on `tree` with rands (B,K,T); timed, its
+    figures to report[key]. Returns the kernel's probs and the twin's."""
     from boardlaw_tpu_torch.mcts import kernels, search
 
     mcfg = cfg.mcts_config()
     B, T, A = tree.logits.shape
-    K = mcfg.leaves_per_pass
-    rands = draws.uniform((B, K, T))
     qb = search._q_bounds(tree)
     rows = (tree.logits, tree.n_edge, tree.w_edge)
     kw = dict(n_iters=mcfg.solve_iters, accel=mcfg.solve_accel)
-    probs, alpha = split_equals_fused(tree, rands, kw, "9x9 scan tree")
+    probs, alpha = split_equals_fused(tree, rands, kw, f"9x9 scan tree, {key}")
     r_probs, r_alpha = search.node_probs(*rows, tree.c_puct, qb, return_alpha=True, **kw)
 
     def close(x, ref):  # per row: every lane within rtol 1e-5, atol 1e-7
@@ -443,16 +486,48 @@ def check_split_kernels(tree, cfg, draws, report):
     rel = ((alpha - r_alpha).abs() / r_alpha.abs()).flatten()
     alpha_ok = float((rel <= 1e-5).float().mean())
     err = float((probs - r_probs).abs().max())
-    print(f"solve_probs vs twin at (B,T,A)=({B},{T},{A}): alpha equal to node_actions_multi's on "
+    print(f"{key} vs twin at (B,T,A)=({B},{T},{A}): alpha equal to node_actions_multi's on "
           f"every row; probs within rtol 1e-5, atol 1e-7 of the twin's formula at the kernel's "
           f"alpha on {eval_ok:.8f} of rows; of the twin's own solve on {rows_ok:.8f} of rows "
           f"(max |probs| difference {err:.3g}), its alpha within rtol 1e-5 on {alpha_ok:.8f} of "
           f"rows (max rel {float(rel.max()):.3g}): the solve's lane sums run in another order "
           f"than the twin's", flush=True)
     if eval_ok < 1.0:
-        fail("solve_probs: probs differ from the twin's formula at the kernel's alpha")
+        fail(f"{key}: probs differ from the twin's formula at the kernel's alpha")
     if alpha_ok < 0.9999 or rows_ok < 0.999:
-        fail("solve_probs: the solve disagrees with the twin")
+        fail(f"{key}: the solve disagrees with the twin")
+
+    steps = kernels.solve_steps(*rows, tree.c_puct, qb, **kw)
+    print(f"{key} at (B,T,A)=({B},{T},{A}): {steps_line(steps, A)}", flush=True)
+    k_ms, k_call = both_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, **kw), 20)
+    a_ms, a_call = both_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, out="alpha", **kw),
+                           20)
+    r_ms = time_ms(lambda: search.node_probs(*rows, tree.c_puct, qb, **kw), 5)
+    lb = tree.logits.element_size()
+    nbytes = B * T * A * (lb + 2 + 4 + 4) + B * 4 + 8
+    a_bytes = B * T * A * (lb + 2 + 4) + B * T * 4 + B * 4 + 8
+    ops = solve_ops(steps, A)
+    report[key] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes,
+                       ops=ops)
+    print(f"{key}: kernel {k_ms:.4f} ms on the card, {k_call:.4f} ms a call (out='alpha' "
+          f"{a_ms:.4f}, {a_call:.4f} ms), twin {r_ms:.4f} ms a call "
+          f"(median); {nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"(alpha {a_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), {ops / 1e9:.2f} GFLOP -> f32 bound "
+          f"{ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
+    return probs, r_probs
+
+
+def check_split_kernels(tree, cfg, draws, report):
+    """`solve_probs` and `sample_children_multi` against their twins and
+    against `node_actions_multi`, on one tree and one set of rands."""
+    import torch
+    from boardlaw_tpu_torch.mcts import kernels
+
+    mcfg = cfg.mcts_config()
+    B, T, A = tree.logits.shape
+    K = mcfg.leaves_per_pass
+    rands = draws.uniform((B, K, T))
+    probs, r_probs = check_solve_probs(tree, cfg, rands, report)
 
     ka, kc = kernels.sample_children_multi(r_probs, tree.children, rands)
     ra, rc = kernels.sample_children_multi_ref(r_probs, tree.children, rands)
@@ -462,23 +537,6 @@ def check_split_kernels(tree, cfg, draws, report):
     print(f"sample_children_multi at (B,K,T,A)=({B},{K},{T},{A}): all {ka.numel()} draws and "
           f"child pointers equal to the twin's on the twin's probs; solve_probs + "
           f"sample_children_multi equal to node_actions_multi in every draw", flush=True)
-
-    steps = kernels.solve_steps(*rows, tree.c_puct, qb, **kw)
-    print(f"solve_probs at (B,T,A)=({B},{T},{A}): {steps_line(steps, A)}", flush=True)
-    k_ms, k_call = both_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, **kw), 20)
-    a_ms, a_call = both_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, out="alpha", **kw),
-                           20)
-    r_ms = time_ms(lambda: search.node_probs(*rows, tree.c_puct, qb, **kw), 5)
-    nbytes = B * T * A * (4 + 2 + 4 + 4) + B * 4 + 8
-    a_bytes = B * T * A * (4 + 2 + 4) + B * T * 4 + B * 4 + 8
-    ops = solve_ops(steps, A)
-    report["solve_probs"] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err,
-                                 bytes=nbytes, ops=ops)
-    print(f"solve_probs: kernel {k_ms:.4f} ms on the card, {k_call:.4f} ms a call (out='alpha' "
-          f"{a_ms:.4f}, {a_call:.4f} ms), twin {r_ms:.4f} ms a call "
-          f"(median); {nbytes / 1e9:.3f} GB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
-          f"(alpha {a_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), {ops / 1e9:.2f} GFLOP -> f32 bound "
-          f"{ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
 
     s_ms, s_call = both_ms(lambda: kernels.sample_children_multi(probs, tree.children, rands), 20)
     rs_ms = time_ms(lambda: kernels.sample_children_multi_ref(probs, tree.children, rands), 5)
@@ -700,15 +758,18 @@ def node_actions_cost(tree, R):
     B, _, A = tree.logits.shape
     steps = kernels.solve_steps(tree.logits[:, :R], tree.n_edge[:, :R], tree.w_edge[:, :R],
                                 tree.c_puct, search._q_bounds(tree))
-    nbytes = B * R * A * (4 + 2 + 4 + 1) + B * R * 4 + B * 4 + 8 + 2 * B * R * 4
+    lb = tree.logits.element_size()
+    nbytes = B * R * A * (lb + 2 + 4 + 1) + B * R * 4 + B * 4 + 8 + 2 * B * R * 4
     return nbytes, solve_ops(steps, A) + draw_ops(B * R, A, 1), steps
 
 
-def check_node_actions(tree, rands, report):
+def check_node_actions(tree, rands, report, key="node_actions"):
+    """`node_actions` on the 6x6 tree against its twin, timed on all T rows
+    and on the live rows; its figures (all T rows) go to report[key]."""
     from boardlaw_tpu_torch.mcts import kernels, search
 
     B, T, A = tree.logits.shape
-    ka, kc, err = node_actions_agrees(tree, rands, "6x6 K=1 tree")
+    ka, kc, err = node_actions_agrees(tree, rands, f"6x6 K=1 tree, {key}")
     qb = search._q_bounds(tree)
     times = {}
     # all T rows, and the R = tree.sim live rows the search hands over
@@ -720,15 +781,15 @@ def check_node_actions(tree, rands, report):
         nbytes, ops, steps = node_actions_cost(tree, R)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
         times[R] = (k_call, k_ms, r_ms, nbytes, ops)
-        print(f"node_actions at (B,T,A)=({B},{R},{A}), row layout (G, J) = "
+        print(f"{key} at (B,T,A)=({B},{R},{A}), row layout (G, J) = "
               f"{kernels.row_layout(A)}: {steps_line(steps, A)}; kernel {k_ms:.4f} ms on the "
               f"card ({k_call:.4f} ms a call), twin {r_ms:.4f} ms a call (median); "
               f"{nbytes / 1e9:.3f} GB -> bytes bound "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {ops / 1e9:.2f} GFLOP -> f32 bound "
               f"{ops / F32_FLOPS * 1e3:.4f} ms; bound {bound:.4f} ms", flush=True)
     k_call, k_ms, r_ms, nbytes, ops = times[T]
-    report["node_actions"] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err,
-                                  bytes=nbytes, ops=ops)
+    report[key] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes,
+                       ops=ops)
     return ka, kc
 
 
@@ -759,61 +820,212 @@ def descend_equals(tree, rands, acts, nxt, label):
     return wp, halt, path, err
 
 
-def check_descend(tree, rands, acts, nxt, report):
+def check_descend(tree, rands, acts, nxt, report, key="descend"):
+    """`descend` on the 6x6 tree against `node_actions` + `walk` and its
+    twin, timed; its figures go to report[key]. Returns the walks' leaves."""
     import torch
     from boardlaw_tpu_torch.mcts import kernels, search
 
     B, T, A = tree.logits.shape
-    wp, halt, path, err = descend_equals(tree, rands, acts, nxt, "6x6 K=1 tree")
+    wp, halt, path, err = descend_equals(tree, rands, acts, nxt, f"6x6 K=1 tree, {key}")
     levels = int((path >= 0).sum())
     k_ms, k_call = both_ms(lambda: kernels.descend(tree, rands), 20)
     r_ms = time_ms(lambda: search.descend_reference(tree, rands), 3)
-    # each visited level reads its row (11 bytes a lane), its rand and the
-    # child's terminal flag; per env the root flag, c_puct, two outputs
-    nbytes = levels * (A * 11 + 4 + 1) + B * (1 + 4 + 8) + 8
+    # each visited level reads its row (11 bytes a lane, 9 with bf16
+    # logits), its rand and the child's terminal flag; per env the root
+    # flag, c_puct, two outputs
+    nbytes = levels * (A * (7 + tree.logits.element_size()) + 4 + 1) + B * (1 + 4 + 8) + 8
     steps = kernels.solve_steps(tree.logits, tree.n_edge, tree.w_edge, tree.c_puct,
                                 search._q_bounds(tree))
     visited = torch.gather(steps, 1, path.long().clamp_min(0))[path >= 0]
     ops = solve_ops(visited, A) + draw_ops(levels, A, 1)
-    report["descend"] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err,
-                             bytes=nbytes, ops=ops)
-    print(f"descend: kernel {k_ms:.4f} ms on the card ({k_call:.4f} ms a call), twin "
+    report[key] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes,
+                       ops=ops)
+    print(f"{key}: kernel {k_ms:.4f} ms on the card ({k_call:.4f} ms a call), twin "
           f"{r_ms:.4f} ms a call (median); {nbytes / 1e6:.2f} MB "
           f"-> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, {ops / 1e9:.3f} GFLOP -> "
           f"f32 bound {ops / F32_FLOPS * 1e3:.5f} ms", flush=True)
     return torch.where(halt == -1, wp, halt)
 
 
+def bf16_equals_f32(tree, names, label, rands=None, rands_k=None, kw=None):
+    """Each bf16 instantiation in `names` on `tree` (bf16 logits) against the
+    f32 kernel on the logits' f32 copy: every output equal, bit for bit.
+    rands (B,T) for `node_actions` and `descend`, rands_k (B,K,T) and the
+    solve's `kw` for `node_actions_multi` and `solve_probs` (both modes)."""
+    import torch
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    f32 = replace(tree, logits=tree.logits.float())
+    qb = search._q_bounds(tree)
+    calls = {
+        "node_actions": lambda t: kernels.node_actions(
+            t.logits, t.n_edge, t.w_edge, t.children, rands, t.c_puct, qb),
+        "node_actions_multi": lambda t: kernels.node_actions_multi(
+            t.logits, t.n_edge, t.w_edge, t.children, rands_k, t.c_puct, qb, return_alpha=True,
+            **kw),
+        "descend": lambda t: kernels.descend(t, rands),
+        "solve_probs": lambda t: (
+            kernels.solve_probs(t.logits, t.n_edge, t.w_edge, t.c_puct, qb, **kw),
+            kernels.solve_probs(t.logits, t.n_edge, t.w_edge, t.c_puct, qb, out="alpha", **kw)),
+    }
+    for name in names:
+        got, want = calls[name](tree), calls[name](f32)
+        sync()
+        differ = [i for i, (g, w) in enumerate(zip(got, want)) if not torch.equal(g, w)]
+        if differ:
+            fail(f"{label}: {name} on bf16 logits differs from the f32 kernel on their f32 copy "
+                 f"in outputs {differ}")
+    print(f"{label}: {', '.join(names)} on bf16 logits bit-equal to the f32 kernels on their "
+          f"f32 copy", flush=True)
+
+
+def f32_copy_ms(name, call, tree):
+    """The card's time of `call(t)` (a kernel on a tree `t`) on the bf16
+    tree and on its f32 copy, side by side: the two instantiations on the
+    same rows."""
+    bf16_ms = device_ms(lambda: call(tree), 20)
+    f32 = replace(tree, logits=tree.logits.float())
+    f32_ms = device_ms(lambda: call(f32), 20)
+    print(f"{name} on the same tree: bf16 logits {bf16_ms:.4f} ms on the card, their f32 copy "
+          f"{f32_ms:.4f} ms", flush=True)
+
+
+def copy_free(fn, logits, label):
+    """The device memory a call of `fn` allocates at its peak beyond what it
+    held and beyond its outputs: fails if that reaches half the bytes of an
+    f32 copy of `logits` (the wrapper must read bf16 logits in place).
+    Returns the bytes."""
+    import torch
+
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    sync()
+    outs = out if isinstance(out, tuple) else (out,)
+    out_bytes = sum(t.numel() * t.element_size() for t in outs)
+    extra = torch.cuda.max_memory_allocated() - base - out_bytes
+    copy = logits.numel() * 4
+    print(f"{label}: the call allocates {extra / 1e6:.3f} MB beyond its inputs and its "
+          f"{out_bytes / 1e6:.3f} MB of outputs; an f32 copy of the logits would take "
+          f"{copy / 1e6:.1f} MB", flush=True)
+    if extra >= copy // 2:
+        fail(f"{label}: the call allocates {extra} bytes, as much as a copy of the logits")
+    return extra
+
+
 def check_board_layouts(seed, n_envs=1024, sims=20):
     """For each board the repo runs (3, 5, 6, 7, 9, 11: every lane layout of
-    the row kernels), a small K=1 tree after `sims` sims, on which
-    `node_actions` and `node_actions_multi` agree with their twins,
-    `descend` equals `node_actions` + `walk`, both backups equal their twin
-    bit for bit from the walks' leaves, and the split pair equals
-    `node_actions_multi`."""
+    the row kernels), a small K=1 tree after `sims` sims, with f32 and with
+    bf16 tree logits, on which `node_actions` and `node_actions_multi` agree
+    with their twins, `descend` equals `node_actions` + `walk`, both backups
+    equal their twin bit for bit from the walks' leaves, and the split pair
+    equals `node_actions_multi`; on the bf16 tree each of the four logits'
+    kernels equals the f32 kernel on the logits' f32 copy bit for bit."""
     import torch
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.draws import Draws
     from boardlaw_tpu_torch.mcts import kernels
 
-    for boardsize in (3, 5, 6, 7, 9, 11):
-        cfg = train.make_config(boardsize, 64, 2, n_envs=n_envs, leaves_per_pass=1)
-        model = train.build_model(cfg, device=DEV,
-                                  generator=torch.Generator().manual_seed(seed + boardsize))
-        draws = Draws(seed + boardsize, DEV)
-        tree = k1_mid_search_tree(cfg, model, draws, sims)
-        B, T, A = tree.logits.shape
-        label = f"{boardsize}x{boardsize} (A={A}, row layout (G, J) = {kernels.row_layout(A)})"
-        rands = draws.uniform((B, T))
-        acts, nxt, _ = node_actions_agrees(tree, rands, label)
-        wp, halt, _, _ = descend_equals(tree, rands, acts, nxt, label)
-        backups_equal(tree, torch.where(halt == -1, wp, halt), label)
-        rands_k = draws.uniform((B, 8, T))
-        kw = dict(n_iters=6, accel=True)
-        multi_agrees(tree, rands_k, kw, label)
-        split_equals_fused(tree, rands_k, kw, label)
-        print(f"{label}: split pair equal to node_actions_multi in every draw and alpha",
-              flush=True)
+    for tree_dtype in ("float32", "bfloat16"):
+        for boardsize in (3, 5, 6, 7, 9, 11):
+            cfg = train.make_config(boardsize, 64, 2, n_envs=n_envs, leaves_per_pass=1,
+                                    tree_dtype=tree_dtype)
+            model = train.build_model(cfg, device=DEV,
+                                      generator=torch.Generator().manual_seed(seed + boardsize))
+            draws = Draws(seed + boardsize, DEV)
+            tree = k1_mid_search_tree(cfg, model, draws, sims)
+            B, T, A = tree.logits.shape
+            label = (f"{boardsize}x{boardsize} {tree_dtype} tree (A={A}, row layout (G, J) = "
+                     f"{kernels.row_layout(A)})")
+            rands = draws.uniform((B, T))
+            acts, nxt, _ = node_actions_agrees(tree, rands, label)
+            wp, halt, _, _ = descend_equals(tree, rands, acts, nxt, label)
+            backups_equal(tree, torch.where(halt == -1, wp, halt), label)
+            rands_k = draws.uniform((B, 8, T))
+            kw = dict(n_iters=6, accel=True)
+            multi_agrees(tree, rands_k, kw, label)
+            split_equals_fused(tree, rands_k, kw, label)
+            print(f"{label}: split pair equal to node_actions_multi in every draw and alpha",
+                  flush=True)
+            if tree_dtype == "bfloat16":
+                bf16_equals_f32(tree, ("node_actions", "node_actions_multi", "descend",
+                                       "solve_probs"), label, rands, rands_k, kw)
+
+
+def check_bf16_kernels(seed, n_envs, report):
+    """The bf16 instantiations of the four logits' kernels on real bf16
+    trees of the bf16 flagship configuration (bf16 network and tree logits)
+    at the main paths' shapes: `node_actions_multi` on the 9x9 grow tree
+    after 5 passes (phase 3's rules), `solve_probs` on the 9x9 scan tree
+    after 5 passes (phase 3b's: the split pair equal to `node_actions_multi`
+    in every draw), `node_actions` and `descend` on the 6x6 K=1 tree after
+    30 sims (phase 4's: `descend` equal to `node_actions` + `walk`); each
+    timed (and beside it the f32 kernel on the same tree's f32 copy), each
+    bit-equal to the f32 kernel on that copy, and each allocating no copy of
+    the logits."""
+    import torch
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.mcts import kernels, search
+
+    bf = dict(dtype="bfloat16", tree_dtype="bfloat16")
+    cfg9 = train.make_config(9, 512, 4, n_envs=n_envs, **bf)
+    model9 = train.build_model(cfg9, device=DEV, generator=torch.Generator().manual_seed(seed))
+    mcfg9 = cfg9.mcts_config()
+    kw = dict(n_iters=mcfg9.solve_iters, accel=mcfg9.solve_accel)
+    K = mcfg9.leaves_per_pass
+
+    draws = Draws(seed + 11, DEV)
+    tree = mid_search_tree(cfg9, model9, draws, n_envs, passes=5)
+    if tree.logits.dtype != torch.bfloat16:
+        fail(f"the bf16 config's tree holds {tree.logits.dtype} logits")
+    check_node_actions_multi(tree, cfg9, draws, report, key="node_actions_multi.bf16")
+    B, T, A = tree.logits.shape
+    rands_k = draws.uniform((B, K, T))
+    qb = search._q_bounds(tree)
+    bf16_equals_f32(tree, ("node_actions_multi",), "9x9 bf16 grow tree", rands_k=rands_k, kw=kw)
+    f32_copy_ms("node_actions_multi", lambda t: kernels.node_actions_multi(
+        t.logits, t.n_edge, t.w_edge, t.children, rands_k, t.c_puct, qb, **kw), tree)
+    copy_free(lambda: kernels.node_actions_multi(tree.logits, tree.n_edge, tree.w_edge,
+                                                 tree.children, rands_k, tree.c_puct, qb, **kw),
+              tree.logits, "node_actions_multi.bf16")
+    del tree
+    torch.cuda.empty_cache()
+
+    cfg9s = scan_config(cfg9)
+    tree = mid_search_tree(cfg9s, model9, draws, n_envs, passes=5)
+    rands_k = draws.uniform((B, K, tree.logits.shape[1]))
+    check_solve_probs(tree, cfg9s, rands_k, report, key="solve_probs.bf16")
+    bf16_equals_f32(tree, ("solve_probs",), "9x9 bf16 scan tree", kw=kw)
+    qb = search._q_bounds(tree)
+    f32_copy_ms("solve_probs", lambda t: kernels.solve_probs(
+        t.logits, t.n_edge, t.w_edge, t.c_puct, qb, **kw), tree)
+    for out in ("probs", "alpha"):
+        copy_free(lambda: kernels.solve_probs(tree.logits, tree.n_edge, tree.w_edge, tree.c_puct,
+                                              qb, out=out, **kw),
+                  tree.logits, f"solve_probs.bf16, out={out!r}")
+    del tree, model9
+    torch.cuda.empty_cache()
+
+    cfg6 = train.best_config(6, n_envs=n_envs, **bf)
+    model6 = train.build_model(cfg6, device=DEV, generator=torch.Generator().manual_seed(seed))
+    draws = Draws(seed + 12, DEV)
+    tree = k1_mid_search_tree(cfg6, model6, draws, sims=30)
+    B, T = tree.parents.shape
+    rands = draws.uniform((B, T))
+    acts, nxt = check_node_actions(tree, rands, report, key="node_actions.bf16")
+    check_descend(tree, rands, acts, nxt, report, key="descend.bf16")
+    bf16_equals_f32(tree, ("node_actions", "descend"), "6x6 bf16 K=1 tree", rands=rands)
+    qb = search._q_bounds(tree)
+    f32_copy_ms("node_actions", lambda t: kernels.node_actions(
+        t.logits, t.n_edge, t.w_edge, t.children, rands, t.c_puct, qb), tree)
+    f32_copy_ms("descend", lambda t: kernels.descend(t, rands), tree)
+    copy_free(lambda: kernels.node_actions(tree.logits, tree.n_edge, tree.w_edge, tree.children,
+                                           rands, tree.c_puct, qb),
+              tree.logits, "node_actions.bf16")
+    copy_free(lambda: kernels.descend(tree, rands), tree.logits, "descend.bf16")
 
 
 def tree_copy(tree):
@@ -973,8 +1185,9 @@ def check_k1_variants(cfg, model, worlds, seed):
     sync()
     seconds = {"default route": time.time() - t0}
     counts = {}
-    for variant, kernels_run in (("ops", ("descend",)), ("delta", ("descend", "backup")),
-                                 ("dense", ("descend", "backup_dense"))):
+    descend = logits_kernel("descend", mcfg)
+    for variant, kernels_run in (("ops", (descend,)), ("delta", (descend, "backup")),
+                                 ("dense", (descend, "backup_dense"))):
         vcfg = replace(mcfg, descend_kernel=True, backup_kernel=variant)
         t0 = time.time()
         c, tree = run_path(f"the K=1 search, descend_kernel with backup_kernel={variant!r}",
@@ -1000,7 +1213,9 @@ def check_k1_variants(cfg, model, worlds, seed):
 
 def check_learner(cfg, seed, steps, label, worlds=None):
     """make_train, init (on `worlds` if given, else on freshly mixed ones), a
-    full warmup and `steps` train steps, with their launch counts."""
+    full warmup and `steps` train steps, with their launch counts. Returns
+    the counts, the median train step after the first (s) and the peak
+    memory (GB)."""
     import torch
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.draws import Draws
@@ -1048,7 +1263,7 @@ def check_learner(cfg, seed, steps, label, worlds=None):
     print(f"{label} ({cfg.n_envs} envs): train steps {step_s} s, median after the first "
           f"{steady(step_s):.4f} s/step, peak memory {peak_gb:.2f} GB; last aux {last}",
           flush=True)
-    return counts
+    return counts, steady(step_s), peak_gb
 
 
 def scan_config(cfg9):
@@ -1111,14 +1326,16 @@ def check_scan_routes(cfg, model, worlds, seed):
     return counts
 
 
-def check_train_step_cpu_vs_gpu(seed):
+def check_train_step_cpu_vs_gpu(seed, dtype="float32", rtol=1e-4):
     """A tiny train step on the card (kernels) against the same step on the
-    CPU (twins), from one warmed-up state and the same draws."""
+    CPU (twins), from one warmed-up state and the same draws, with the
+    network and the tree logits in `dtype`: losses to `rtol`."""
     import torch
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.mcts.search import _map_world
 
-    cfg = train.make_config(5, 32, 2, nodes=17, n_envs=64, buffer_len=4, mix_steps=20)
+    cfg = train.make_config(5, 32, 2, nodes=17, n_envs=64, buffer_len=4, mix_steps=20,
+                            dtype=dtype, tree_dtype=dtype)
     _, _, init, warmup, _ = train.make_train(cfg, device="cpu")
     draws = cpu_draws(seed, "cpu")
     state = warmup(init(draws), draws)
@@ -1133,12 +1350,84 @@ def check_train_step_cpu_vs_gpu(seed):
     sync()
     worst = max(abs(float(gaux[k]) - float(caux[k])) / max(abs(float(caux[k])), 1e-12)
                 for k in ("loss.policy", "loss.value", "loss.total"))
-    print(f"train step on the card vs on the CPU (5x5, 64 envs, K=1): losses "
-          f"{[round(float(gaux[k]), 7) for k in ('loss.policy', 'loss.value')]} vs "
-          f"{[round(float(caux[k]), 7) for k in ('loss.policy', 'loss.value')]}, worst relative "
-          f"difference {worst:.3g}", flush=True)
-    if worst > 1e-4:
-        fail("the train step on the card disagrees with the step on the CPU")
+    print(f"train step on the card vs on the CPU (5x5, 64 envs, K=1, {dtype} network and tree "
+          f"logits): losses {[round(float(gaux[k]), 7) for k in ('loss.policy', 'loss.value')]} "
+          f"vs {[round(float(caux[k]), 7) for k in ('loss.policy', 'loss.value')]}, worst "
+          f"relative difference {worst:.3g} (tolerance {rtol:g})", flush=True)
+    if worst > rtol:
+        fail(f"the {dtype} train step on the card disagrees with the step on the CPU")
+
+
+# the bf16 train step on the card against the CPU (phase 5f): the losses'
+# relative tolerance. Measured on the H100: 6.8e-8 (the float32 step's:
+# 1.9e-7); bf16 products sum in other orders on the two devices, so a
+# rounding of one activation may flip, hence the margin.
+BF16_STEP_RTOL = 1e-3
+
+
+def check_bf16_paths(args, worlds9, worlds6, f32_figures, card):
+    """Phase 5i: the bf16 flagship configuration (bf16 network and tree
+    logits) on its paths, each with its launch counts: `--steps` 9x9 actor
+    steps (K=8 grow, `node_actions_multi.bf16`), the learner (a full warmup
+    and `--steps` train steps, aux finite, parameters moved), one 6x6 K=1
+    actor step (`node_actions.bf16`), the K=1 kernel variants on bf16 trees
+    (`descend.bf16`), and one 9x9 scan actor step (`solve_probs.bf16`).
+    Prints the step seconds and peak memory beside the float32 ones.
+    Returns the launches of the four bf16 instantiations."""
+    import torch
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.draws import Draws
+
+    bf = dict(dtype="bfloat16", tree_dtype="bfloat16")
+    cfg9 = train.make_config(9, 512, 4, n_envs=args.envs, **bf)
+    mcfg9 = cfg9.mcts_config()
+    model9 = train.build_model(cfg9, device=DEV, generator=torch.Generator().manual_seed(args.seed))
+    root_visits = 2 * mcfg9.leaves_per_pass * mcfg9.n_passes
+    draws = Draws(args.seed, DEV)
+    figures = {}
+    launches = {}
+
+    torch.cuda.reset_peak_memory_stats()
+    c, (_, step_s) = run_path(
+        f"{args.steps} bf16 9x9 actor steps",
+        {k: v * args.steps for k, v in search_launches(mcfg9).items()},
+        lambda: actor_steps(cfg9, model9, worlds9, draws, args.steps, root_visits))
+    launches["node_actions_multi.bf16"] = c["node_actions_multi.bf16"]
+    figures["actor"] = (steady(step_s), torch.cuda.max_memory_allocated() / 1e9)
+    print(f"bf16 actor step (9x9, 512x4, {cfg9.n_envs} envs, 64 nodes, K=8, bf16 network and "
+          f"tree logits): steps {step_s} s, median after the first {steady(step_s):.4f} s/step, "
+          f"peak memory {figures['actor'][1]:.2f} GB; card: {card}", flush=True)
+    _, *figures["learner"] = check_learner(cfg9, args.seed, args.steps, "the bf16 9x9 learner",
+                                           worlds=worlds9)
+
+    cfg6 = train.best_config(6, n_envs=args.envs, **bf)
+    mcfg6 = cfg6.mcts_config()
+    model6 = train.build_model(cfg6, device=DEV, generator=torch.Generator().manual_seed(args.seed))
+    sims = mcfg6.n_nodes - 1
+    torch.cuda.reset_peak_memory_stats()
+    c, (_, step_s) = run_path(
+        "one bf16 6x6 K=1 actor step", search_launches(mcfg6),
+        lambda: actor_steps(cfg6, model6, worlds6, draws, 1, 2 * sims))
+    launches["node_actions.bf16"] = c["node_actions.bf16"]
+    figures["k1 actor"] = (step_s[0], torch.cuda.max_memory_allocated() / 1e9)
+    launches["descend.bf16"] = check_k1_variants(cfg6, model6, worlds6, args.seed + 3)[
+        "descend.bf16"]
+
+    cfg9s = scan_config(cfg9)
+    mcfg9s = cfg9s.mcts_config()
+    torch.cuda.reset_peak_memory_stats()
+    c, (_, step_s) = run_path(
+        "one bf16 9x9 scan actor step", search_launches(mcfg9s),
+        lambda: actor_steps(cfg9s, model9, worlds9, draws, 1, root_visits))
+    launches["solve_probs.bf16"] = c["solve_probs.bf16"]
+    figures["scan actor"] = (step_s[0], torch.cuda.max_memory_allocated() / 1e9)
+
+    for name, (secs, peak) in figures.items():
+        f_secs, f_peak = f32_figures[name]
+        print(f"{name} step, bf16 network and tree logits: {secs:.4f} s, peak memory "
+              f"{peak:.2f} GB; float32: {f_secs:.4f} s, {f_peak:.2f} GB; card: {card}",
+              flush=True)
+    return launches
 
 
 # the eight kernels: route, source, the Pallas kernel each replaces
@@ -1159,6 +1448,10 @@ KERNELS = {
     "sample_children_multi": ("cuda", "boardlaw_tpu_torch/csrc/sample_children_multi.cu",
                               "boardlaw_tpu/mcts/pallas_kernels.py:457"),
 }
+# the bf16 instantiations of the four kernels that read the tree's logits
+# (csrc/row_solve.cuh `load_logit`), each counted on `wrapper.bf16`
+KERNELS.update({f"{name}.bf16": KERNELS[name] for name in
+                ("node_actions_multi", "node_actions", "descend", "solve_probs")})
 
 
 def main(argv=None):
@@ -1222,6 +1515,11 @@ def main(argv=None):
         check_board_layouts(args.seed + 6, args.layout_envs)
         torch.cuda.empty_cache()
 
+    # 3d. the bf16 instantiations on the bf16 flagship's trees
+    with Phase("bf16-logits kernels against their twins"):
+        check_bf16_kernels(args.seed + 13, cfg9.n_envs, report)
+        torch.cuda.empty_cache()
+
     # 4. the K=1 kernels at the 6x6 path's shapes
     with Phase("K=1 kernels against their twins"):
         draws = Draws(args.seed + 2, DEV)
@@ -1249,16 +1547,17 @@ def main(argv=None):
                                 2 * mcfg9.leaves_per_pass * mcfg9.n_passes))
         launches.update(walk=c["walk"], node_actions_multi=c["node_actions_multi"])
         sims = cfg9.n_envs * mcfg9.n_passes * mcfg9.leaves_per_pass / steady(step_s)
+        f32_figures = {"actor": (steady(step_s), torch.cuda.max_memory_allocated() / 1e9)}
         print(f"actor step (9x9, 512x4, {cfg9.n_envs} envs, 64 nodes, K=8): steps {step_s} s, "
               f"median after the first {steady(step_s):.4f} s/step, {sims:.0f} sims/s, peak "
-              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {card}", flush=True)
+              f"memory {f32_figures['actor'][1]:.2f} GB; card: {card}", flush=True)
         worlds9 = worlds
 
     # 5b. the 6x6 K=1 actor path
     with Phase("6x6 actor steps (K=1)"):
         draws = Draws(args.seed, DEV)
         t0 = time.time()
-        worlds = train.init_worlds(cfg6, draws)
+        worlds = worlds6 = train.init_worlds(cfg6, draws)
         sync()
         print(f"mix at 6x6: {time.time() - t0:.2f} s", flush=True)
         sims = mcfg6.n_nodes - 1
@@ -1269,6 +1568,7 @@ def main(argv=None):
             lambda: actor_steps(cfg6, model6, worlds, draws, steps6, 2 * sims))
         launches["node_actions"] = c["node_actions"]
         report["walk"]["k1"]["launches"] = c["walk"]
+        f32_figures["k1 actor"] = (steady(step_s), torch.cuda.max_memory_allocated() / 1e9)
         print(f"K=1 actor step (6x6, 128x1, {cfg6.n_envs} envs, 64 nodes): steps {step_s} s, "
               f"median after the first {steady(step_s):.4f} s/step, "
               f"{cfg6.n_envs * sims / steady(step_s):.0f} sims/s, peak memory "
@@ -1282,7 +1582,8 @@ def main(argv=None):
 
     # 5d. the 9x9 learner
     with Phase("9x9 learner"):
-        check_learner(cfg9, args.seed, args.steps, "the 9x9 learner (K=8)")
+        _, *f32_figures["learner"] = check_learner(cfg9, args.seed, args.steps,
+                                                   "the 9x9 learner (K=8)")
         torch.cuda.empty_cache()
 
     # 5e. the 6x6 K=1 learner
@@ -1294,6 +1595,7 @@ def main(argv=None):
     # 5f. a tiny train step on the card against the CPU
     with Phase("train step, card vs CPU"):
         check_train_step_cpu_vs_gpu(args.seed)
+        check_train_step_cpu_vs_gpu(args.seed, "bfloat16", rtol=BF16_STEP_RTOL)
 
     # 5g. the 9x9 scan path, from 5a's worlds
     with Phase("9x9 scan path (K=8, split kernels)"):
@@ -1308,6 +1610,7 @@ def main(argv=None):
         launches.update(solve_probs=c["solve_probs"],
                         sample_children_multi=c["sample_children_multi"])
         sims = cfg9s.n_envs * mcfg9s.n_passes * mcfg9s.leaves_per_pass / steady(step_s)
+        f32_figures["scan actor"] = (steady(step_s), torch.cuda.max_memory_allocated() / 1e9)
         print(f"scan actor step (9x9, 512x4, {cfg9s.n_envs} envs, 64 nodes, K=8, solve_probs + "
               f"sample_children_multi): steps {step_s} s, median after the first "
               f"{steady(step_s):.4f} s/step, {sims:.0f} sims/s, peak memory "
@@ -1319,7 +1622,12 @@ def main(argv=None):
     # 5h. the other scan routes
     with Phase("9x9 scan routes"):
         check_scan_routes(cfg9s, model9, worlds9, args.seed + 5)
-        del worlds9
+        torch.cuda.empty_cache()
+
+    # 5i. the bf16 flagship: bf16 network and tree logits, from 5a's worlds
+    with Phase("9x9 bf16 flagship path"):
+        launches.update(check_bf16_paths(args, worlds9, worlds6, f32_figures, card))
+        del worlds9, worlds6
         torch.cuda.empty_cache()
 
     # 6. the records

@@ -1,7 +1,8 @@
 """Where the time of the PyTorch/CUDA port's steps goes, on one GPU.
 
     python3 scripts/torch_profile_actor.py [--envs 32768] [--mix 2500] [--scan]
-        [--k1-search ROUTE [ROUTE ...]] [--out output/profile_actor.txt]
+        [--k1-search ROUTE [ROUTE ...]] [--dtype float32|bfloat16]
+        [--tree-dtype float32|bfloat16] [--out output/profile_actor.txt]
 
 Profiles three steps, each after two warm-up calls of the same step, under
 torch.profiler (CPU and CUDA activities):
@@ -25,13 +26,19 @@ per route named, each from the same worlds: 'default' (`node_actions`,
 `descend` kernel with that `backup_kernel`: the torch-ops chase, the
 `backup` kernel, the `backup_dense` kernel).
 
+--dtype and --tree-dtype set `TrainConfig.dtype` (the network's compute
+type) and `tree_dtype` (the tree's logits) of every step profiled; the JAX
+flagship runs both in bfloat16.
+
 For each it prints the card line, the step's wall time under the profiler
 and that of the warm-up call before it, the device busy share (sum of
 kernel times over the profiled wall time), the CUDA kernels by total time,
-and two sums: the `walk` kernel's time and calls, and those of every copy
+and three sums: the `walk` kernel's time and calls, those of every copy
 kernel (PyTorch's `direct_copy_kernel` and memcpy; on a tree whose
 `simulate_multi` copies the sampler's buffers to rows for `walk`, those
-copies are among them); the full tables go to --out. --package-root imports
+copies are among them), and those of the network's matrix products (every
+cuBLAS kernel: names with gemm, gemv, xmma or nvjet); the full tables go to
+--out. --package-root imports
 `boardlaw_tpu_torch` from another checkout (an unpacked `git archive` of an
 earlier commit), so that one call can profile two trees on one card.
 """
@@ -71,7 +78,9 @@ def profile_step(label, fn, out):
           f"{device_us / 1e6:.4f} s, device busy share {device_us / 1e6 / wall:.3f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"{e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
-    for name, match in (("walk", lambda k: "walk" in k), ("copy", lambda k: "copy" in k.lower())):
+    gemm = ("gemm", "gemv", "xmma", "nvjet")
+    for name, match in (("walk", lambda k: "walk" in k), ("copy", lambda k: "copy" in k.lower()),
+                        ("GEMM", lambda k: any(g in k.lower() for g in gemm))):
         chosen = [e for e in events if match(e.key)]
         line = (f"{name} kernels: {sum(e.self_device_time_total for e in chosen) / 1e3:.3f} ms "
                 f"in {sum(e.count for e in chosen)} calls")
@@ -87,6 +96,10 @@ def main(argv=None):
                         help="profile the 9x9 scan-mode actor and train steps only")
     parser.add_argument("--k1-search", nargs="+", choices=("default", "ops", "delta", "dense"),
                         help="profile one 6x6 K=1 search per route named, and nothing else")
+    parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                        help="the network's compute dtype")
+    parser.add_argument("--tree-dtype", default="float32", choices=("float32", "bfloat16"),
+                        help="the storage dtype of the tree's logits")
     parser.add_argument("--package-root", default=None,
                         help="import boardlaw_tpu_torch from this checkout")
     parser.add_argument("--out", default="output/profile_actor.txt")
@@ -106,14 +119,15 @@ def main(argv=None):
         return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    print(card)
+    dtypes = dict(dtype=args.dtype, tree_dtype=args.tree_dtype)
+    print(f"{card}; network {args.dtype}, tree logits {args.tree_dtype}")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as out:
-        out.write(f"{card}\n")
+        out.write(f"{card}; network {args.dtype}, tree logits {args.tree_dtype}\n")
         draws = Draws(0, "cuda")
 
         if args.k1_search:
-            cfg6 = train.best_config(6, n_envs=args.envs, mix_steps=args.mix)
+            cfg6 = train.best_config(6, n_envs=args.envs, mix_steps=args.mix, **dtypes)
             model6 = train.build_model(cfg6, device="cuda",
                                        generator=torch.Generator().manual_seed(0))
             worlds6 = train.init_worlds(cfg6, draws)
@@ -130,7 +144,7 @@ def main(argv=None):
         if args.scan:
             scan = dict(grow_passes=False, solve_kernel="probs", sample_kernel=True)
         mode = "scan passes, solve_probs + sample_children_multi" if args.scan else "grow passes"
-        cfg9 = train.make_config(9, 512, 4, n_envs=args.envs, mix_steps=args.mix, **scan)
+        cfg9 = train.make_config(9, 512, 4, n_envs=args.envs, mix_steps=args.mix, **scan, **dtypes)
         model, _, init, _, train_step = train.make_train(cfg9, device="cuda")
         state = init(draws)
         worlds = state.worlds
@@ -146,7 +160,7 @@ def main(argv=None):
         if args.scan:
             return 0
 
-        cfg6 = train.best_config(6, n_envs=args.envs, mix_steps=args.mix)
+        cfg6 = train.best_config(6, n_envs=args.envs, mix_steps=args.mix, **dtypes)
         model6 = train.build_model(cfg6, device="cuda", generator=torch.Generator().manual_seed(0))
         worlds6 = train.init_worlds(cfg6, draws)
 

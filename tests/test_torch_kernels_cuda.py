@@ -21,6 +21,16 @@ probs agree with the twin's to rtol 1e-5 and its alpha is
 `node_actions_multi`'s, bit for bit; `sample_children_multi` adds in the
 twin's order and is bit-equal to it, and the split pair draws what
 `node_actions_multi` draws.
+
+The bf16 instantiations of the four kernels that read the logits
+(`node_actions_multi`, `node_actions`, `descend`, `solve_probs`) run on
+bf16 logits in place: each is bit-equal to the f32 kernel on the logits'
+f32 copy (a bf16 logit widens to f32 exactly), agrees with its twin by the
+rules above (`solve_probs`: alpha to rtol 1e-5 and the probs to rtol 1e-5
+of the twin's formula at the kernel's alpha, as chip_smoke.py phase 3b
+holds them; on one row of one case the solved probs differ from the twin's
+own solve by 1.6e-5 relative, where alpha - q is small), and counts its
+launch on `wrapper.bf16`, not on the f32 counter.
 """
 from dataclasses import replace
 
@@ -450,3 +460,122 @@ def test_split_wrappers_raise_on_wrong_inputs(cuda):
         kernels.sample_children_multi(probs, children.int(), rands)
     with pytest.raises(ValueError):
         kernels.sample_children_multi(probs, children, rands.permute(0, 2, 1).contiguous())
+
+
+def _bf16_logits(inp):
+    """The inputs with their logits rounded to bf16."""
+    return {**inp, "logits": inp["logits"].bfloat16()}
+
+
+def _f32_copy(inp):
+    return {**inp, "logits": inp["logits"].float()}
+
+
+def _launch_counts(wrapper):
+    return wrapper.launches, wrapper.bf16.launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A", [7] + BOARD_ACTIONS)
+@pytest.mark.parametrize("n_iters,accel", [(16, False), (6, True)])
+def test_node_actions_multi_bf16_matches_ref_and_f32(cuda, n_iters, accel, A):
+    # a leading-row slice of bf16 rows, as the grow passes hand them over
+    B, T, K, R = 8, 20, 8, 13
+    inp, _ = _random_tree(4, B, T, A, c_puct=1 / 16)
+    inp = _bf16_logits(inp)
+    ref_inp = _lead(inp, R, copy=True)
+    rands = torch.rand((B, K, R), generator=torch.Generator().manual_seed(A))
+    rands = _away_from_boundaries(ref_inp, rands, n_iters, accel, A)
+    assert _min_boundary_gap(ref_inp, rands, n_iters, accel) > 1e-6
+    ra, rc, ralpha = kernels.node_actions_multi_ref(rands=rands, n_iters=n_iters, accel=accel,
+                                                    return_alpha=True, **ref_inp)
+    kw = dict(rands=rands.to(cuda), n_iters=n_iters, accel=accel, return_alpha=True)
+    n0 = _launch_counts(kernels.node_actions_multi)
+    ka, kc, kalpha = kernels.node_actions_multi(**kw, **_lead(_to(inp, cuda), R))
+    torch.cuda.synchronize()
+    assert _launch_counts(kernels.node_actions_multi) == (n0[0], n0[1] + 1)
+    torch.testing.assert_close(kalpha.cpu(), ralpha, rtol=1e-5, atol=0)
+    assert torch.equal(ka.cpu(), ra) and torch.equal(kc.cpu(), rc)
+    fa, fc, falpha = kernels.node_actions_multi(**kw, **_lead(_to(_f32_copy(inp), cuda), R))
+    assert torch.equal(ka, fa) and torch.equal(kc, fc) and torch.equal(kalpha, falpha)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A", [7] + BOARD_ACTIONS)
+def test_node_actions_bf16_matches_ref_and_f32(cuda, A):
+    B, T, R = 8, 20, 9
+    inp, _ = _random_tree(2, B, T, A, c_puct=1 / 16)
+    inp = _bf16_logits(inp)
+    ref_inp = _lead(inp, R, copy=True)
+    rands = torch.rand((B, R), generator=torch.Generator().manual_seed(A))
+    rands = _away_from_boundaries(ref_inp, rands, 16, False, A)
+    assert _min_boundary_gap(ref_inp, rands, 16, False) > 1e-6
+    ra, rc = search.node_actions(rands=rands, **ref_inp)
+    n0 = _launch_counts(kernels.node_actions)
+    ka, kc = kernels.node_actions(rands=rands.to(cuda), **_lead(_to(inp, cuda), R))
+    torch.cuda.synchronize()
+    assert _launch_counts(kernels.node_actions) == (n0[0], n0[1] + 1)
+    assert torch.equal(ka.cpu(), ra) and torch.equal(kc.cpu(), rc)
+    fa, fc = kernels.node_actions(rands=rands.to(cuda), **_lead(_to(_f32_copy(inp), cuda), R))
+    assert torch.equal(ka, fa) and torch.equal(kc, fc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A", [7] + BOARD_ACTIONS)
+@pytest.mark.parametrize("seed,c_puct", [(0, 1.0), (2, 10.0)])
+def test_descend_bf16_matches_ref_and_f32(cuda, seed, c_puct, A):
+    B, T = 16, 12
+    tree = _random_search_tree(seed, B, T, A, c_puct)
+    tree = replace(tree, logits=tree.logits.bfloat16())
+    inp = dict(logits=tree.logits, n_edge=tree.n_edge, w_edge=tree.w_edge, c_puct=tree.c_puct,
+               q_bounds=search._q_bounds(tree))
+    rands = torch.rand((B, T), generator=torch.Generator().manual_seed(seed))
+    rands = _away_from_boundaries(inp, rands, 16, False, seed)
+    rp, ra = search.descend_reference(tree, rands)
+    gtree = _tree_to(tree, cuda)
+    n0 = _launch_counts(kernels.descend)
+    kp, ka = kernels.descend(gtree, rands.to(cuda))
+    torch.cuda.synchronize()
+    assert _launch_counts(kernels.descend) == (n0[0], n0[1] + 1)
+    assert torch.equal(kp.cpu(), rp) and torch.equal(ka.cpu(), ra)
+    fp, fa = kernels.descend(replace(gtree, logits=gtree.logits.float()), rands.to(cuda))
+    assert torch.equal(kp, fp) and torch.equal(ka, fa)
+    # node_actions + walk kernels on the bf16 tree, bit for bit
+    wp, wa = search.descend(gtree, rands.to(cuda))
+    assert torch.equal(wp, kp) and torch.equal(wa, ka)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", ["probs", "alpha"])
+@pytest.mark.parametrize("A", [7] + BOARD_ACTIONS)
+def test_solve_probs_bf16_matches_ref_and_f32(cuda, A, out):
+    B, T, R = 8, 20, 9
+    inp, _ = _random_tree(5, B, T, A, c_puct=1 / 16)
+    inp = _solve_inputs(_bf16_logits(inp))
+    n0 = _launch_counts(kernels.solve_probs)
+    res = kernels.solve_probs(out=out, **_lead(_to(inp, cuda), R))
+    torch.cuda.synchronize()
+    assert _launch_counts(kernels.solve_probs) == (n0[0], n0[1] + 1)
+    if out == "alpha":
+        ref = kernels.solve_probs_ref(out=out, **_lead(inp, R, copy=True))
+    else:  # the probs: the twin's formula at the kernel's roots (chip_smoke phase 3b's rule)
+        alpha = kernels.solve_probs(out="alpha", **_lead(_to(inp, cuda), R))
+        ref = search.node_probs(**_lead(inp, R, copy=True), fixed_alpha=alpha.cpu())
+    torch.testing.assert_close(res.cpu(), ref, rtol=1e-5, atol=1e-7)
+    f32 = kernels.solve_probs(out=out, **_lead(_to(_f32_copy(inp), cuda), R))
+    assert torch.equal(res, f32)
+
+
+@pytest.mark.gpu
+def test_logits_wrappers_refuse_other_dtypes(cuda):
+    inp, _ = _random_tree(1, 4, 6, 7)
+    half = {**_to(inp, cuda), "logits": inp["logits"].half().to(cuda)}
+    with pytest.raises(ValueError, match="logits must be float32 or bfloat16"):
+        kernels.node_actions_multi(rands=torch.rand((4, 2, 6), device=cuda), **half)
+    with pytest.raises(ValueError, match="logits must be float32 or bfloat16"):
+        kernels.node_actions(rands=torch.rand((4, 6), device=cuda), **half)
+    with pytest.raises(ValueError, match="logits must be float32 or bfloat16"):
+        kernels.solve_probs(**_solve_inputs(half))
+    tree = _tree_to(_random_search_tree(1, 4, 6, 7), cuda)
+    with pytest.raises(ValueError, match="logits must be float32 or bfloat16"):
+        kernels.descend(replace(tree, logits=tree.logits.half()), torch.rand((4, 6), device=cuda))

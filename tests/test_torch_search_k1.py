@@ -49,15 +49,26 @@ def _defaults(cls):
             if f.default is not dataclasses.MISSING}
 
 
+def _same_default(mine, theirs):
+    """Equal defaults; a dtype-valued one (a torch dtype against a JAX or
+    numpy dtype) by its name."""
+    if isinstance(mine, torch.dtype):
+        return str(mine).removeprefix("torch.") == str(np.dtype(theirs))
+    return mine == theirs
+
+
 def test_defaults_match_jax(monkeypatch):
-    for port, ref, must in ((TS.MCTSConfig, S.MCTSConfig, {"leaves_per_pass", "grow_passes"}),
+    for port, ref, must in ((TS.MCTSConfig, S.MCTSConfig,
+                             {"leaves_per_pass", "grow_passes", "tree_dtype"}),
                             (train.TrainConfig, jtrain.TrainConfig,
-                             {"leaves_per_pass", "grow_passes", "lr", "buffer_len", "seed"})):
+                             {"leaves_per_pass", "grow_passes", "lr", "buffer_len", "seed",
+                              "dtype", "tree_dtype"})):
         mine, theirs = _defaults(port), _defaults(ref)
         shared = mine.keys() & theirs.keys()
         assert must <= shared
         for name in shared:
-            assert mine[name] == theirs[name], (port.__name__, name)
+            assert _same_default(mine[name], theirs[name]), (port.__name__, name)
+    assert not _same_default(torch.bfloat16, S.MCTSConfig.tree_dtype)
 
     # MCTSAgent(eval_fn) runs the sequential search: n_nodes - 1 K=1 sims
     calls = []

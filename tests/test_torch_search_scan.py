@@ -51,10 +51,10 @@ class JaxScanDraws(JaxDraws):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_search(seed, plies, jkw):
+def _jax_search(seed, plies, jkw, n_nodes=N_NODES, k=K):
     jeval, _ = _models(seed=seed)
     jworld = _worlds(5, B, plies, seed)
-    jcfg = S.MCTSConfig(n_nodes=N_NODES, leaves_per_pass=K, use_pallas=False, pallas_walk=False,
+    jcfg = S.MCTSConfig(n_nodes=n_nodes, leaves_per_pass=k, use_pallas=False, pallas_walk=False,
                         **dict(jkw))
     return jax.jit(lambda w, k: S.mcts(w, jeval, k, jcfg))(jworld, jax.random.PRNGKey(seed))
 
@@ -90,19 +90,20 @@ class BoundaryGaps:
         monkeypatch.setattr(kernels, "node_actions_multi", fused)
 
 
-def run_case(monkeypatch, seed, plies, tkw, jkw):
-    """The port's search under `tkw` against the JAX package's under `jkw`."""
-    jt = _jax_search(seed, plies, tuple(sorted(jkw.items())))
+def run_case(monkeypatch, seed, plies, tkw, jkw, n_nodes=N_NODES, k=K):
+    """The port's search under `tkw` against the JAX package's under `jkw`,
+    with `n_nodes` nodes and `k` leaves a pass."""
+    jt = _jax_search(seed, plies, tuple(sorted(jkw.items())), n_nodes, k)
     _, teval = _models(seed=seed)
     jworld = _worlds(5, B, plies, seed)
     tworld = thex.Hex(board=_t(jworld.board), seats=_t(jworld.seats))
-    tcfg = TS.MCTSConfig(n_nodes=N_NODES, leaves_per_pass=K, **tkw)
+    tcfg = TS.MCTSConfig(n_nodes=n_nodes, leaves_per_pass=k, **tkw)
     gaps = BoundaryGaps(monkeypatch)
     tt = TS.mcts(tworld, teval, JaxScanDraws(jax.random.PRNGKey(seed), tcfg.n_passes,
                                              grow=tcfg.grow_passes), tcfg)
     assert gaps.gap > 1e-6, gaps.gap
 
-    assert tt.sim == int(jt.sim) == N_NODES
+    assert tt.sim == int(jt.sim) == n_nodes
     for name in ("children", "parents", "relation", "n", "seats", "terminal"):
         np.testing.assert_array_equal(getattr(tt, name).numpy().astype(np.int64),
                                       np.asarray(getattr(jt, name)).astype(np.int64), err_msg=name)
@@ -112,11 +113,11 @@ def run_case(monkeypatch, seed, plies, tkw, jkw):
         t, j = getattr(tt, name), getattr(jt, name)
         assert (t is None) == (j is None), name
         if t is not None:
-            np.testing.assert_allclose(t.numpy(), np.asarray(j, np.float32), atol=1e-5,
+            np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), atol=1e-5,
                                        err_msg=name)
     # the root gets 2 visits (one per seat) from every draw of every pass
-    assert (tt.n[:, 0] == 2 * K * tcfg.n_passes).all()
-    return tt
+    assert (tt.n[:, 0] == 2 * k * tcfg.n_passes).all()
+    return tt, jt
 
 
 @pytest.mark.parametrize("name,seed,plies,tkw,jkw", [
@@ -128,7 +129,7 @@ def run_case(monkeypatch, seed, plies, tkw, jkw):
     ("grow+matmul", 36, 8, dict(solve_kernel="ops", grow_passes=True), dict(grow_passes=True)),
 ])
 def test_scan_search_matches_jax(monkeypatch, name, seed, plies, tkw, jkw):
-    tt = run_case(monkeypatch, seed, plies, tkw, jkw)
+    tt, _ = run_case(monkeypatch, seed, plies, tkw, jkw)
     assert (tt.prew is None) == (tkw.get("backup_mode") == "einsum"), name
     assert (tt.alpha is not None) == tkw.get("warm_solve", False), name
 

@@ -14,4 +14,10 @@ sampler; float32 or bf16 tree logits) with their eight hand-written kernels
 of `learning`, and the circular buffer, losses and Adam step of `train`.
 `train.make_config`/`best_config` give `run`'s configs, and with
 `dtype="bfloat16", tree_dtype="bfloat16"` the JAX flagship's.
+
+`train.run`/`run_best` train an agent and keep it: a run directory in the
+JAX package's layout (`pavlov`: run registry, stats, logs, checkpoints),
+log-spaced snapshots (`storage`) and `resume=`, for the port's runs and the
+JAX package's. `envs/hex.py` also carries `from_string` and the one-player
+worlds, and `envs/validation.py` the planted-value games and proxy agents.
 """

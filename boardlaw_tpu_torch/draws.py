@@ -17,6 +17,9 @@ The draws of a train step:
   gumbel)` is the draw (the actor's action, and each step of `mix`).
 * `slots(B, T)`: the learner's timestep per env, uniform in [0, T), (B,)
   int64.
+* `split()`: the stream of a sub-computation (a Monte Carlo rollout of
+  `envs.validation.MonteCarloAgent`), which JAX draws from a split key;
+  here the same generator, drawn on in order.
 """
 from __future__ import annotations
 
@@ -57,3 +60,6 @@ class Draws:
     def gumbel(self, shape):
         u = self.uniform(tuple(shape), minval=torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
+
+    def split(self):
+        return self

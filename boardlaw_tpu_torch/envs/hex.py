@@ -8,17 +8,26 @@ just-placed group with a batched masked dilation (the flood).
 
 Boards are uint8 (B,S,S); observations are channels-last (B,S,S,2), as in
 the JAX package. White plays and observes in the transposed frame.
+
+`Solitaire` is one-player Hex: after each move an opponent `_play`s until
+the protagonist (black) is to move again; `Lazy`'s opponent takes the first
+valid cell, `Random`'s a uniform valid one, drawn through `Draws`.
+`from_string` builds a one-env world from an ASCII board.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 
+import numpy as np
 import torch
 
 from .base import Masked, Tensor, Transition
 from ..utils import resolve_device
 
 EMPTY, BLACK, WHITE, TOP, BOT, LEFT, RIGHT = range(7)
+
+CHARS = ".bwTBLR"
+ORDS = {c: i for i, c in enumerate(CHARS)}
 
 # The six hex-grid neighbour offsets (row, col).
 NEIGHBOURS = ((-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0))
@@ -207,3 +216,112 @@ class Hex:
         new_board = torch.where(terminal[:, None, None], EMPTY, new_board).to(torch.uint8)
         new_seats = torch.where(terminal, 0, 1 - self.seats).to(self.seats.dtype)
         return replace(self, board=new_board, seats=new_seats), Transition(terminal, rewards)
+
+    def render(self, e=0):
+        """ASCII board: '.' empty, 'b/w' stones, 'T/B/L/R' edge-labelled."""
+        return "\n".join("".join(CHARS[v] for v in row) for row in self.board[e].tolist())
+
+
+def _where(mask, a, b):
+    """Field-wise `torch.where` of two worlds of one class: env e of the
+    result is env e of `a` where mask[e], else of `b`."""
+    def pick(x, y):
+        return torch.where(mask.view((-1,) + (1,) * (x.dim() - 1)), x, y)
+
+    return replace(b, **{f.name: pick(getattr(a, f.name), getattr(b, f.name))
+                         for f in fields(b)})
+
+
+class Solitaire(Hex):
+    """One-player Hex: the opponent (white) is auto-played by `_play` after
+    every move that does not end the game, so black is always to move.
+    Rewards are the protagonist's, (n_envs, 1)."""
+
+    @classmethod
+    def initial(cls, n_envs, boardsize=11, seat=0, device=None):
+        if seat == 1:
+            raise ValueError("seat #1 is not supported")
+        return super().initial(n_envs, boardsize, device=device)
+
+    @property
+    def n_seats(self):
+        return 1
+
+    def _play(self, world, draws):
+        raise NotImplementedError
+
+    def step(self, actions, draws=None):
+        world, transition = Hex.step(self, actions)
+        rewards, terminal = transition.rewards, transition.terminal
+        # the opponent's turn comes up exactly when the protagonist's move
+        # did not end the game (a reset hands the move back to black); it
+        # is played in every env and kept where needed, as in the JAX package
+        stepped, tr = self._play(world, draws)
+        needs = world.seats != self.seats
+        world = _where(needs, stepped, world)
+        rewards = rewards + torch.where(needs[:, None], tr.rewards, 0.0)
+        terminal = terminal | (needs & tr.terminal)
+        envs = torch.arange(self.n_envs, device=self.device)
+        my_rewards = rewards[envs, self.seats.long()][:, None]
+        return world, Transition(terminal, my_rewards)
+
+
+class Lazy(Solitaire):
+    """The opponent plays the first valid action in its frame."""
+
+    def _play(self, world, draws):
+        valid = world.valid
+        n_actions = valid.shape[1]
+        idx = torch.where(valid, torch.arange(n_actions, device=valid.device)[None, :], n_actions)
+        return Hex.step(world, idx.min(-1).values)
+
+
+class Random(Solitaire):
+    """The opponent plays a uniform random valid action: argmax(logits +
+    Gumbel noise) from `draws.gumbel`, which is how `jax.random.categorical`
+    draws."""
+
+    def _play(self, world, draws):
+        if draws is None:
+            raise TypeError("Random.step needs draws: world.step(actions, draws=d)")
+        logits = torch.where(world.valid, 0.0, -torch.inf)
+        actions = torch.argmax(logits + draws.gumbel(logits.shape), -1)
+        return Hex.step(world, actions)
+
+
+# -- test and analysis helpers -----------------------------------------------
+
+def board_size(s):
+    return len(_strip(s).splitlines())
+
+
+def _strip(s):
+    return "\n".join(line.strip() for line in s.splitlines() if line.strip())
+
+
+def board_actions(s):
+    """The alternating black/white (row, col) actions (n, 2) int32 that
+    build an ASCII board of 'b'/'w'/'.' cells. White's actions are in
+    white's (transposed) frame."""
+    grid = np.array([list(line) for line in _strip(s).splitlines()])
+    bs = np.argwhere(grid == "b")
+    ws = np.argwhere(grid == "w")
+    if len(bs) - len(ws) not in (0, 1):
+        raise ValueError(f"a board to replay has as many black stones as white ones or one "
+                         f"more, got {len(bs)} and {len(ws)}")
+
+    actions = []
+    for i in range(len(ws)):
+        actions.append([bs[i, 0], bs[i, 1]])
+        actions.append([ws[i, 1], ws[i, 0]])
+    if len(ws) < len(bs):
+        actions.append([bs[-1, 0], bs[-1, 1]])
+    return np.array(actions, dtype=np.int32).reshape(-1, 2)
+
+
+def from_string(s, device=None):
+    """A one-env world built by replaying the moves of an ASCII board."""
+    world = Hex.initial(n_envs=1, boardsize=board_size(s), device=device)
+    for a in board_actions(s):
+        world, _ = world.step(torch.as_tensor(a, device=world.device)[None])
+    return world

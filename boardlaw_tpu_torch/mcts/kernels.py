@@ -21,8 +21,9 @@ PyTorch twins and their launch counts.
   routed inside the kernel (the Pallas wrapper routes node deltas in XLA).
   Twin: `search.backup`, bit for bit.
 * `backup_dense` (csrc/backup_dense.cu) replaces the Pallas `backup_dense`:
-  the same chase with the Pallas kernel's two-seat edge value. Twin:
-  `search.backup`, bit for bit.
+  the same chase with the Pallas kernel's edge value (seat 0's where the
+  parent's seat is 0, else seat S-1's). Twin: `search.backup(...,
+  edge="dense")`, bit for bit.
 * `solve_probs` (csrc/solve_probs.cu) replaces the Pallas `solve_probs`: the
   all-node solve alone, probs (B,R,A) or the roots alpha (B,R). Twin:
   `solve_probs_ref`, which is `search.node_probs`.
@@ -572,12 +573,14 @@ backup.launches = 0
 
 
 def backup_dense(tree, leaves, n_per_visit):
-    """`backup` with the Pallas `backup_dense`'s edge value: v[0] at seat 0
-    and v[S-1] otherwise, so two-seat trees only. Bit-equal to
-    `search.backup`. Returns the tree."""
-    _check(tree.w.shape[-1] == 2, f"backup_dense takes two-seat trees, got {tree.w.shape[-1]}")
+    """`backup` with the Pallas `backup_dense`'s edge value: v[0] where the
+    parent's seat is 0 and v[S-1] otherwise, for 1 to 4 seats. Bit-equal to
+    `search.backup(..., edge="dense")`, which equals `search.backup` for one
+    and two seats. Returns the tree."""
+    S = tree.w.shape[-1]
+    _check(1 <= S <= 4, f"backup_dense takes 1 to 4 seats, got {S}")
     if leaves.device.type == "cpu":
-        return search.backup(tree, leaves, n_per_visit)
+        return search.backup(tree, leaves, n_per_visit, edge="dense")
     _backup_launch("backup_dense", tree, leaves, n_per_visit)
     backup_dense.launches += 1
     return tree

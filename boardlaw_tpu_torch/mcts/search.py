@@ -564,17 +564,21 @@ def descend_reference(tree, rands):
 # Backup
 # --------------------------------------------------------------------------
 
-def backup(tree, leaves, n_per_visit):
+def backup(tree, leaves, n_per_visit, edge="seat"):
     """Propagate each env's leaf value to the root in place, zeroing it at
     terminal nodes and adding each node's rewards on the way (reference
     mcts/cpp/cuda.cu:205-236), then mirror the node deltas onto the parent
-    edges (`_apply_deltas`). The plain twin of the `backup` and
-    `backup_dense` kernels.
+    edges (`_apply_deltas`). The plain twin of the `backup` kernel, and
+    with `edge="dense"` of the `backup_dense` kernel.
 
     n_per_visit: what each visit adds to n; n_seats is the reference's
-    per-seat increment, 1 the fix. The chase is a loop of tree.sim masked
-    levels (node ids strictly decrease towards the root and every leaf is
-    below `sim`), not a `while any(active)` with a host sync per level."""
+    per-seat increment, 1 the fix. `edge` is the rule for an edge's value:
+    "seat", the value at the parent's seat clamped to [0, S-1] (the Pallas
+    `backup`); "dense", the value at seat 0 where the parent's seat is 0
+    and at seat S-1 otherwise (the Pallas `backup_dense`). The two agree
+    for one and two seats. The chase is a loop of tree.sim masked levels
+    (node ids strictly decrease towards the root and every leaf is below
+    `sim`), not a `while any(active)` with a host sync per level."""
     B, T, S = tree.w.shape
     dev = tree.w.device
     b = torch.arange(B, device=dev)
@@ -591,19 +595,23 @@ def backup(tree, leaves, n_per_visit):
         dn[b, safe] += torch.where(active, float(n_per_visit), 0.0)
         dw[b, safe] += torch.where(active[:, None], v, 0.0)
         cur = torch.where(active, tree.parents[b, safe].long(), -1)
-    return _apply_deltas(tree, dn, dw)
+    return _apply_deltas(tree, dn, dw, edge)
 
 
-def _apply_deltas(tree, dn, dw):
+def _apply_deltas(tree, dn, dw, edge="seat"):
     """Fold the node deltas dn (B,T), dw (B,T,S) into the node stats and
     route them onto the parent edges, in place: an edge's stats are its
     child's, so n_edge[p(c), rel(c)] += dn[c] and w_edge[p(c), rel(c)] +=
-    dw[c, seat(p(c))]."""
+    dw[c, seat(p(c))], the seat read by `backup`'s `edge` rule."""
     B, T, S = tree.w.shape
     has_edge = tree.parents >= 0
     safe_p = tree.parents.clamp_min(0).long()
     safe_r = tree.relation.clamp_min(0).long()
-    seat_p = torch.gather(tree.seats, 1, safe_p).long().clamp(0, S - 1)
+    seat_p = torch.gather(tree.seats, 1, safe_p).long()
+    if edge == "dense":
+        seat_p = torch.where(seat_p == 0, 0, S - 1)
+    else:
+        seat_p = seat_p.clamp(0, S - 1)
     dw_parent = torch.gather(dw, 2, seat_p[..., None])[..., 0]
     b = torch.arange(B, device=dn.device)[:, None].expand(B, T)
     # rows without an edge add 0 at (b, 0, 0): accumulate, not overwrite

@@ -15,13 +15,18 @@ order on both sides, so its kernel rows keep their order. The parameters
 are float32 under either compute dtype.
 
 `adam_from_optax` carries an `optax.adam` state (count, mu, nu) into a
-`torch.optim.Adam` (step, exp_avg, exp_avg_sq); `train_state_from_jax`
+`torch.optim.Adam` (step, exp_avg, exp_avg_sq); `adam_from_leaves` rebuilds
+that state from the flat `jax.tree.leaves(opt_state)` list that the JAX
+package's checkpoints hold (`boardlaw_tpu/train.py` `state_dict`);
+`train_state_from_jax`
 carries a whole JAX `TrainState` (worlds, buffer, ptr, params, optimizer
 state, step) into a port `train.TrainState`. The JAX objects come in as they
 are or with their leaves turned into numpy arrays: only attributes and
 arrays are read, nothing is imported from JAX.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -100,6 +105,41 @@ def adam_from_optax(opt_state, model, optimizer):
             "exp_avg_sq": nu[name].to(p.device).reshape(p.shape),
         }
     return optimizer
+
+
+def _sorted_leaves(tree, path=()):
+    """(path, leaf) pairs of nested dicts in `jax.tree.leaves` order: the
+    keys of every dict sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sorted_leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def adam_from_leaves(params, leaves):
+    """The optax adam state of `optax.adam(lr)` from its flat leaves list:
+    `(ScaleByAdamState(count, mu, nu), EmptyState())` flattens to count,
+    then mu's leaves, then nu's, each in the leaf order of `params` (the
+    flax tree the moments mirror). -> an object with `count`, `mu`, `nu`
+    for `adam_from_optax`."""
+    paths = [p for p, _ in _sorted_leaves(params)]
+    n = len(paths)
+    if len(leaves) != 1 + 2 * n:
+        raise ValueError(f"an adam state over {n} parameters has {1 + 2 * n} leaves, "
+                         f"got {len(leaves)}")
+
+    def unflatten(values):
+        out = {}
+        for path, v in zip(paths, values):
+            d = out
+            for k in path[:-1]:
+                d = d.setdefault(k, {})
+            d[path[-1]] = v
+        return out
+
+    return SimpleNamespace(count=leaves[0], mu=unflatten(leaves[1:1 + n]),
+                           nu=unflatten(leaves[1 + n:]))
 
 
 def train_state_from_jax(jstate, cfg, device=None):

@@ -10,24 +10,36 @@ time-ordered buffer, the per-env batch gather and the Adam step. The JAX
 package's state donation becomes in-place updates of the `TrainState`; its
 chunked warmup (a TPU runtime workaround) is a plain loop.
 
-`make_config`/`best_config` carry `run`/`run_best`'s configuration rules;
-the run directory, checkpoints and stats come with the run plumbing.
+`make_config`/`best_config` carry `run`/`run_best`'s configuration rules.
+
+`run` is the entry point that trains an agent and keeps it: a run directory
+in the JAX package's layout (`pavlov`), its log, the loop's stats channels,
+a `TimeStorer` or `FlopsStorer` that writes log-spaced snapshots and a
+throttled `latest` (`storage`), and `resume=`, which continues a run, the
+port's or one the JAX package wrote, from its latest checkpoint.
+`state_dict`/`load_state_dict` are the checkpoint's agent part.
 """
 from __future__ import annotations
 
 import copy
+import time
 from dataclasses import dataclass, fields
 from functools import partial
+from logging import getLogger
 
 import torch
 
-from . import learning
+from . import learning, storage as bstorage
 from .draws import Draws
 from .envs import hex
 from .mcts import MCTSConfig, mcts as run_mcts, root as mcts_root, n_leaves
 from .mcts.search import _map_world
+from .models import convert
 from .models.networks import FCModel, make_eval_fn
+from .pavlov import device as pdevice, logs, runs, stats, storage as pstorage
 from .utils import resolve_device
+
+log = getLogger(__name__)
 
 # Best-known hyperparameters per boardsize (reference main.py:17-25):
 # boardsize -> (width, depth, nodes, c_puct)
@@ -352,3 +364,160 @@ def make_train(cfg: TrainConfig, device=None):
     model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
     return (model, partial(make_optimizer, cfg), partial(init, cfg, model),
             partial(warmup, cfg), partial(train_step, cfg))
+
+
+# --------------------------------------------------------------------------
+# Checkpoints
+# --------------------------------------------------------------------------
+
+def state_dict(state: TrainState, cfg: TrainConfig):
+    """The agent part of a checkpoint: the model's and the optimizer's state
+    dicts, the step and the search's settings. It only references the live
+    tensors; `pavlov.storage` copies them to the host when it writes."""
+    return {
+        "params": state.model.state_dict(),
+        "opt": state.optimizer.state_dict(),
+        "step": state.step,
+        "kwargs": {"n_nodes": float(cfg.n_nodes), "c_puct": float(cfg.c_puct)},
+    }
+
+
+def load_state_dict(state: TrainState, sd) -> TrainState:
+    """Load a checkpoint's agent part into `state` in place: the port's
+    (`state_dict`), or the JAX package's, whose params are a flax tree and
+    whose `opt` is the flat `jax.tree.leaves` list of its optax adam state
+    (carried over by `models.convert`)."""
+    if isinstance(sd["opt"], list):
+        params = sd["params"]
+        state.model.load_state_dict(convert.from_flax(params))
+        convert.adam_from_optax(convert.adam_from_leaves(params, sd["opt"]), state.model,
+                                state.optimizer)
+    else:
+        state.model.load_state_dict(sd["params"])
+        state.optimizer.load_state_dict(sd["opt"])
+    state.step = int(sd["step"])
+    return state
+
+
+# --------------------------------------------------------------------------
+# Entry point
+# --------------------------------------------------------------------------
+
+# aux keys the loop writes as means (boardlaw_tpu/train.py's run loop)
+MEAN_PREFIXES = ("loss", "corr", "kl", "rel-entropy", "v.", "policy-conc", "mcts", "noise",
+                 "step.", "grad.", "resid")
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _host_scalars(aux):
+    """A dict of 0-dim tensors as Python floats, in one device-to-host
+    transfer: the loop's one wait for the device a step."""
+    keys = list(aux)
+    values = torch.stack([aux[k].detach().reshape(()).to(torch.float64) for k in keys])
+    return dict(zip(keys, values.cpu().tolist()))
+
+
+def run(boardsize, width, depth, desc="", nodes=64, c_puct=1 / 16, lr=1e-3, n_envs=32 * 1024,
+        storer="time", max_steps=None, resume=None, arena=False, arena_ladder="rollout",
+        n_devices=None, device=None, **overrides):
+    """Train an agent; returns the run's name. The JAX package's `run`, with
+    its signature and defaults, on one card (or where `device` says).
+
+    The config is `make_config`'s (boards of 7 and up take the K=8 grow
+    search). `max_steps` bounds the learner steps; `resume` (a run name,
+    fragment or negative index) continues that run in place from its latest
+    checkpoint: the weights, the Adam state and the step counter, the
+    storer's sample/FLOP/time accounting seeded from it. As in the JAX
+    package, a resumed run mixes fresh worlds and refills its buffer from
+    `cfg.seed`'s draws. `arena=True` and `n_devices > 1` raise: the port has
+    no live arena (arena/) and no multi-card training (parallel/) yet."""
+    if arena:
+        raise NotImplementedError("arena=True needs the live arena, and the port has no "
+                                  "arena/ yet")
+    if n_devices is not None and n_devices > 1:
+        raise NotImplementedError("n_devices > 1 needs the env-sharded learner, and the port "
+                                  "has no parallel/ yet")
+    cfg = make_config(boardsize, width, depth, nodes=nodes, c_puct=c_puct, lr=lr, n_envs=n_envs,
+                      **overrides)
+    device = resolve_device(device)
+    _, _, init_fn, warmup_fn, train_step_fn = make_train(cfg, device=device)
+    draws = Draws(cfg.seed, device)
+
+    t0 = time.perf_counter()
+    state = init_fn(draws)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+
+    resumed_payload = None
+    if resume is not None:
+        run_name = runs.resolve(resume)
+        resumed_payload = pstorage.load_latest(run_name)
+        state = load_state_dict(state, resumed_payload["agent"])
+        log.info(f"resumed {run_name} at step {state.step}")
+    else:
+        run_name = runs.new_run(description=desc, boardsize=boardsize, width=width, depth=depth,
+                                nodes=nodes, c_puct=c_puct, lr=lr, n_envs=n_envs)
+        pstorage.save_raw(run_name, "model", {"cfg": dict(cfg.__dict__), "kind": "FCModel"})
+
+    t0 = time.perf_counter()
+    state = warmup_fn(state, draws)
+    _sync(device)
+    warmup_s = time.perf_counter() - t0
+
+    flops_per = bstorage.flops_per_sample(state.model, cfg.n_nodes)
+    storer_cls = bstorage.TimeStorer if storer == "time" else bstorage.FlopsStorer
+    storer = storer_cls(run_name, boardsize, flops_per)
+    if resumed_payload is not None:
+        # continue the sample/FLOP accounting: seed the counters from the
+        # checkpoint and skip the savepoints the run already took
+        storer.seed(n_flops=resumed_payload.get("n_flops", 0.0),
+                    n_samples=resumed_payload.get("n_samples", 0.0),
+                    runtime=resumed_payload.get("runtime", 0.0))
+
+    with logs.to_run(run_name), stats.to_run(run_name):
+        log.info(f"set-up: init (mix) {init_s:.3f} s, warmup {warmup_s:.3f} s")
+        stats.last("time.setup.init", init_s)
+        stats.last("time.setup.warmup", warmup_s)
+        last = time.perf_counter()
+        while True:
+            state, aux = train_step_fn(state, draws)
+            aux = _host_scalars(aux)
+            now = time.perf_counter()
+            step_s, last = now - last, now
+            with stats.defer():
+                for k, v in aux.items():
+                    if k.startswith(MEAN_PREFIXES):
+                        stats.mean(k, v)
+                # win fractions per finished trajectory
+                n_trajs = max(aux["n-trajs"], 1.0)
+                stats.mean("wins.seat-0", aux["wins.seat-0"], n_trajs)
+                stats.mean("wins.seat-1", aux["wins.seat-1"], n_trajs)
+                stats.rate("sample-rate.actor", cfg.n_envs)
+                stats.rate("step-rate.learner", 1)
+                stats.cumsum("count.samples", cfg.n_envs)
+                stats.mean("n-trajs", aux["n-trajs"])
+                stats.mean("time.step", step_s)
+            pdevice.device(15, device)
+            log.info(f"step {state.step}")
+
+            finished = storer.step(state_dict(state, cfg), cfg.n_envs)
+            if max_steps is not None and state.step >= max_steps:
+                finished = True
+            if finished:
+                # the full payload (n_flops/n_samples/runtime too), so a
+                # resumed run continues the accounting
+                pstorage.save_latest(run_name, storer.payload(state_dict(state, cfg)))
+                break
+
+    log.info("Finished")
+    return run_name
+
+
+def run_best(boardsize, **kwargs):
+    """`run` with the best-known hyperparameters of `BEST` for a boardsize."""
+    width, depth, nodes, c_puct = BEST[boardsize]
+    return run(boardsize, width, depth, nodes=nodes, c_puct=c_puct, **kwargs)

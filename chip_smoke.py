@@ -88,12 +88,36 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         the K=1 kernel variants on its bf16 trees (`descend.bf16`), one 9x9
         scan actor step (8 of `solve_probs.bf16`); the step seconds and peak
         memory beside 5a's, 5b's, 5d's and 5g's float32 ones;
-  6. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
+  6a. the planted-value games of `envs/validation.py` (`Win` and
+     `WinnerLoser` at 3 nodes, `All(length=3)` with one and two seats and
+     `SequentialMatrix.dilemma` at 15) at `--envs` envs by every search
+     route (K=1; K=1 `descend_kernel` with `backup_kernel` 'ops', 'delta'
+     and 'dense'; K=8 grow; K=8 scan with `solve_probs` +
+     `sample_children_multi`), each with its launch counts: rows of 1 and 2
+     actions, one seat, trees of 3 to 17 slots; the root value against the
+     analytic one to 1e-5 and the root's visits; the same search on 64 envs
+     on the card against the CPU (twins), draws from one CPU generator:
+     children, parents, relation, n and n_edge bit-equal, w, w_edge and the
+     root policy to 1e-6;
+  6b. the JAX test's planted 3x3 Hex game (`hex.from_string`,
+     `RandomAgent`, 63 nodes, c_puct 1) in `--envs` copies, each with its
+     own draws: the JAX test's inequalities on the root policy in at least
+     `PLANTED_SHARE` of them (they hold for its one key, not for every
+     draw), and 64 copies on the card equal to the CPU's;
+  7. `train.run(9, 512, 4, max_steps=10)` (f32, `--envs` envs) in a
+     temporary run root, then `resume=` that run to 12 steps, each with its
+     launch counts of `walk` and `node_actions_multi`: the latest payload's
+     step and sample count, a fresh `load_state_dict` of it equal to it bit
+     for bit, the loop's stats channels, `count.samples` by the numpy
+     reader; the set-up seconds, the median s/step inside `run` beside 5d's
+     bare `train_step`, the snapshot writes' ms and the peak memory;
+  8. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
      shape, with its figures at the first grow pass, the 6x6 K=1 tree and
      the chains beside, and each design's times; the four bf16
      instantiations as entries of their own, `node_actions_multi.bf16`, ...,
-     with their launches from phase 5i and bounds with 2-byte logits), and
-     the last line {"ok": true, "device": {...}}.
+     with their launches from phase 5i and bounds with 2-byte logits; each
+     kernel's launches on the paths of phases 6a, 6b and 7 under
+     `slice_launches`), and the last line {"ok": true, "device": {...}}.
 
 Each row kernel's f32 operation bound counts the solver steps its inputs
 need (`kernels.solve_steps`, printed as a histogram), not the step budget.
@@ -285,7 +309,13 @@ def logits_kernel(name, mcfg):
 def search_launches(mcfg):
     """The kernel launches of one search under `mcfg`'s route."""
     if mcfg.leaves_per_pass == 1:
-        return {"walk": mcfg.n_nodes - 1, logits_kernel("node_actions", mcfg): mcfg.n_nodes - 1}
+        sims = mcfg.n_nodes - 1
+        if mcfg.descend_kernel:
+            out = {logits_kernel("descend", mcfg): sims}
+            if mcfg.backup_kernel != "ops":
+                out["backup_dense" if mcfg.backup_kernel == "dense" else "backup"] = sims
+            return out
+        return {"walk": sims, logits_kernel("node_actions", mcfg): sims}
     P = mcfg.n_passes
     if mcfg.solve_kernel == "fused":
         return {"walk": P, logits_kernel("node_actions_multi", mcfg): P}
@@ -1430,6 +1460,236 @@ def check_bf16_paths(args, worlds9, worlds6, f32_figures, card):
     return launches
 
 
+# --------------------------------------------------------------------------
+# Planted-value searches and the training entry point
+# --------------------------------------------------------------------------
+
+# the search routes of phase 6a: MCTSConfig fields over the game's own
+VALIDATION_ROUTES = {
+    "K=1": {},
+    "K=1 descend + 'ops'": dict(descend_kernel=True, backup_kernel="ops"),
+    "K=1 descend + 'delta'": dict(descend_kernel=True, backup_kernel="delta"),
+    "K=1 descend + 'dense'": dict(descend_kernel=True, backup_kernel="dense"),
+    "K=8 grow": dict(leaves_per_pass=8, grow_passes=True),
+    "K=8 scan, split kernels": dict(leaves_per_pass=8, solve_kernel="probs", sample_kernel=True),
+}
+
+# the JAX test's planted 3x3 position (tests/test_mcts.py test_planted_game)
+PLANTED_HEX = """
+    wb.
+    bw.
+    wb.
+    """
+# the share of copies of the planted game whose root policy must keep the
+# JAX test's inequalities: they hold for the JAX test's one key, not for
+# every draw (the JAX search misses them in 1 of 512 copies at K=1 on the
+# CPU test's draws, and the port in the same copies)
+PLANTED_SHARE = 0.95
+
+
+def validation_games(n_envs, device):
+    """name -> (world, n_nodes, MCTSConfig fields, analytic root value or
+    None): the search cases of the JAX package's tests/test_mcts.py."""
+    from boardlaw_tpu_torch.envs import validation as V
+
+    return {
+        "Win": (V.Win.initial(n_envs, device=device), 3, {}, [1.0]),
+        "WinnerLoser": (V.WinnerLoser.initial(n_envs, device=device), 3, {}, [1.0, -1.0]),
+        "All": (V.All.initial(n_envs, length=3, device=device), 15, {"noise_eps": 0.0}, [1 / 8]),
+        "All, two seats": (V.All.initial(n_envs, n_seats=2, length=3, device=device), 15,
+                           {"noise_eps": 0.0}, [1 / 8, 1 / 8]),
+        "dilemma": (V.SequentialMatrix.dilemma(n_envs, device=device), 15, {}, None),
+    }
+
+
+def search_cpu_vs_card(world, agent, mcfg, seed, label):
+    """`mcfg`'s search of the CPU world `world` on the card (kernels) and on
+    the CPU (twins), with the draws of one CPU generator: children, parents,
+    relation (the sampled actions), n and n_edge bit-equal, w, w_edge and
+    the root policy's probabilities to 1e-6."""
+    import torch
+    from boardlaw_tpu_torch.mcts import search
+
+    t_cpu = search.mcts(world, agent, cpu_draws(seed, "cpu"), mcfg)
+    t_gpu = search.mcts(search._map_world(world, lambda x: x.to(DEV)), agent,
+                        cpu_draws(seed, DEV), mcfg)
+    differ = [k for k in ("children", "parents", "relation", "n", "n_edge")
+              if not torch.equal(getattr(t_cpu, k), getattr(t_gpu, k).cpu())]
+    p_cpu, p_gpu = (search.root(t)["logits"].exp().cpu() for t in (t_cpu, t_gpu))
+    errs = {"w": (t_cpu.w - t_gpu.w.cpu()).abs().max(),
+            "w_edge": (t_cpu.w_edge - t_gpu.w_edge.cpu()).abs().max(),
+            "root policy": (p_cpu - p_gpu).abs().max()}
+    err = max(float(v) for v in errs.values())
+    if differ or not err <= 1e-6 or not torch.equal(p_cpu == 0, p_gpu == 0):
+        fail(f"{label}: the search on the card differs from the CPU's in {differ}, values by "
+             f"{err:.3g}")
+    return err
+
+
+def check_validation_searches(seed, n_envs):
+    """Phase 6a: every planted-value game by every search route at `n_envs`
+    envs, each with its launch counts; the root value against the analytic
+    one (to 1e-5) and every root's visits; then the same search on 64 envs
+    on the card and on the CPU. Returns the launches of every kernel."""
+    import torch
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.envs import validation as V
+    from boardlaw_tpu_torch.mcts import search
+
+    counts = {}
+    worst = 0.0
+    small = validation_games(64, "cpu")
+    for game, (world, n_nodes, kw, value) in validation_games(n_envs, DEV).items():
+        for route, rkw in VALIDATION_ROUTES.items():
+            mcfg = search.MCTSConfig(n_nodes=n_nodes, **kw, **rkw)
+            label = f"{game}, {route}"
+            t0 = time.time()
+            c, tree = run_path(f"the planted-value search {label}", search_launches(mcfg),
+                               lambda: search.mcts(world, V.ProxyAgent(), Draws(seed, DEV), mcfg))
+            secs = time.time() - t0
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+            visits = world.n_seats * mcfg.leaves_per_pass * mcfg.n_passes
+            if not (tree.n[:, 0] == visits).all():
+                fail(f"{label}: root visits {tree.n[:, 0].unique().tolist()}, expected {visits}")
+            v0 = search.root(tree)["v"]
+            err = 0.0
+            if value is not None:
+                err = float((v0 - torch.tensor(value, device=DEV)).abs().max())
+                if err > 1e-5:
+                    fail(f"{label}: root value off the analytic {value} by {err:.3g}")
+            small_err = search_cpu_vs_card(small[game][0], V.ProxyAgent(), mcfg, seed + 1, label)
+            worst = max(worst, small_err)
+            print(f"{label} ({n_envs} envs, {n_nodes} nodes, {secs:.3f} s): root value "
+                  f"{v0[0].tolist()} (analytic {value}, max error {err:.3g}); 64 envs on the "
+                  f"card equal to the CPU's (values within {small_err:.3g})", flush=True)
+    print(f"phase 6a launches by kernel: {counts}; the card against the CPU: topology and "
+          f"visits bit-equal on every search, values within {worst:.3g}", flush=True)
+    return counts
+
+
+def check_planted_hex(seed, n_envs):
+    """Phase 6b: the JAX test's planted 3x3 Hex game (`hex.from_string`,
+    `RandomAgent`, 63 nodes, c_puct 1, K=1) in `n_envs` copies, each with its
+    own draws: the JAX test's inequalities on the root policy in at least
+    `PLANTED_SHARE` of them, and 64 copies on the card equal to the CPU's.
+    Returns the launches."""
+    import torch
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.envs import hex, validation as V
+    from boardlaw_tpu_torch.mcts import search
+
+    def copies(n, device):
+        one = hex.from_string(PLANTED_HEX, device=device)
+        return hex.Hex(board=one.board.repeat(n, 1, 1), seats=one.seats.repeat(n))
+
+    mcfg = search.MCTSConfig(n_nodes=63, c_puct=1.0, noise_eps=0.0)
+    world = copies(n_envs, DEV)
+    t0 = time.time()
+    c, tree = run_path("the planted 3x3 Hex search", search_launches(mcfg),
+                       lambda: search.mcts(world, V.RandomAgent(), Draws(seed, DEV), mcfg))
+    secs = time.time() - t0
+    probs = search.root(tree)["logits"].exp()
+    holds = (probs[:, 2] > probs[:, 8]) & (probs[:, 5] > probs[:, 7])
+    share = float(holds.float().mean())
+    err = search_cpu_vs_card(copies(64, "cpu"), V.RandomAgent(), mcfg, seed + 1, "planted Hex")
+    print(f"planted 3x3 Hex ({n_envs} copies, 63 nodes, K=1, {secs:.3f} s): probs[2] > probs[8] "
+          f"and probs[5] > probs[7] in {int(holds.sum())} of {n_envs} copies ({share:.6f}; "
+          f"needed {PLANTED_SHARE}); mean root policy over cells 2, 5, 8 "
+          f"{probs[:, [2, 5, 8]].mean(0).tolist()}; 64 copies on the card equal to the CPU's "
+          f"(values within {err:.3g})", flush=True)
+    if share < PLANTED_SHARE:
+        fail(f"the planted game's inequalities hold in only {share:.4f} of the copies")
+    return c
+
+
+# the channels `train.run`'s loop writes every step (boardlaw_tpu/train.py's)
+RUN_CHANNELS = ("loss.total", "loss.policy", "loss.value", "grad.norm", "step.std",
+                "corr.terminal", "kl-div.prior", "rel-entropy.policy", "v.target.mean",
+                "policy-conc", "mcts-n-leaves", "noise-scale", "wins.seat-0", "wins.seat-1",
+                "sample-rate.actor", "step-rate.learner", "count.samples", "n-trajs")
+
+
+def check_train_run(args, card, bare_step_s):
+    """Phase 7: `train.run(9, 512, 4, max_steps=10)` on the card (the full
+    9x9 config of `make_config`, f32, `--envs` envs) in a temporary run
+    root, then `resume=` that run to 12 steps; the latest payload's step and
+    sample count after each, `walk` and `node_actions_multi` launched in
+    both, a fresh `load_state_dict` of the last payload equal to it bit for
+    bit, the loop's stats channels and `count.samples` by the numpy reader.
+    Prints the set-up seconds, the median s/step inside `run` beside the
+    bare `train_step`'s (phase 5d), a snapshot write's ms and the peak
+    memory. Returns the launches of the two calls."""
+    import tempfile
+    import torch
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.pavlov import runs, stats, storage
+    from boardlaw_tpu_torch.pavlov.tests import mock_dir
+
+    B = args.envs
+    cfg = train.make_config(9, 512, 4, n_envs=B)
+    per_search = search_launches(cfg.mcts_config())
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-runs-") as root, mock_dir(root):
+        torch.cuda.reset_peak_memory_stats()
+        for label, steps, kw in (("train.run(9, 512, 4, max_steps=10)", 10, {}),
+                                 ("train.run(..., resume=run, max_steps=12)", 12, "resume")):
+            n_actor = cfg.buffer_len + (steps if kw != "resume" else 2)
+            if kw == "resume":
+                kw = {"resume": run}
+            t0 = time.time()
+            c, run = run_path(label, {k: v * n_actor for k, v in per_search.items()},
+                              lambda: train.run(9, 512, 4, n_envs=B, max_steps=steps, **kw))
+            secs = time.time() - t0
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+            payload = storage.load_latest(run)
+            if payload["agent"]["step"] != steps or payload["n_samples"] != steps * B:
+                fail(f"{label}: latest step {payload['agent']['step']}, samples "
+                     f"{payload['n_samples']}, expected {steps} and {steps * B}")
+            print(f"{label}: {secs:.2f} s in all; latest step {payload['agent']['step']}, "
+                  f"{payload['n_samples']:.0f} samples", flush=True)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if runs.list_runs() != [run]:
+            fail(f"resume made another run: {runs.list_runs()}")
+
+        # a fresh model and optimizer on the card take the payload bit for bit
+        model = train.build_model(cfg, device=DEV)
+        state = train.TrainState(worlds=None, buffer=None, ptr=0, model=model,
+                                 optimizer=train.make_optimizer(cfg, model.parameters()), step=0)
+        train.load_state_dict(state, payload["agent"])
+        saved = payload["agent"]
+        same = all(torch.equal(v.cpu(), saved["params"][k]) for k, v in model.state_dict().items())
+        opt = state.optimizer.state_dict()["state"]
+        same &= all(torch.equal(opt[i][k].cpu(), saved["opt"]["state"][i][k])
+                    for i in saved["opt"]["state"] for k in ("step", "exp_avg", "exp_avg_sq"))
+        if not same or state.step != 12 or len(opt) != len(list(model.parameters())):
+            fail("load_state_dict of the last payload does not reproduce it bit for bit")
+
+        missing = [c for c in RUN_CHANNELS if c not in stats.channels(run)]
+        if missing:
+            fail(f"train.run wrote no stats channels {missing}")
+        total = float(stats.rows(run, "count.samples")["total"].sum())
+        if total != 12 * B:
+            fail(f"count.samples reads {total}, expected {12 * B}")
+        step_rows = stats.rows(run, "time.step")["total"]
+        inside = statistics.median(list(step_rows[1:10]) + list(step_rows[11:]))
+        setup = {k: stats.rows(run, f"time.setup.{k}")["x"].tolist() for k in ("init", "warmup")}
+        snap = stats.rows(run, "time.save.snapshot")
+        snap_ms = [1e3 * float(x) for x in snap["total"]] if snap is not None else []
+        latest = [1e3 * float(x) for x in stats.rows(run, "time.save.latest")["total"]]
+        ckpt_mb = os.path.getsize(runs.run_dir(run) / "storage.latest.pkl") / 1e6
+        print(f"train.run on the card (9x9, 512x4, {B} envs, K=8 grow, f32): set-up seconds "
+              f"init (mix) {setup['init']}, warmup {setup['warmup']}; s/step inside run, "
+              f"median of the steps after each call's first {inside:.4f} (steps "
+              f"{[round(float(x), 4) for x in step_rows]}); bare train_step (phase 5d) "
+              f"{bare_step_s:.4f}, so run adds {100 * (inside / bare_step_s - 1):.2f}%; snapshot "
+              f"writes {len(snap_ms)}, ms {[round(x, 2) for x in snap_ms]}; latest writes ms "
+              f"{[round(x, 2) for x in latest]}; checkpoint {ckpt_mb:.2f} MB; peak memory "
+              f"{peak_gb:.2f} GB; card: {card}", flush=True)
+    return launches
+
+
 # the eight kernels: route, source, the Pallas kernel each replaces
 KERNELS = {
     "walk": ("cuda", "boardlaw_tpu_torch/csrc/walk.cu", "boardlaw_tpu/mcts/pallas_kernels.py:530"),
@@ -1630,7 +1890,23 @@ def main(argv=None):
         del worlds9, worlds6
         torch.cuda.empty_cache()
 
-    # 6. the records
+    slice_launches = {}
+    # 6a. the planted-value games by every search route
+    with Phase("planted-value searches"):
+        slice_launches["planted"] = check_validation_searches(args.seed + 9, args.envs)
+        torch.cuda.empty_cache()
+
+    # 6b. the planted 3x3 Hex game
+    with Phase("planted 3x3 Hex game"):
+        slice_launches["planted_hex"] = check_planted_hex(args.seed + 10, args.envs)
+        torch.cuda.empty_cache()
+
+    # 7. the training entry point: a run, and its resume
+    with Phase("train.run and resume"):
+        slice_launches["run"] = check_train_run(args, card, f32_figures["learner"][0])
+        torch.cuda.empty_cache()
+
+    # 8. the records
     def figures(r):
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / F32_FLOPS * 1e3
@@ -1642,7 +1918,8 @@ def main(argv=None):
     for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
         row = {"name": name, "route": route, "source": source, "replaces": replaces,
-               "launches": launches[name], **figures(r), "library_ms": None}
+               "launches": launches[name], **figures(r), "library_ms": None,
+               "slice_launches": {path: c.get(name, 0) for path, c in slice_launches.items()}}
         if name == "walk":  # the other shapes it runs at: the first grow pass, K=1
             for shape in ("first_grow_pass", "k1", "k1_chain"):
                 row[shape] = {**figures(r[shape]), "shape": r[shape]["shape"],

@@ -1,6 +1,14 @@
 """The port's Hex against the JAX package's, move for move, and against the
 independent golden model. Boards, seats, obs, valid, rewards and terminal
-must be bit-equal, auto-reset included."""
+must be bit-equal, auto-reset included.
+
+The rest of the module likewise: `board_actions`, `from_string` and
+`render` on random ASCII boards of sizes 3 to 11; the one-player
+`Solitaire` worlds `Lazy` and `Random` played move for move against the
+JAX package's (`Random`'s opponent drawing from the JAX key's Gumbel noise,
+fed through the port's `Draws`) and against the golden model (`Random`'s
+opponent taking the argmax of the same Gumbel noise over the golden model's
+valid cells)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -8,6 +16,7 @@ import pytest
 import torch
 
 from boardlaw_tpu.envs import hex as jhex
+from boardlaw_tpu_torch.draws import Draws
 from boardlaw_tpu_torch.envs import hex as thex
 from golden_hex import GoldenHex
 
@@ -127,3 +136,142 @@ def test_initial_needs_a_device_choice():
         pytest.skip("a CUDA card is present, so the default device is valid")
     with pytest.raises(RuntimeError):
         thex.Hex.initial(n_envs=1, boardsize=3)
+
+
+def _board_string(rng, size, n_black):
+    """A random ASCII board with `n_black` black stones and as many white
+    ones or one fewer, indented and framed by blank lines as in tests."""
+    cells = np.full(size * size, ".")
+    n_white = max(n_black - int(rng.integers(0, 2)), 0)
+    picks = rng.choice(size * size, n_black + n_white, replace=False)
+    cells[picks[:n_black]] = "b"
+    cells[picks[n_black:]] = "w"
+    rows = ["    " + "".join(r) for r in cells.reshape(size, size)]
+    return "\n" + "\n".join(rows) + "\n    "
+
+
+@pytest.mark.parametrize("boardsize", [3, 5, 7, 9, 11])
+def test_board_strings_match_jax(boardsize):
+    rng = np.random.default_rng(400 + boardsize)
+    for n_black in (0, 1, boardsize // 2 + 1, boardsize):
+        s = _board_string(rng, boardsize, n_black)
+        assert thex.board_size(s) == jhex.board_size(s) == boardsize
+        np.testing.assert_array_equal(thex.board_actions(s), jhex.board_actions(s).reshape(-1, 2))
+        tw, jw = thex.from_string(s, device="cpu"), jhex.from_string(s)
+        np.testing.assert_array_equal(tw.board.numpy(), np.asarray(jw.board))
+        np.testing.assert_array_equal(tw.seats.numpy(), np.asarray(jw.seats))
+        assert tw.render(0) == jw.render(0)
+    # the JAX package's own case (tests/test_hex.py), on the port
+    world = thex.from_string("""
+    bwb
+    wbw
+    ...
+    """, device="cpu")
+    assert world.board[0, 2].tolist() == [0, 0, 0] and int((world.board != 0).sum()) == 6
+    assert thex.CHARS[thex.ORDS["T"]] == "T"
+    with pytest.raises(ValueError):  # two more black stones than white ones
+        thex.board_actions("bb.\n...\n...")
+
+
+@pytest.mark.parametrize("boardsize", [3, 5, 7, 9, 11])
+def test_render_matches_jax(boardsize):
+    rng = np.random.default_rng(500 + boardsize)
+    n_envs = 4
+    jw = jhex.Hex.initial(n_envs=n_envs, boardsize=boardsize)
+    tw = thex.Hex.initial(n_envs=n_envs, boardsize=boardsize, device="cpu")
+    for _ in range(boardsize * boardsize // 2):
+        valid = tw.valid.numpy()
+        actions = np.array([rng.choice(np.flatnonzero(v)) for v in valid], np.int32)
+        jw, _ = _jstep(jw, jnp.asarray(actions))
+        tw, _ = tw.step(torch.from_numpy(actions))
+    for e in range(n_envs):
+        assert tw.render(e) == jw.render(e)
+
+
+class _FedGumbel(Draws):
+    """Draws whose Gumbel noise is `jax.random.gumbel(key, shape)` of the
+    keys fed in, one key per draw."""
+
+    def __init__(self):
+        self.device = torch.device("cpu")
+        self.keys = []
+
+    def gumbel(self, shape):
+        return torch.tensor(np.asarray(jax.random.gumbel(self.keys.pop(0), tuple(shape))))
+
+
+_jsolitaire_step = jax.jit(lambda w, a, k: w.step(a, key=k))
+
+
+@pytest.mark.parametrize("kind,boardsize", [("Lazy", 3), ("Lazy", 7), ("Random", 3),
+                                            ("Random", 5), ("Random", 11)])
+def test_solitaire_games_match_jax(kind, boardsize):
+    rng = np.random.default_rng(600 + boardsize)
+    n_envs = 16
+    jw = getattr(jhex, kind).initial(n_envs=n_envs, boardsize=boardsize)
+    tw = getattr(thex, kind).initial(n_envs=n_envs, boardsize=boardsize, device="cpu")
+    assert tw.n_seats == jw.n_seats == 1
+    draws = _FedGumbel()
+    key = jax.random.PRNGKey(boardsize)
+    n_terminal = 0
+    for ply in range(2 * boardsize * boardsize):
+        np.testing.assert_array_equal(tw.valid.numpy(), np.asarray(jw.valid))
+        actions = np.array([rng.choice(np.flatnonzero(v)) for v in tw.valid.numpy()], np.int32)
+        key, sub = jax.random.split(key)
+        draws.keys.append(sub)
+        jw, jtr = _jsolitaire_step(jw, jnp.asarray(actions), sub)
+        tw, ttr = tw.step(torch.from_numpy(actions), draws=draws)
+        assert type(tw) is getattr(thex, kind)
+        np.testing.assert_array_equal(tw.board.numpy(), np.asarray(jw.board), err_msg=f"ply {ply}")
+        np.testing.assert_array_equal(tw.seats.numpy(), np.asarray(jw.seats))
+        assert (tw.seats == 0).all()  # the protagonist is always to move
+        np.testing.assert_array_equal(ttr.terminal.numpy(), np.asarray(jtr.terminal))
+        np.testing.assert_array_equal(ttr.rewards.numpy(), np.asarray(jtr.rewards))
+        assert ttr.rewards.shape == (n_envs, 1)
+        n_terminal += int(ttr.terminal.sum())
+    assert n_terminal > 0
+    assert len(draws.keys) == (0 if kind == "Random" else 2 * boardsize * boardsize)
+    if kind == "Random":
+        with pytest.raises(TypeError):
+            tw.step(torch.zeros(n_envs, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        thex.Solitaire.initial(1, 3, seat=1, device="cpu")
+
+
+class _RecordedGumbel(Draws):
+    """The port's draws, each Gumbel draw kept for the golden model."""
+
+    def __init__(self, seed):
+        super().__init__(seed, "cpu")
+        self.last = None
+
+    def gumbel(self, shape):
+        self.last = super().gumbel(shape)
+        return self.last
+
+
+@pytest.mark.parametrize("kind", ["Lazy", "Random"])
+@pytest.mark.parametrize("boardsize", [3, 5, 9])
+def test_solitaire_matches_golden(boardsize, kind):
+    rng = np.random.default_rng(700 + boardsize)
+    n_envs = 8
+    world = getattr(thex, kind).initial(n_envs=n_envs, boardsize=boardsize, device="cpu")
+    draws = _RecordedGumbel(boardsize)
+    golden = [GoldenHex(boardsize) for _ in range(n_envs)]
+    for ply in range(2 * boardsize * boardsize):
+        actions = [rng.choice(np.flatnonzero(g.valid())) for g in golden]
+        world, transition = world.step(torch.tensor(actions), draws=draws)
+        for e, g in enumerate(golden):
+            terminal, rewards = g.step(actions[e])
+            if not terminal:  # the opponent: its first valid cell, or its draw
+                valid = g.valid()
+                if kind == "Lazy":
+                    opp_action = int(np.flatnonzero(valid)[0])
+                else:
+                    opp_action = int(np.argmax(np.where(valid, 0.0, -np.inf)
+                                               + draws.last[e].numpy()))
+                terminal, opp = g.step(opp_action)
+                rewards = rewards + opp
+            assert bool(transition.terminal[e]) == terminal, (e, ply)
+            assert float(transition.rewards[e, 0]) == rewards[0]
+            np.testing.assert_array_equal(world.obs[e].numpy(), g.obs())

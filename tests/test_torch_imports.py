@@ -1,5 +1,8 @@
 """The port and chip_smoke.py import with JAX, flax, optax and the JAX
-package blocked: they import torch and numpy only."""
+package blocked, and with the packages the card's machine lacks blocked too
+(pandas, portalocker, cloudpickle, msgpack, matplotlib): they import torch,
+numpy and the standard library only. Without pandas, the dataframe readers
+of `pavlov` raise a clear ImportError and the numpy readers still work."""
 import os
 import re
 import subprocess
@@ -12,7 +15,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_without_jax():
     code = textwrap.dedent("""
         import sys
-        blocked = ("jax", "jaxlib", "flax", "optax", "boardlaw_tpu")
+        blocked = ("jax", "jaxlib", "flax", "optax", "boardlaw_tpu", "pandas", "portalocker",
+                   "cloudpickle", "msgpack", "matplotlib")
         for k in [k for k in sys.modules if k.split(".")[0] in blocked]:
             del sys.modules[k]
         for name in blocked:
@@ -25,8 +29,11 @@ def test_port_imports_without_jax():
             importlib.import_module(name)
         import chip_smoke
         assert "boardlaw_tpu_torch.mcts.kernels" in names
-        assert not any(k == "jax" or k.startswith(("jax.", "flax", "optax", "boardlaw_tpu."))
-                       for k, v in sys.modules.items() if v is not None)
+        assert not any(k.split(".")[0] in blocked for k, v in sys.modules.items()
+                       if v is not None)
+        for name in ("boardlaw_tpu_torch.pavlov", "boardlaw_tpu_torch.storage",
+                     "boardlaw_tpu_torch.envs.validation", "boardlaw_tpu_torch.train"):
+            assert name in sys.modules
         print("ok", len(names))
     """ % ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -44,3 +51,33 @@ def test_no_jax_in_port_sources():
     for path in paths:
         with open(path) as f:
             assert not banned.search(f.read()), path
+
+
+def test_pandas_readers_raise_clearly_without_pandas(tmp_path):
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["pandas"] = None
+        sys.path.insert(0, %r)
+        from boardlaw_tpu_torch.pavlov import runs, stats
+        from boardlaw_tpu_torch.pavlov.tests import mock_dir
+        with mock_dir(%r):
+            run = runs.new_run(description="no pandas")
+            with stats.to_run(run):
+                stats.cumsum("count.samples", 10)
+                stats.cumsum("count.samples", 5)
+            assert stats.rows(run, "count.samples")["total"].tolist() == [10.0, 5.0]
+            for read in (runs.pandas, lambda: stats.pandas(run, "count.samples"),
+                         lambda: stats.resampled(run, "count.samples"),
+                         lambda: stats.dataframe(run), lambda: stats.review(run)):
+                try:
+                    read()
+                except ImportError as e:
+                    assert "pandas is needed" in str(e), e
+                else:
+                    raise AssertionError("a dataframe reader ran without pandas")
+        print("ok")
+    """ % (ROOT, str(tmp_path)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -16,7 +16,10 @@ held in the port's storage types (f32 logits, bf16 n_edge, int8 children).
   equals `S.descend` and `PK.descend`; `search.backup`, the twin of both
   backup kernels, equals `S.backup`, `PK.backup` and `PK.backup_dense`: n
   exact, w/n_edge/w_edge to atol 1e-5, also at three seats (`PK.backup`) and
-  on chains 36 levels deep with terminal nodes on the path (both).
+  on chains 36 levels deep with terminal nodes on the path (both);
+  `search.backup(..., edge="dense")`, the twin of `backup_dense`, equals
+  `PK.backup_dense` at one and at three seats, where its edge value (seat
+  S-1's at a seat-1 parent) is not the 'delta' rule's.
 * The split K>1 twins: `solve_probs_ref` equals `PK.solve_probs` in both
   output modes to rtol 1e-5, atol 1e-7; `sample_children_multi_ref` equals
   `PK.sample_children_multi` bit for bit on the same probs; the 'matmul'
@@ -363,17 +366,41 @@ def test_backup_twin_matches_pallas_three_seats_and_chains(case, npv):
                                        atol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("npv", [1, 2])
+@pytest.mark.parametrize("n_seats", [1, 3])
+def test_backup_dense_twin_matches_pallas_one_and_three_seats(n_seats, npv):
+    # the Pallas kernel's edge value is v[0] at a seat-0 parent, else
+    # v[S-1]: at three seats that is not the parent's own seat 1, which the
+    # 'delta' rule reads; one seat is the planted-value games' tree
+    rng = np.random.default_rng(11 + n_seats)
+    B, T, A = 16, 12, 7
+    tree = _random_tree(rng, B, T, A, Sn=n_seats)
+    leaves = jnp.asarray(rng.integers(0, T, B), jnp.int32)
+    out = PK.backup_dense(tree, leaves, npv, block_envs=8, interpret=True)
+    ttree = kernels.backup_dense(_port_tree(tree), _t(leaves), npv)  # CPU: the dense twin
+    np.testing.assert_array_equal(ttree.n.numpy(), np.asarray(out.n))
+    for name in ("w", "n_edge", "w_edge"):
+        np.testing.assert_allclose(getattr(ttree, name).float().numpy(),
+                                   np.asarray(getattr(out, name), np.float32),
+                                   atol=1e-5, err_msg=name)
+    delta = TS.backup(_port_tree(tree), _t(leaves), npv)
+    if n_seats == 3:  # seat-1 parents take another value under the two rules
+        assert not torch.equal(delta.w_edge, ttree.w_edge)
+    else:
+        assert torch.equal(delta.w_edge, ttree.w_edge)
+
+
 def test_cuda_wrappers_refuse_bad_inputs():
     # checks run before any launch, so they are testable without a card
     with pytest.raises(ValueError):
         kernels._check_rows(torch.zeros((2, 3, 4)), "x", torch.float32, 2, 3, 4)
     with pytest.raises(ValueError):
         kernels._check_node(torch.zeros((2, 3)), "x", torch.float32, (2, 3))
-    # backup_dense reads the edge value at seat 0 or S-1: two seats only
+    # backup_dense reads the edge value at seat 0 or S-1: 1 to 4 seats
     rng = np.random.default_rng(0)
-    three = _port_tree(_random_tree(rng, 2, 4, 3, Sn=3))
-    with pytest.raises(ValueError):
-        kernels.backup_dense(three, torch.zeros((2,), dtype=torch.int32), 1)
+    five = _port_tree(_random_tree(rng, 2, 4, 3, Sn=5))
+    with pytest.raises(ValueError, match="1 to 4 seats"):
+        kernels.backup_dense(five, torch.zeros((2,), dtype=torch.int32), 1)
     # the backups check every tensor they read or write, storage type and
     # shape before the device
     tree = _port_tree(_random_tree(rng, 2, 4, 3))

@@ -16,7 +16,8 @@ every lane layout of `kernels.row_layout` runs.
 `node_actions` + `walk` on the card exactly. `backup` and `backup_dense`
 make the twin's adds in the twin's order: n, w, n_edge and w_edge equal it
 bit for bit, at T = 12, 37, 64 and 65, on chains T-1 levels deep, from the
-root and at three seats (`backup`). `solve_probs` runs the solve of `node_actions_multi`: its
+root, at three seats (both) and at one seat (`backup_dense`, whose twin is
+`search.backup(..., edge="dense")`). `solve_probs` runs the solve of `node_actions_multi`: its
 probs agree with the twin's to rtol 1e-5 and its alpha is
 `node_actions_multi`'s, bit for bit; `sample_children_multi` adds in the
 twin's order and is bit-equal to it, and the split pair draws what
@@ -359,7 +360,8 @@ def test_descend_kernel_matches_ref(cuda, seed, c_puct, A):
 @pytest.mark.gpu
 @pytest.mark.parametrize("npv", [1, 2])
 @pytest.mark.parametrize("T", [12, 37, 64, 65])
-@pytest.mark.parametrize("variant,n_seats", [("delta", 2), ("delta", 3), ("dense", 2)])
+@pytest.mark.parametrize("variant,n_seats", [("delta", 2), ("delta", 3), ("dense", 1),
+                                              ("dense", 2), ("dense", 3)])
 def test_backup_kernels_match_ref(cuda, variant, n_seats, T, npv):
     # even envs are chains with their leaf T-1 levels deep and a terminal
     # node on the path; envs 1, 5, 9, 13 back up from the root (depth 0)
@@ -369,8 +371,8 @@ def test_backup_kernels_match_ref(cuda, variant, n_seats, T, npv):
     leaves[0::2] = T - 1
     leaves[1::4] = 0
     leaves = torch.tensor(leaves, dtype=torch.int32)
-    ref = search.backup(_tree_to(tree, "cpu"), leaves, npv)
     wrapper = kernels.backup if variant == "delta" else kernels.backup_dense
+    ref = wrapper(_tree_to(tree, "cpu"), leaves, npv)  # the CPU tree: the twin
     n0 = wrapper.launches
     out = wrapper(_tree_to(tree, cuda), leaves.to(cuda), npv)
     torch.cuda.synchronize()

@@ -26,20 +26,32 @@
 
 namespace {
 
-__global__ void __launch_bounds__(backup_walk::kThreads) backup_kernel(const backup_walk::Args a) {
+template <typename TN>
+__global__ void __launch_bounds__(backup_walk::kThreads)
+backup_kernel(const backup_walk::Args<TN> a) {
   backup_walk::backup_env<false>(a);
+}
+
+template <typename TN>
+int launch_as(const void* v, const void* leaves, const void* parents, const void* relation,
+              const void* seats, const void* terminal, const void* rewards, int B, int T, int A,
+              int S, int npv, void* n, void* w, void* n_edge, void* w_edge, void* stream) {
+  const backup_walk::Args<TN> a{
+      (const float*)v, (const int32_t*)leaves, (const int32_t*)parents,
+      (const int32_t*)relation, (const int32_t*)seats, (const uint8_t*)terminal,
+      (const float*)rewards, B, T, A, S, npv, (int32_t*)n, (float*)w, (TN*)n_edge,
+      (float*)w_edge};
+  return backup_walk::launch(backup_kernel<TN>, a, (cudaStream_t)stream);
 }
 
 }  // namespace
 
+// counts_f32: n_edge is f32 (trees of more than 128 node slots), else bf16.
 extern "C" int backup_launch(const void* v, const void* leaves, const void* parents,
                              const void* relation, const void* seats, const void* terminal,
                              const void* rewards, int B, int T, int A, int S, int npv, void* n,
-                             void* w, void* n_edge, void* w_edge, void* stream) {
-  const backup_walk::Args a{
-      (const float*)v, (const int32_t*)leaves, (const int32_t*)parents,
-      (const int32_t*)relation, (const int32_t*)seats, (const uint8_t*)terminal,
-      (const float*)rewards, B, T, A, S, npv, (int32_t*)n, (float*)w,
-      (__nv_bfloat16*)n_edge, (float*)w_edge};
-  return backup_walk::launch(backup_kernel, a, (cudaStream_t)stream);
+                             void* w, void* n_edge, int counts_f32, void* w_edge, void* stream) {
+  auto go = counts_f32 ? launch_as<float> : launch_as<__nv_bfloat16>;
+  return go(v, leaves, parents, relation, seats, terminal, rewards, B, T, A, S, npv, n, w,
+            n_edge, w_edge, stream);
 }

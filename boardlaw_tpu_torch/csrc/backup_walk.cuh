@@ -8,7 +8,9 @@
 // w_edge[p, relation[c]] += the edge value: val[clamp(seats[p], 0, S-1)]
 // (backup.cu, as search._apply_deltas routes it), or
 // seats[p] == 0 ? val[0] : val[S-1] (backup_dense.cu, the Pallas kernel's
-// rule). Exactly search.backup's result, bit for bit.
+// rule). Exactly search.backup's result, bit for bit. n_edge is bf16 up to
+// 128 node slots and f32 above (search.tree_dtypes): Args<TN> and the
+// kernels are instantiated for both.
 //
 // Layout (kGroup below is G): G lanes of a warp hold one env, 32/G envs a
 // warp, up to 8 warps a block. Per env:
@@ -63,6 +65,7 @@ constexpr int kThreads = kMaxWarpsPerBlock * kWarp;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
+template <typename TN>
 struct Args {
   const float* v;           // (B,T,S)
   const int32_t* leaves;    // (B,)
@@ -74,12 +77,22 @@ struct Args {
   int B, T, A, S, npv;
   int32_t* n;               // (B,T)
   float* w;                 // (B,T,S)
-  __nv_bfloat16* n_edge;    // (B,T,A)
+  TN* n_edge;               // (B,T,A) bf16 or f32
   float* w_edge;            // (B,T,A)
 };
 
 // x[k] for a k that is the same in every lane: a select, not a local-memory
 // index.
+// An edge count as f32, and its store, in its storage type.
+__device__ __forceinline__ float count_of(const __nv_bfloat16& x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float count_of(const float& x) { return x; }
+__device__ __forceinline__ void set_count(__nv_bfloat16& x, float v) {
+  x = __float2bfloat16(v);
+}
+__device__ __forceinline__ void set_count(float& x, float v) { x = v; }
+
 __device__ __forceinline__ float seat_of(const float (&x)[kMaxSeats], int k) {
   float out = x[0];
 #pragma unroll
@@ -87,8 +100,8 @@ __device__ __forceinline__ float seat_of(const float (&x)[kMaxSeats], int k) {
   return out;
 }
 
-template <bool kDense>
-__device__ __forceinline__ void backup_env(const Args& a) {
+template <bool kDense, typename TN>
+__device__ __forceinline__ void backup_env(const Args<TN>& a) {
   constexpr int G = kGroup;
   extern __shared__ int32_t par_rows[];
   const float* __restrict__ v = a.v;
@@ -144,7 +157,7 @@ __device__ __forceinline__ void backup_env(const Args& a) {
     const int seat = edge_on ? __ldg(a.seats + env + p) : 0;
     // the parent edge's statistics, read while step 4 runs
     const int64_t e = (env + (edge_on ? p : 0)) * a.A + (edge_on ? rel : 0);
-    const float ne_old = edge_on ? __bfloat162float(a.n_edge[e]) : 0.f;
+    const float ne_old = edge_on ? count_of(a.n_edge[e]) : 0.f;
     const float we_old = edge_on ? a.w_edge[e] : 0.f;
 
     // 4. the values, level by level in the twin's order, from the lane that
@@ -179,7 +192,7 @@ __device__ __forceinline__ void backup_env(const Args& a) {
     if (edge_on) {
       const float edge_val = kDense ? (seat == 0 ? mine[0] : seat_of(mine, S - 1))
                                     : seat_of(mine, min(max(seat, 0), S - 1));
-      a.n_edge[e] = __float2bfloat16(ne_old + (float)a.npv);
+      set_count(a.n_edge[e], ne_old + (float)a.npv);
       a.w_edge[e] = we_old + edge_val;
     }
   }
@@ -188,8 +201,8 @@ __device__ __forceinline__ void backup_env(const Args& a) {
 // The launch of kGroup-lane groups: as many warps a block (up to 8) as fit
 // the parents rows in the default 48 KB of shared memory, at least one;
 // above that the block opts in to more, up to the card's 227 KB.
-template <class Kernel>
-inline int launch(Kernel kernel, const Args& a, cudaStream_t stream) {
+template <class Kernel, typename TN>
+inline int launch(Kernel kernel, const Args<TN>& a, cudaStream_t stream) {
   constexpr int G = kGroup;
   if (a.S < 1 || a.S > kMaxSeats || a.T < 1 || a.A < 1 || a.B < 0) {
     return (int)cudaErrorInvalidValue;

@@ -14,7 +14,9 @@
 //
 // The logits are read in their storage type, f32 or bf16 (the tree_dtype
 // of MCTSConfig); a bf16 logit is widened at its load, so the bf16
-// instantiation walks what the f32 one walks on the logits' f32 copy.
+// instantiation walks what the f32 one walks on the logits' f32 copy. The
+// children and counts too (search.tree_dtypes): int8/bf16, int32/bf16 at
+// T = 128, int32/f32 above; an int32 child is loaded after its draw.
 //
 // What bounds it on the H100: the dependent chain, then bytes. A walk of
 // depth d is d row solves in sequence, each needing its row (11 bytes per
@@ -29,11 +31,11 @@
 
 namespace {
 
-template <int G, typename TL>
+template <int G, typename TL, typename TC, typename TN>
 __global__ void __launch_bounds__(row_solve::kThreads, row_solve::kMinBlocks)
 descend_kernel(
-    const TL* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
-    const float* __restrict__ w_edge, const int8_t* __restrict__ children,
+    const TL* __restrict__ logits, const TN* __restrict__ n_edge,
+    const float* __restrict__ w_edge, const TC* __restrict__ children,
     const uint8_t* __restrict__ terminal, int B, int T, int A,
     const float* __restrict__ rands, const float* __restrict__ c_puct,
     const float* __restrict__ q_bounds,
@@ -57,12 +59,13 @@ descend_kernel(
   for (int level = 0; level < T && __any_sync(row_solve::kFull, active); ++level) {
     const int64_t base = env + (int64_t)t * A;
     row_solve::Row<G> row;
-    row_solve::load_children<G>(children + base, A, active, L, row);
-    row_solve::solve_row<G, false, TL>(logits + base, n_edge + base, w_edge + base, A, cp,
-                                       qlo, qhi, 16, active, L, row);
+    row_solve::Kids<G, TC> kids;
+    kids.load(children + base, A, active, L);
+    row_solve::solve_row<G, false, TL, TN>(logits + base, n_edge + base, w_edge + base, A, cp,
+                                           qlo, qhi, 16, active, L, row);
     row_solve::prefix<G>(A, L, row);
     const int a = row_solve::draw<G>(row, active ? __ldg(rand + t) : 0.f, A, L);
-    const int child = row_solve::child_of<G>(row, a, L);
+    const int child = kids.of(a, L);
     if (active) {
       parent = t;
       action = a;
@@ -82,20 +85,24 @@ descend_kernel(
 }  // namespace
 
 extern "C" int descend_launch(const void* logits, int logits_bf16, const void* n_edge,
-                              const void* w_edge, const void* children, const void* terminal,
-                              int B, int T, int A,
+                              int counts_f32, const void* w_edge, const void* children,
+                              int children_i32, const void* terminal, int B, int T, int A,
                               const void* rands, const void* c_puct, const void* q_bounds,
                               void* parents_out, void* actions_out, int group, int blocks,
                               void* stream) {
-  return row_solve::with_logits(logits_bf16, [&](auto tl) {
-    using TL = typename decltype(tl)::type;
-    return row_solve::with_group(group, A, B, blocks, [&](auto g) {
-      descend_kernel<decltype(g)::value, TL>
-          <<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
-              (const TL*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge,
-              (const int8_t*)children, (const uint8_t*)terminal, B, T, A,
-              (const float*)rands, (const float*)c_puct, (const float*)q_bounds,
-              (int32_t*)parents_out, (int32_t*)actions_out);
+  return row_solve::with_tree(children_i32, counts_f32, [&](auto tc, auto tn) {
+    using TC = typename decltype(tc)::type;
+    using TN = typename decltype(tn)::type;
+    return row_solve::with_logits(logits_bf16, [&](auto tl) {
+      using TL = typename decltype(tl)::type;
+      return row_solve::with_group(group, A, B, blocks, [&](auto g) {
+        descend_kernel<decltype(g)::value, TL, TC, TN>
+            <<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
+                (const TL*)logits, (const TN*)n_edge, (const float*)w_edge,
+                (const TC*)children, (const uint8_t*)terminal, B, T, A,
+                (const float*)rands, (const float*)c_puct, (const float*)q_bounds,
+                (int32_t*)parents_out, (int32_t*)actions_out);
+      });
     });
   });
 }

@@ -12,7 +12,9 @@
 //
 // The logits are read in their storage type, f32 or bf16 (the tree_dtype
 // of MCTSConfig); a bf16 logit is widened at its load, so the bf16
-// instantiation draws what the f32 one draws on the logits' f32 copy.
+// instantiation draws what the f32 one draws on the logits' f32 copy. The
+// children and counts too (search.tree_dtypes): int8 children with bf16
+// counts up to 127 node slots, int32 with bf16 at 128, int32 with f32 above.
 //
 // What bounds it on the H100: device-memory bytes in principle. The tree rows
 // are read once each in their storage types (logits f32, n_edge bf16, w_edge
@@ -35,11 +37,11 @@
 
 namespace {
 
-template <int G, bool kAccel, typename TL>
+template <int G, bool kAccel, typename TL, typename TC, typename TN>
 __global__ void __launch_bounds__(row_solve::kThreads, row_solve::kMinBlocks)
 node_actions_multi_kernel(
-    const TL* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
-    const float* __restrict__ w_edge, const int8_t* __restrict__ children,
+    const TL* __restrict__ logits, const TN* __restrict__ n_edge,
+    const float* __restrict__ w_edge, const TC* __restrict__ children,
     int B, int T, int A, int K, int64_t env_stride,
     const float* __restrict__ rands, const float* __restrict__ c_puct,
     const float* __restrict__ q_bounds, int n_iters,
@@ -55,34 +57,40 @@ node_actions_multi_kernel(
   const int64_t base = (int64_t)b * env_stride + (int64_t)t * A;
 
   row_solve::Row<G> row;
-  row_solve::load_children<G>(children + base, A, valid, L, row);
-  row_solve::solve_row<G, kAccel, TL>(logits + base, n_edge + base, w_edge + base, A,
-                                      __ldg(c_puct + b), __ldg(q_bounds),
-                                      __ldg(q_bounds + 1), n_iters, valid, L, row);
+  row_solve::Kids<G, TC> kids;
+  kids.load(children + base, A, valid, L);
+  row_solve::solve_row<G, kAccel, TL, TN>(logits + base, n_edge + base, w_edge + base, A,
+                                          __ldg(c_puct + b), __ldg(q_bounds),
+                                          __ldg(q_bounds + 1), n_iters, valid, L, row);
   row_solve::prefix<G>(A, L, row);
   const int64_t o = (int64_t)b * K * T + t;
-  row_solve::draw_k<G>(row, rands + o, T, K, A, valid, L, actions_out + o, child_out + o);
+  row_solve::draw_k<G>(row, kids, rands + o, T, K, A, valid, L, actions_out + o,
+                       child_out + o);
   if (alpha_out != nullptr && valid && L.gl == 0) alpha_out[row_id] = row.alpha;
 }
 
 }  // namespace
 
 extern "C" int node_actions_multi_launch(
-    const void* logits, int logits_bf16, const void* n_edge, const void* w_edge,
-    const void* children, int B, int T, int A, int K, int env_stride,
+    const void* logits, int logits_bf16, const void* n_edge, int counts_f32, const void* w_edge,
+    const void* children, int children_i32, int B, int T, int A, int K, int env_stride,
     const void* rands, const void* c_puct, const void* q_bounds, int n_iters, int accel,
     void* actions_out, void* child_out, void* alpha_out, int group, int blocks, void* stream) {
-  return row_solve::with_logits(logits_bf16, [&](auto tl) {
-    using TL = typename decltype(tl)::type;
-    return row_solve::with_group(group, A, (int64_t)B * T, blocks, [&](auto g) {
-      constexpr int kG = decltype(g)::value;
-      auto kernel = accel ? node_actions_multi_kernel<kG, true, TL>
-                          : node_actions_multi_kernel<kG, false, TL>;
-      kernel<<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
-          (const TL*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge,
-          (const int8_t*)children, B, T, A, K, (int64_t)env_stride, (const float*)rands,
-          (const float*)c_puct, (const float*)q_bounds, n_iters, (int32_t*)actions_out,
-          (int32_t*)child_out, (float*)alpha_out);
+  return row_solve::with_tree(children_i32, counts_f32, [&](auto tc, auto tn) {
+    using TC = typename decltype(tc)::type;
+    using TN = typename decltype(tn)::type;
+    return row_solve::with_logits(logits_bf16, [&](auto tl) {
+      using TL = typename decltype(tl)::type;
+      return row_solve::with_group(group, A, (int64_t)B * T, blocks, [&](auto g) {
+        constexpr int kG = decltype(g)::value;
+        auto kernel = accel ? node_actions_multi_kernel<kG, true, TL, TC, TN>
+                            : node_actions_multi_kernel<kG, false, TL, TC, TN>;
+        kernel<<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
+            (const TL*)logits, (const TN*)n_edge, (const float*)w_edge, (const TC*)children, B,
+            T, A, K, (int64_t)env_stride, (const float*)rands, (const float*)c_puct,
+            (const float*)q_bounds, n_iters, (int32_t*)actions_out, (int32_t*)child_out,
+            (float*)alpha_out);
+      });
     });
   });
 }

@@ -29,14 +29,18 @@
 // - the prefix sum runs in registers (shuffles for shifts below G, the
 //   lane's own slots above), every element adding what it adds in
 //   _shift_cumsum, in the same order;
-// - a draw is one ballot per lane slot, the children row is loaded once
-//   (packed four bytes a word) and each draw's child is shuffled from the
-//   lane that holds it; lane k of a group loads rand k and stores draw k.
+// - a draw is one ballot per lane slot, the int8 children row is loaded
+//   once (packed four bytes a word) and each draw's child is shuffled from
+//   the lane that holds it; lane k of a group loads rand k and stores draw k.
 //
 // The row is read once, in its storage types (f32 or bf16 logits, f32
-// w_edge, bf16 n_edge, int8 children): a bf16 logit is widened to f32 at its
-// load, which is exact, so a kernel on bf16 logits computes what it computes
-// on their f32 copy, bit for bit, without the copy. Built with -fmad=false
+// w_edge, bf16 or f32 n_edge, int8 or int32 children: search.tree_dtypes'
+// rule, `Kids` and `with_tree` below): a bf16 logit or count is widened to
+// f32 at its load, which is exact, so a kernel on bf16 logits computes what
+// it computes on their f32 copy, bit for bit, without the copy. Int32
+// children (trees of more than 127 nodes) are not held in registers: a
+// draw's child is one load of the group-uniform address after the draw, so
+// the register budget of the int8 layout is kept. Built with -fmad=false
 // so each element's arithmetic rounds like the plain twin's separate
 // PyTorch ops; only the
 // lane sums run in another order than the twin's (and than another G's), so
@@ -101,51 +105,78 @@ template <int G>
 struct Row {
   float probs[kMaxJ];
   float cum[kMaxJ];
-  uint32_t child[kMaxJ / 4];  // children bytes, slot j in byte j%4 of word j/4
   float alpha;                   // group-uniform
   int last_pos;                  // group-uniform
 };
 
-// Load the children row at `children` into row.child (zeros where invalid).
+// The child pointers of one row, in their storage type TC: `load` (all lanes
+// of the warp together, zeros where the row is invalid), then `of(act)` for
+// a group-uniform action (0 where act < 0).
+template <int G, typename TC>
+struct Kids;
+
+// int8 ids, loaded with the row and packed in registers, slot j in byte j%4
+// of word j/4; a draw's child is shuffled from the lane that holds it.
 template <int G>
-__device__ __forceinline__ void load_children(const int8_t* __restrict__ children, int A,
-                                              bool valid, const Lane<G>& L, Row<G>& row) {
-  const int J = (A + G - 1) / G;
+struct Kids<G, int8_t> {
+  uint32_t word[kMaxJ / 4];
+  __device__ __forceinline__ void load(const int8_t* __restrict__ children, int A, bool valid,
+                                       const Lane<G>& L) {
+    const int J = (A + G - 1) / G;
 #pragma unroll
-  for (int w = 0; w < kMaxJ / 4; ++w) row.child[w] = 0u;
+    for (int w = 0; w < kMaxJ / 4; ++w) word[w] = 0u;
 #pragma unroll
-  for (int j = 0; j < kMaxJ; ++j) {
-    const int a = j * G + L.gl;
-    if (j < J && valid && a < A) {
-      row.child[j / 4] |= (uint32_t)(uint8_t)children[a] << (8 * (j % 4));
+    for (int j = 0; j < kMaxJ; ++j) {
+      const int a = j * G + L.gl;
+      if (j < J && valid && a < A) {
+        word[j / 4] |= (uint32_t)(uint8_t)children[a] << (8 * (j % 4));
+      }
     }
   }
-}
+  __device__ __forceinline__ int of(int act, const Lane<G>& L) const {
+    const int src = act & (G - 1);
+    const int j = act >= 0 ? act / G : 0;
+    const uint32_t lo = __shfl_sync(kFull, word[0], src, G);
+    const uint32_t hi = __shfl_sync(kFull, word[1], src, G);
+    const uint32_t w = j >= 4 ? hi : lo;
+    return act >= 0 ? (int)(int8_t)(uint8_t)(w >> (8 * (j % 4))) : 0;
+  }
+};
 
-// The child pointer of action `act` (group-uniform; 0 where act < 0).
+// int32 ids (trees of more than 127 nodes): nothing is held; a draw's child
+// is one load of the row's slot `act`, the same address in every lane of
+// the group.
 template <int G>
-__device__ __forceinline__ int child_of(const Row<G>& row, int act, const Lane<G>& L) {
-  const int src = act & (G - 1);
-  const int j = act >= 0 ? act / G : 0;
-  const uint32_t lo = __shfl_sync(kFull, row.child[0], src, G);
-  const uint32_t hi = __shfl_sync(kFull, row.child[1], src, G);
-  const uint32_t word = j >= 4 ? hi : lo;
-  return act >= 0 ? (int)(int8_t)(uint8_t)(word >> (8 * (j % 4))) : 0;
-}
+struct Kids<G, int32_t> {
+  const int32_t* row;
+  bool valid;
+  __device__ __forceinline__ void load(const int32_t* __restrict__ children, int, bool valid_,
+                                       const Lane<G>&) {
+    row = children;
+    valid = valid_;
+  }
+  __device__ __forceinline__ int of(int act, const Lane<G>&) const {
+    return act >= 0 && valid ? __ldg(row + act) : 0;
+  }
+};
 
-// A logit as f32, from its storage type.
+// A logit or an edge count as f32, from its storage type.
 __device__ __forceinline__ float load_logit(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_logit(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
 }
+__device__ __forceinline__ float load_count(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float load_count(const float* p) { return *p; }
 
 // Solve the row whose action 0 is at logits/n_edge/w_edge (all lanes of the
 // warp call this together; an invalid row reads nothing and is done from the
 // start): row.alpha and row.probs (0 on slots >= A). TL is the logits'
-// storage type, float or __nv_bfloat16.
-template <int G, bool kAccel, typename TL>
+// storage type, float or __nv_bfloat16; TN the counts', the same two.
+template <int G, bool kAccel, typename TL, typename TN>
 __device__ __forceinline__ void solve_row(const TL* __restrict__ logits,
-                                          const __nv_bfloat16* __restrict__ n_edge,
+                                          const TN* __restrict__ n_edge,
                                           const float* __restrict__ w_edge, int A, float cp,
                                           float qlo, float qhi, int n_iters, bool valid,
                                           const Lane<G>& L, Row<G>& row) {
@@ -159,7 +190,7 @@ __device__ __forceinline__ void solve_row(const TL* __restrict__ logits,
     q[j] = 0.f;
     if (j < J && valid && a < A) {
       const float lg = load_logit(logits + a);
-      const float ne = __bfloat162float(n_edge[a]);
+      const float ne = load_count(n_edge + a);
       const float we = __ldg(w_edge + a);
       const bool expanded = ne > 0.f;
       q[j] = expanded ? (we / (ne + 1e-4f) - qlo) / (qhi - qlo + 1e-4f) : 0.f;
@@ -295,11 +326,12 @@ __device__ __forceinline__ int draw(const Row<G>& row, float r, int A, const Lan
 }
 
 // K draws from a prefixed row with rands[k * stride]; draw k's action and
-// child go to actions[k * stride] and childs[k * stride]. In rounds of G
-// draws, lane k of the group loads rand k, every lane takes it by shuffle,
-// and lane k stores draw k.
-template <int G>
-__device__ __forceinline__ void draw_k(const Row<G>& row, const float* __restrict__ rands,
+// child (from `kids`) go to actions[k * stride] and childs[k * stride]. In
+// rounds of G draws, lane k of the group loads rand k, every lane takes it
+// by shuffle, and lane k stores draw k.
+template <int G, class Kids>
+__device__ __forceinline__ void draw_k(const Row<G>& row, const Kids& kids,
+                                       const float* __restrict__ rands,
                                        int64_t stride, int K, int A, bool valid,
                                        const Lane<G>& L, int32_t* __restrict__ actions,
                                        int32_t* __restrict__ childs) {
@@ -311,7 +343,7 @@ __device__ __forceinline__ void draw_k(const Row<G>& row, const float* __restric
     int my_act = 0, my_child = 0;
     for (int i = 0; i < n; ++i) {
       const int act = draw<G>(row, __shfl_sync(kFull, my_rand, i, G), A, L);
-      const int child = child_of<G>(row, act, L);
+      const int child = kids.of(act, L);
       if (L.gl == i) {
         my_act = act;
         my_child = child;
@@ -355,6 +387,41 @@ struct TypeTag {
 template <class F>
 inline int with_logits(int logits_bf16, F&& launch) {
   return logits_bf16 ? launch(TypeTag<__nv_bfloat16>{}) : launch(TypeTag<float>{});
+}
+
+// Launch `launch(TypeTag<TC>{})` for the children's type: int8, or int32
+// with `children_i32`. Returns the launch's result.
+template <class F>
+inline int with_children(int children_i32, F&& launch) {
+  return children_i32 ? launch(TypeTag<int32_t>{}) : launch(TypeTag<int8_t>{});
+}
+
+// Launch `launch(TypeTag<TN>{})` for the edge counts' type: bf16, or float
+// with `counts_f32`. Returns the launch's result.
+template <class F>
+inline int with_counts(int counts_f32, F&& launch) {
+  return counts_f32 ? launch(TypeTag<float>{}) : launch(TypeTag<__nv_bfloat16>{});
+}
+
+// Launch `launch(TypeTag<TC>{}, TypeTag<TN>{})` for the tree's bookkeeping
+// types, the pairs of search.tree_dtypes' rule: (int8, bf16) when neither
+// flag is set, (int32, bf16) with `children_i32` (T = 128), (int32, float)
+// with both. Returns the launch's result; cudaErrorInvalidValue for int8
+// children with float counts, which the rule never gives (and which is not
+// instantiated).
+template <class F>
+inline int with_tree(int children_i32, int counts_f32, F&& launch) {
+  return with_children(children_i32, [&](auto tc) {
+    return with_counts(counts_f32, [&](auto tn) {
+      using TC = typename decltype(tc)::type;
+      using TN = typename decltype(tn)::type;
+      if constexpr (std::is_same_v<TC, int8_t> && std::is_same_v<TN, float>) {
+        return (int)cudaErrorInvalidValue;
+      } else {
+        return launch(tc, tn);
+      }
+    });
+  });
 }
 
 constexpr int kThreads = kWarpsPerBlock * kWarp;

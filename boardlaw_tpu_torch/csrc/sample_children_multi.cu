@@ -24,15 +24,20 @@
 // with consecutive lanes on consecutive addresses; the prefix sum stays in
 // registers; each draw is a ballot per lane slot and its child a shuffle,
 // with no dependent load; lane k loads rand k and stores draw k.
+//
+// Children are int8 up to 127 node slots and int32 above
+// (search.tree_dtypes), each instantiated; an int32 child is one load of
+// the drawn slot after the draw, exact at every node id (the Pallas kernel
+// streams children as bf16, exact up to 256 only).
 
 #include "row_solve.cuh"
 
 namespace {
 
-template <int G>
+template <int G, typename TC>
 __global__ void __launch_bounds__(row_solve::kThreads, row_solve::kMinBlocks)
 sample_children_multi_kernel(
-    const float* __restrict__ probs, int64_t probs_stride, const int8_t* __restrict__ children,
+    const float* __restrict__ probs, int64_t probs_stride, const TC* __restrict__ children,
     int64_t children_stride, int B, int R, int A, int K, const float* __restrict__ rands,
     int32_t* __restrict__ actions_out, int32_t* __restrict__ child_out) {
   const row_solve::Lane<G> L;
@@ -45,8 +50,8 @@ sample_children_multi_kernel(
   const float* p = probs + (int64_t)b * probs_stride + (int64_t)t * A;
 
   row_solve::Row<G> row;
-  row_solve::load_children<G>(children + (int64_t)b * children_stride + (int64_t)t * A, A, valid,
-                              L, row);
+  row_solve::Kids<G, TC> kids;
+  kids.load(children + (int64_t)b * children_stride + (int64_t)t * A, A, valid, L);
   const int J = (A + G - 1) / G;
 #pragma unroll
   for (int j = 0; j < row_solve::kMaxJ; ++j) {
@@ -55,20 +60,24 @@ sample_children_multi_kernel(
   }
   row_solve::prefix<G>(A, L, row);
   const int64_t o = (int64_t)b * K * R + t;
-  row_solve::draw_k<G>(row, rands + o, R, K, A, valid, L, actions_out + o, child_out + o);
+  row_solve::draw_k<G>(row, kids, rands + o, R, K, A, valid, L, actions_out + o,
+                       child_out + o);
 }
 
 }  // namespace
 
 extern "C" int sample_children_multi_launch(
-    const void* probs, int probs_stride, const void* children, int children_stride, int B,
-    int R, int A, int K, const void* rands, void* actions_out, void* child_out, int group,
-    int blocks, void* stream) {
-  return row_solve::with_group(group, A, (int64_t)B * R, blocks, [&](auto g) {
-    sample_children_multi_kernel<decltype(g)::value>
-        <<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
-            (const float*)probs, (int64_t)probs_stride, (const int8_t*)children,
-            (int64_t)children_stride, B, R, A, K, (const float*)rands, (int32_t*)actions_out,
-            (int32_t*)child_out);
+    const void* probs, int probs_stride, const void* children, int children_i32,
+    int children_stride, int B, int R, int A, int K, const void* rands, void* actions_out,
+    void* child_out, int group, int blocks, void* stream) {
+  return row_solve::with_children(children_i32, [&](auto tc) {
+    using TC = typename decltype(tc)::type;
+    return row_solve::with_group(group, A, (int64_t)B * R, blocks, [&](auto g) {
+      sample_children_multi_kernel<decltype(g)::value, TC>
+          <<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
+              (const float*)probs, (int64_t)probs_stride, (const TC*)children,
+              (int64_t)children_stride, B, R, A, K, (const float*)rands,
+              (int32_t*)actions_out, (int32_t*)child_out);
+    });
   });
 }

@@ -16,7 +16,8 @@
 // The logits are read in their storage type, f32 or bf16 (the tree_dtype
 // of MCTSConfig), as the Pallas kernel streams them; a bf16 logit is
 // widened at its load, so the bf16 instantiation solves what the f32 one
-// solves on the logits' f32 copy, bit for bit.
+// solves on the logits' f32 copy, bit for bit. The edge counts are bf16 up
+// to 128 node slots and f32 above (search.tree_dtypes), each instantiated.
 //
 // What bounds it on the H100: device-memory bytes in principle. Each (row,
 // lane) reads 10 bytes (logits f32, n_edge bf16, w_edge f32; 8 with bf16
@@ -35,10 +36,10 @@
 
 namespace {
 
-template <int G, bool kAccel, typename TL>
+template <int G, bool kAccel, typename TL, typename TN>
 __global__ void __launch_bounds__(row_solve::kThreads, row_solve::kMinBlocks)
 solve_probs_kernel(
-    const TL* __restrict__ logits, const __nv_bfloat16* __restrict__ n_edge,
+    const TL* __restrict__ logits, const TN* __restrict__ n_edge,
     const float* __restrict__ w_edge, int B, int R, int A, int64_t env_stride,
     const float* __restrict__ c_puct, const float* __restrict__ q_bounds, int n_iters,
     int out_alpha, float* __restrict__ out) {
@@ -52,9 +53,9 @@ solve_probs_kernel(
   const int64_t base = (int64_t)b * env_stride + (int64_t)t * A;
 
   row_solve::Row<G> row;
-  row_solve::solve_row<G, kAccel, TL>(logits + base, n_edge + base, w_edge + base, A,
-                                      __ldg(c_puct + b), __ldg(q_bounds),
-                                      __ldg(q_bounds + 1), n_iters, valid, L, row);
+  row_solve::solve_row<G, kAccel, TL, TN>(logits + base, n_edge + base, w_edge + base, A,
+                                          __ldg(c_puct + b), __ldg(q_bounds),
+                                          __ldg(q_bounds + 1), n_iters, valid, L, row);
   if (!valid) return;
   if (out_alpha) {
     if (L.gl == 0) out[row_id] = row.alpha;
@@ -71,19 +72,22 @@ solve_probs_kernel(
 }  // namespace
 
 extern "C" int solve_probs_launch(
-    const void* logits, int logits_bf16, const void* n_edge, const void* w_edge, int B, int R,
-    int A, int env_stride, const void* c_puct, const void* q_bounds, int n_iters, int accel,
-    int out_alpha, void* out, int group, int blocks, void* stream) {
-  return row_solve::with_logits(logits_bf16, [&](auto tl) {
-    using TL = typename decltype(tl)::type;
-    return row_solve::with_group(group, A, (int64_t)B * R, blocks, [&](auto g) {
-      constexpr int kG = decltype(g)::value;
-      auto kernel =
-          accel ? solve_probs_kernel<kG, true, TL> : solve_probs_kernel<kG, false, TL>;
-      kernel<<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
-          (const TL*)logits, (const __nv_bfloat16*)n_edge, (const float*)w_edge, B, R, A,
-          (int64_t)env_stride, (const float*)c_puct, (const float*)q_bounds, n_iters,
-          out_alpha, (float*)out);
+    const void* logits, int logits_bf16, const void* n_edge, int counts_f32, const void* w_edge,
+    int B, int R, int A, int env_stride, const void* c_puct, const void* q_bounds, int n_iters,
+    int accel, int out_alpha, void* out, int group, int blocks, void* stream) {
+  return row_solve::with_counts(counts_f32, [&](auto tn) {
+    using TN = typename decltype(tn)::type;
+    return row_solve::with_logits(logits_bf16, [&](auto tl) {
+      using TL = typename decltype(tl)::type;
+      return row_solve::with_group(group, A, (int64_t)B * R, blocks, [&](auto g) {
+        constexpr int kG = decltype(g)::value;
+        auto kernel = accel ? solve_probs_kernel<kG, true, TL, TN>
+                            : solve_probs_kernel<kG, false, TL, TN>;
+        kernel<<<(unsigned)blocks, row_solve::kThreads, 0, (cudaStream_t)stream>>>(
+            (const TL*)logits, (const TN*)n_edge, (const float*)w_edge, B, R, A,
+            (int64_t)env_stride, (const float*)c_puct, (const float*)q_bounds, n_iters,
+            out_alpha, (float*)out);
+      });
     });
   });
 }

@@ -18,8 +18,11 @@ The draws of a train step:
 * `slots(B, T)`: the learner's timestep per env, uniform in [0, T), (B,)
   int64.
 * `split()`: the stream of a sub-computation (a Monte Carlo rollout of
-  `envs.validation.MonteCarloAgent`), which JAX draws from a split key;
-  here the same generator, drawn on in order.
+  `envs.validation.MonteCarloAgent`, an agent's move in an arena game),
+  which JAX draws from a split key; here the same generator, drawn on in
+  order.
+* `integer(high)`: an integer in [0, high), the seed of a host-side numpy
+  generator (the GTP agents' random blend, `mohex.MoHexAgent`).
 """
 from __future__ import annotations
 
@@ -63,3 +66,6 @@ class Draws:
 
     def split(self):
         return self
+
+    def integer(self, high):
+        return int(torch.randint(0, high, (), generator=self.generator, device=self.device))

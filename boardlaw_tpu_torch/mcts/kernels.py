@@ -48,10 +48,20 @@ bf16 instantiation that widens a logit to float32 at its load, so on bf16
 logits it computes bit for bit what the f32 kernel computes on their f32
 copy, without making that copy. The twins read `logits.float()`.
 
+The kernels that read the tree's children or edge counts take them in the
+types of `search.tree_dtypes`' rule: (int8 children, bf16 counts) up to 127
+node slots, (int32, bf16) at 128 and (int32, float32) above. Each pair has its instantiation; the int8 one holds a row's
+children in registers, the int32 one loads a draw's child after the draw.
+A CUDA tensor of another type raises; there is no conversion and no
+fallback.
+
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches the
-kernel or raises, with no fallback. Each launch adds one to the wrapper's
-`launches` attribute and nowhere else; a launch of a bf16 instantiation adds
-one to `wrapper.bf16.launches` instead.
+kernel or raises, with no fallback. Each launch adds one to its
+instantiation's entry of `launches` and nowhere else, keyed by `instance`'s
+name: the kernel's own name for f32 logits on the compact tree, `.bf16`
+after it for bf16 logits, `.wide` for int32 children with f32 counts (or
+the one wide type a kernel reads) and `.mixed` for int32 children with bf16
+counts, these two followed by `.bf16` where the logits are bf16.
 
 The kernels are compiled at first use with nvcc for sm_90a, one object per
 source in parallel, linked into one shared library with a plain C interface
@@ -67,7 +77,6 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from types import SimpleNamespace
 
 import torch
 
@@ -138,19 +147,22 @@ def build(verbose=False):
     lib.walk_launch.restype = i
     # the row kernels end in (group, blocks, stream): `row_grid`'s layout
     # the logits' kernels take (logits, logits_bf16, ...)
+    # and take each tree tensor with its type flag: (logits, logits_bf16,
+    # n_edge, counts_f32, w_edge, children, children_i32, ...)
     lib.node_actions_multi_launch.argtypes = [
-        p, i, p, p, p, i, i, i, i, i, p, p, p, i, i, p, p, p, i, i, p]
+        p, i, p, i, p, p, i, i, i, i, i, i, p, p, p, i, i, p, p, p, i, i, p]
     lib.node_actions_multi_launch.restype = i
-    lib.node_actions_launch.argtypes = [p, i, p, p, p, i, i, i, i, p, p, p, p, p, i, i, p]
+    lib.node_actions_launch.argtypes = [
+        p, i, p, i, p, p, i, i, i, i, i, p, p, p, p, p, p, i, i, p]
     lib.node_actions_launch.restype = i
-    lib.descend_launch.argtypes = [p, i, p, p, p, p, i, i, i, p, p, p, p, p, i, i, p]
+    lib.descend_launch.argtypes = [p, i, p, i, p, p, i, p, i, i, i, p, p, p, p, p, i, i, p]
     lib.descend_launch.restype = i
     for name in ("backup_launch", "backup_dense_launch"):
-        getattr(lib, name).argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p]
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, i, p, p]
         getattr(lib, name).restype = i
-    lib.solve_probs_launch.argtypes = [p, i, p, p, i, i, i, i, p, p, i, i, i, p, i, i, p]
+    lib.solve_probs_launch.argtypes = [p, i, p, i, p, i, i, i, i, p, p, i, i, i, p, i, i, p]
     lib.solve_probs_launch.restype = i
-    lib.sample_children_multi_launch.argtypes = [p, i, p, i, i, i, i, i, p, p, p, i, i, p]
+    lib.sample_children_multi_launch.argtypes = [p, i, p, i, i, i, i, i, i, p, p, p, i, i, p]
     lib.sample_children_multi_launch.restype = i
     _lib = lib
     return lib
@@ -185,21 +197,84 @@ def _is_bf16(logits):
     return int(logits.dtype == torch.bfloat16)
 
 
-def _launched(wrapper, logits):
-    """Count one launch of `wrapper`'s instantiation for `logits`."""
-    (wrapper.bf16 if _is_bf16(logits) else wrapper).launches += 1
+# the tree's (children, n_edge) storage types the kernels are instantiated
+# for: search.tree_dtypes' three pairs
+TREE_DTYPES = ((torch.int8, torch.bfloat16), (torch.int32, torch.bfloat16),
+               (torch.int32, torch.float32))
+
+
+def _check_tree_dtypes(children, n_edge):
+    """children and n_edge (either may be None) in a pair of
+    `TREE_DTYPES`."""
+    if children is not None:
+        _check(children.dtype in (torch.int8, torch.int32),
+               f"children must be int8 or int32, got {children.dtype}")
+    if n_edge is not None:
+        _check(n_edge.dtype in (torch.bfloat16, torch.float32),
+               f"n_edge must be bfloat16 or float32, got {n_edge.dtype}")
+    if children is not None and n_edge is not None:
+        _check((children.dtype, n_edge.dtype) in TREE_DTYPES,
+               f"no kernel takes {children.dtype} children with {n_edge.dtype} edge counts")
+
+
+def _is_i32(children):
+    """The launchers' `children_i32` flag."""
+    return int(children.dtype == torch.int32)
+
+
+def _is_f32(n_edge):
+    """The launchers' `counts_f32` flag."""
+    return int(n_edge.dtype == torch.float32)
+
+
+# what each kernel reads of the tree: (l)ogits, (c)hildren, edge cou(n)ts
+READS = {"walk": "", "node_actions_multi": "lcn", "node_actions": "lcn", "descend": "lcn",
+         "backup": "n", "backup_dense": "n", "solve_probs": "ln", "sample_children_multi": "c"}
+
+
+def instance(name, logits=None, children=None, counts=None):
+    """The name of kernel `name`'s instantiation (its key in `launches`) for a
+    tree whose logits, children and edge counts have these dtypes; those
+    the kernel does not read are ignored. `.wide` for f32 counts (or int32
+    children where the kernel reads no counts), `.mixed` for int32 children
+    with bf16 counts, then `.bf16` for bf16 logits: "node_actions.wide",
+    "solve_probs.bf16", "node_actions_multi.mixed.bf16", ..."""
+    reads = READS[name]
+    tag = ""
+    if "n" in reads and counts == torch.float32:
+        tag = ".wide"
+    elif "c" in reads and children == torch.int32:
+        tag = ".mixed" if "n" in reads else ".wide"
+    if "l" in reads and logits == torch.bfloat16:
+        tag += ".bf16"
+    return name + tag
+
+
+# launches of every instantiation, by `instance`'s name: "walk",
+# "node_actions.bf16", "descend.wide", "node_actions_multi.mixed.bf16", ...
+launches = dict.fromkeys((instance(name, logits, children, counts) for name in READS
+                          for logits in LOGITS_DTYPES for children, counts in TREE_DTYPES), 0)
+
+
+def _launched(name, logits=None, children=None, n_edge=None):
+    """Count one launch of kernel `name`'s instantiation for these
+    tensors."""
+    dtypes = (None if x is None else x.dtype for x in (logits, children, n_edge))
+    launches[instance(name, *dtypes)] += 1
 
 
 def _check_tree_rows(logits, n_edge, w_edge, children, B, T, A):
     """The solve's (B,T,A) row inputs (children may be None) in their
-    storage types, sharing one env stride; logits f32 or bf16."""
+    storage types, sharing one env stride; logits f32 or bf16, children and
+    n_edge a pair of `TREE_DTYPES`."""
     _check_logits_dtype(logits)
+    _check_tree_dtypes(children, n_edge)
     _check_rows(logits, "logits", logits.dtype, B, T, A)
-    _check_rows(n_edge, "n_edge", torch.bfloat16, B, T, A)
+    _check_rows(n_edge, "n_edge", n_edge.dtype, B, T, A)
     _check_rows(w_edge, "w_edge", torch.float32, B, T, A)
     strides = {logits.stride(0), n_edge.stride(0), w_edge.stride(0)}
     if children is not None:
-        _check_rows(children, "children", torch.int8, B, T, A)
+        _check_rows(children, "children", children.dtype, B, T, A)
         strides.add(children.stride(0))
     _check(len(strides) == 1, "tree tensors must share one env stride")
 
@@ -382,11 +457,8 @@ def _walk_launch(terminal, acts, nxt, max_levels, design=None):
         terminal.stride(0), L, WALK_DESIGNS[design or walk_design(K, R)], out.data_ptr(),
         torch.cuda.current_stream(acts.device).cuda_stream)
     _raise_on(err, "walk")
-    walk.launches += 1
+    launches["walk"] += 1
     return out[:N], out[N:2 * N], out[2 * N:3 * N], out[3 * N:].view(N, L)
-
-
-walk.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -408,9 +480,10 @@ def node_actions_multi(logits, n_edge, w_edge, children, rands, c_puct, q_bounds
                        n_iters=6, accel=True, return_alpha=False):
     """All-node solve + K draws.
 
-    logits f32 or bf16, n_edge bf16, w_edge f32, children int8, each
-    (B,T,A) with contiguous (T,A) rows (a leading-T slice of a wider node
-    axis is fine); rands (B,K,T) f32; c_puct (B,) f32; q_bounds (2,) f32 on
+    logits f32 or bf16, n_edge bf16 or f32, w_edge f32, children int8 or
+    int32 (a pair of `TREE_DTYPES`), each (B,T,A) with contiguous (T,A) rows
+    (a leading-T slice of a wider node axis is fine); rands (B,K,T) f32;
+    c_puct (B,) f32; q_bounds (2,) f32 on
     the device (lo, hi). -> actions, children (B,K,T) int32, plus the solved alpha
     (B,T) f32 when `return_alpha` (a debug output for checking the solve)."""
     if logits.device.type == "cpu":
@@ -427,34 +500,38 @@ def node_actions_multi(logits, n_edge, w_edge, children, rands, c_puct, q_bounds
     alpha = torch.empty((B, T), dtype=torch.float32, device=dev) if return_alpha else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.node_actions_multi_launch(
-        logits.data_ptr(), _is_bf16(logits), n_edge.data_ptr(), w_edge.data_ptr(),
-        children.data_ptr(), B, T, A, K, logits.stride(0),
+        logits.data_ptr(), _is_bf16(logits), n_edge.data_ptr(), _is_f32(n_edge),
+        w_edge.data_ptr(), children.data_ptr(), _is_i32(children), B, T, A, K, logits.stride(0),
         rands.data_ptr(), c_puct.data_ptr(), q_bounds.data_ptr(), n_iters, int(accel),
         actions.data_ptr(), childs.data_ptr(), alpha.data_ptr() if return_alpha else None,
         *row_grid(B * T, A), stream)
     _raise_on(err, "node_actions_multi")
-    _launched(node_actions_multi, logits)
+    _launched("node_actions_multi", logits, children, n_edge)
     return (actions, childs, alpha) if return_alpha else (actions, childs)
-
-
-node_actions_multi.launches = 0
-node_actions_multi.bf16 = SimpleNamespace(launches=0)
 
 
 # --------------------------------------------------------------------------
 # node_actions (K=1)
 # --------------------------------------------------------------------------
 
-def node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds):
+def node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds,
+                 return_alpha=False):
     """The K=1 all-node solve (up to 16 Newton steps, one-sided test) and
     one draw per node.
 
-    logits f32 or bf16, n_edge bf16, w_edge f32, children int8, each
-    (B,T,A) with contiguous (T,A) rows (a leading-T slice of a wider node
-    axis is fine); rands (B,T) f32; c_puct (B,) f32; q_bounds (2,) f32 on
-    the device. -> actions, children (B,T) int32."""
+    logits f32 or bf16, n_edge bf16 or f32, w_edge f32, children int8 or
+    int32 (a pair of `TREE_DTYPES`), each (B,T,A) with contiguous (T,A) rows
+    (a leading-T slice of a wider node axis is fine); rands (B,T) f32;
+    c_puct (B,) f32; q_bounds (2,) f32 on the device. -> actions, children
+    (B,T) int32, plus the roots alpha (B,T) f32 the draws used when
+    `return_alpha` (a debug output for checking the solve)."""
     if logits.device.type == "cpu":
-        return search.node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds)
+        if not return_alpha:
+            return search.node_actions(logits, n_edge, w_edge, children, rands, c_puct,
+                                       q_bounds)
+        probs, alpha = search.node_probs(logits, n_edge, w_edge, c_puct, q_bounds,
+                                         return_alpha=True)
+        return search._sample_children(children, probs, rands) + (alpha,)
     B, T, A = logits.shape
     _check_tree_rows(logits, n_edge, w_edge, children, B, T, A)
     _check_solve_args(rands, c_puct, q_bounds, (B, T))
@@ -462,18 +539,17 @@ def node_actions(logits, n_edge, w_edge, children, rands, c_puct, q_bounds):
     dev = logits.device
     actions = torch.empty((B, T), dtype=torch.int32, device=dev)
     childs = torch.empty((B, T), dtype=torch.int32, device=dev)
+    alpha = torch.empty((B, T), dtype=torch.float32, device=dev) if return_alpha else None
     err = lib.node_actions_launch(
-        logits.data_ptr(), _is_bf16(logits), n_edge.data_ptr(), w_edge.data_ptr(),
-        children.data_ptr(), B, T, A, logits.stride(0), rands.data_ptr(), c_puct.data_ptr(),
-        q_bounds.data_ptr(), actions.data_ptr(), childs.data_ptr(), *row_grid(B * T, A),
+        logits.data_ptr(), _is_bf16(logits), n_edge.data_ptr(), _is_f32(n_edge),
+        w_edge.data_ptr(), children.data_ptr(), _is_i32(children), B, T, A, logits.stride(0),
+        rands.data_ptr(), c_puct.data_ptr(),
+        q_bounds.data_ptr(), actions.data_ptr(), childs.data_ptr(),
+        alpha.data_ptr() if return_alpha else None, *row_grid(B * T, A),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "node_actions")
-    _launched(node_actions, logits)
-    return actions, childs
-
-
-node_actions.launches = 0
-node_actions.bf16 = SimpleNamespace(launches=0)
+    _launched("node_actions", logits, children, n_edge)
+    return (actions, childs, alpha) if return_alpha else (actions, childs)
 
 
 # --------------------------------------------------------------------------
@@ -483,16 +559,18 @@ node_actions.bf16 = SimpleNamespace(launches=0)
 def descend(tree, rands):
     """Each env's root->leaf walk over `tree` (a `search.Tree`), solving and
     sampling each visited row with rands (B,T) f32 -> (parents, actions)
-    (B,) int32; the tree's logits f32 or bf16. Bit-equal to
+    (B,) int32; the tree's logits f32 or bf16, its children and n_edge a
+    pair of `TREE_DTYPES`. Bit-equal to
     `search.node_actions` + `walk` on the same tree and rands."""
     if rands.device.type == "cpu":
         return search.descend_reference(tree, rands)
     B, T, A = tree.logits.shape
     _check_logits_dtype(tree.logits)
+    _check_tree_dtypes(tree.children, tree.n_edge)
     _check_node(tree.logits, "logits", tree.logits.dtype, (B, T, A))
-    _check_node(tree.n_edge, "n_edge", torch.bfloat16, (B, T, A))
+    _check_node(tree.n_edge, "n_edge", tree.n_edge.dtype, (B, T, A))
     _check_node(tree.w_edge, "w_edge", torch.float32, (B, T, A))
-    _check_node(tree.children, "children", torch.int8, (B, T, A))
+    _check_node(tree.children, "children", tree.children.dtype, (B, T, A))
     _check_node(tree.terminal, "terminal", torch.bool, (B, T))
     q_bounds = search._q_bounds(tree)
     _check_solve_args(rands, tree.c_puct, q_bounds, (B, T))
@@ -502,16 +580,13 @@ def descend(tree, rands):
     actions = torch.empty((B,), dtype=torch.int32, device=dev)
     err = lib.descend_launch(
         tree.logits.data_ptr(), _is_bf16(tree.logits), tree.n_edge.data_ptr(),
-        tree.w_edge.data_ptr(), tree.children.data_ptr(), tree.terminal.data_ptr(), B, T, A,
+        _is_f32(tree.n_edge), tree.w_edge.data_ptr(), tree.children.data_ptr(),
+        _is_i32(tree.children), tree.terminal.data_ptr(), B, T, A,
         rands.data_ptr(), tree.c_puct.data_ptr(), q_bounds.data_ptr(), parents.data_ptr(),
         actions.data_ptr(), *row_grid(B, A), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "descend")
-    _launched(descend, tree.logits)
+    _launched("descend", tree.logits, tree.children, tree.n_edge)
     return parents, actions
-
-
-descend.launches = 0
-descend.bf16 = SimpleNamespace(launches=0)
 
 
 # --------------------------------------------------------------------------
@@ -519,17 +594,19 @@ descend.bf16 = SimpleNamespace(launches=0)
 # --------------------------------------------------------------------------
 
 def _check_backup(tree, leaves, n_per_visit):
-    """Every tensor the backup kernels read or write, in its storage type,
-    whole and contiguous: storage type and shape first, then the device, so
-    the refusals are testable on the CPU. Returns (B, T, A, S)."""
+    """Every tensor the backup kernels read or write, in its storage type
+    (n_edge bf16 or f32), whole and contiguous: storage type and shape
+    first, then the device, so the refusals are testable on the CPU.
+    Returns (B, T, A, S)."""
     B, T, S = tree.w.shape
     A = tree.n_edge.shape[-1]
     _check_stored(leaves, "leaves", torch.int32, (B,))
+    _check_tree_dtypes(None, tree.n_edge)
     stored = (("v", torch.float32, (B, T, S)), ("parents", torch.int32, (B, T)),
               ("relation", torch.int32, (B, T)), ("seats", torch.int32, (B, T)),
               ("terminal", torch.bool, (B, T)), ("rewards", torch.float32, (B, T, S)),
               ("n", torch.int32, (B, T)), ("w", torch.float32, (B, T, S)),
-              ("n_edge", torch.bfloat16, (B, T, A)), ("w_edge", torch.float32, (B, T, A)))
+              ("n_edge", tree.n_edge.dtype, (B, T, A)), ("w_edge", torch.float32, (B, T, A)))
     for name, dtype, shape in stored:
         _check_stored(getattr(tree, name), name, dtype, shape)
     if S > 4:
@@ -553,7 +630,8 @@ def _backup_launch(name, tree, leaves, n_per_visit):
         tree.v.data_ptr(), leaves.data_ptr(), tree.parents.data_ptr(), tree.relation.data_ptr(),
         tree.seats.data_ptr(), tree.terminal.data_ptr(), tree.rewards.data_ptr(), B, T, A, S,
         int(n_per_visit), tree.n.data_ptr(), tree.w.data_ptr(), tree.n_edge.data_ptr(),
-        tree.w_edge.data_ptr(), torch.cuda.current_stream(leaves.device).cuda_stream)
+        _is_f32(tree.n_edge), tree.w_edge.data_ptr(),
+        torch.cuda.current_stream(leaves.device).cuda_stream)
     _raise_on(err, name)
 
 
@@ -565,11 +643,8 @@ def backup(tree, leaves, n_per_visit):
     if leaves.device.type == "cpu":
         return search.backup(tree, leaves, n_per_visit)
     _backup_launch("backup", tree, leaves, n_per_visit)
-    backup.launches += 1
+    _launched("backup", n_edge=tree.n_edge)
     return tree
-
-
-backup.launches = 0
 
 
 def backup_dense(tree, leaves, n_per_visit):
@@ -582,11 +657,8 @@ def backup_dense(tree, leaves, n_per_visit):
     if leaves.device.type == "cpu":
         return search.backup(tree, leaves, n_per_visit, edge="dense")
     _backup_launch("backup_dense", tree, leaves, n_per_visit)
-    backup_dense.launches += 1
+    _launched("backup_dense", n_edge=tree.n_edge)
     return tree
-
-
-backup_dense.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -604,7 +676,7 @@ def solve_probs_ref(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=6, accel=T
 def solve_probs(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=6, accel=True, out="probs"):
     """The all-node solve alone.
 
-    logits f32 or bf16, n_edge bf16, w_edge f32, each (B,R,A) with
+    logits f32 or bf16, n_edge bf16 or f32, w_edge f32, each (B,R,A) with
     contiguous (R,A) rows and one env stride (a leading-R slice of a wider node axis is
     fine); c_puct (B,) f32; q_bounds (2,) f32 on the device (lo, hi).
     -> probs (B,R,A) f32, contiguous, or with out="alpha" the roots (B,R)
@@ -619,17 +691,13 @@ def solve_probs(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=6, accel=True,
     dev = logits.device
     res = torch.empty((B, R) if out == "alpha" else (B, R, A), dtype=torch.float32, device=dev)
     err = lib.solve_probs_launch(
-        logits.data_ptr(), _is_bf16(logits), n_edge.data_ptr(), w_edge.data_ptr(), B, R, A,
-        logits.stride(0),
+        logits.data_ptr(), _is_bf16(logits), n_edge.data_ptr(), _is_f32(n_edge),
+        w_edge.data_ptr(), B, R, A, logits.stride(0),
         c_puct.data_ptr(), q_bounds.data_ptr(), n_iters, int(accel), int(out == "alpha"),
         res.data_ptr(), *row_grid(B * R, A), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "solve_probs")
-    _launched(solve_probs, logits)
+    _launched("solve_probs", logits, n_edge=n_edge)
     return res
-
-
-solve_probs.launches = 0
-solve_probs.bf16 = SimpleNamespace(launches=0)
 
 
 def sample_children_multi_ref(probs, children, rands):
@@ -643,7 +711,7 @@ def sample_children_multi_ref(probs, children, rands):
 def sample_children_multi(probs, children, rands):
     """K draws per node row from solved probs.
 
-    probs (B,R,A) f32 and children (B,R,A) int8, each with contiguous (R,A)
+    probs (B,R,A) f32 and children (B,R,A) int8 or int32, each with contiguous (R,A)
     rows (a leading-R slice of a wider node axis is fine); rands (B,K,R)
     f32. -> actions, child (B,K,R) int32; bit-equal to the twin."""
     if probs.device.type == "cpu":
@@ -651,7 +719,8 @@ def sample_children_multi(probs, children, rands):
     B, R, A = probs.shape
     K = rands.shape[1]
     _check_rows(probs, "probs", torch.float32, B, R, A)
-    _check_rows(children, "children", torch.int8, B, R, A)
+    _check_tree_dtypes(children, None)
+    _check_rows(children, "children", children.dtype, B, R, A)
     _check(rands.is_cuda and rands.dtype == torch.float32 and rands.is_contiguous()
            and rands.dim() == 3 and tuple(rands.shape) == (B, K, R),
            f"rands must be contiguous {(B, K, R)} f32")
@@ -660,12 +729,10 @@ def sample_children_multi(probs, children, rands):
     actions = torch.empty((B, K, R), dtype=torch.int32, device=dev)
     childs = torch.empty((B, K, R), dtype=torch.int32, device=dev)
     err = lib.sample_children_multi_launch(
-        probs.data_ptr(), probs.stride(0), children.data_ptr(), children.stride(0), B, R, A, K,
+        probs.data_ptr(), probs.stride(0), children.data_ptr(), _is_i32(children),
+        children.stride(0), B, R, A, K,
         rands.data_ptr(), actions.data_ptr(), childs.data_ptr(), *row_grid(B * R, A),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "sample_children_multi")
-    sample_children_multi.launches += 1
+    _launched("sample_children_multi", children=children)
     return actions, childs
-
-
-sample_children_multi.launches = 0

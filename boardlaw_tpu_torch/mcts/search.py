@@ -57,10 +57,18 @@ class MCTSConfig:
 
     The knobs that describe only TPU dataflow are not carried: the
     `pallas_*` switches and block sizes, `use_pallas`, `write_mode`,
-    `gather_mode`, `mesh`/`mesh_axis` and `compact`. The port runs its
-    kernels on the card and keeps the compact tree (int8 children, bf16 edge
-    counts). Its kernels sample with the log-shift prefix sum (the JAX
-    `sample_cum='shift'` order); the K>1 torch sampler follows `sample_cum`.
+    `gather_mode`, `mesh`/`mesh_axis` and `compact` (JAX's switch to the
+    wide types at every tree size, which no caller turns off). The port runs
+    its kernels on the card. Its kernels sample with the log-shift prefix
+    sum (the JAX `sample_cum='shift'` order); the K>1 torch sampler follows
+    `sample_cum`.
+
+    The tree's bookkeeping types follow JAX's rule for its default
+    `compact=True` (`tree_dtypes`): int8 children while the tree has at
+    most 127 node slots, else int32; bf16 edge counts while 2T <= 256
+    (every count, even counted once per seat, is then exact in bf16), else
+    float32. Every kernel has an instantiation for each pair the rule
+    gives: (int8, bf16), (int32, bf16) at T = 128, and (int32, float32).
 
     `tree_dtype` is the storage type of the tree's logits, torch.float32 or
     torch.bfloat16 (the JAX flagship's): every write rounds into it, every
@@ -131,10 +139,6 @@ class MCTSConfig:
         if self.backup_kernel not in ("ops", "delta", "dense"):
             raise ValueError(f"backup_kernel must be 'ops', 'delta' or 'dense', "
                              f"got {self.backup_kernel!r}")
-        if tree_size(self) > 127:
-            raise ValueError(
-                f"n_nodes={self.n_nodes} needs {tree_size(self)} node slots; the compact "
-                "tree (int8 children) holds at most 127")
 
     @property
     def n_passes(self):
@@ -146,13 +150,22 @@ def tree_size(cfg):
     return 1 + cfg.leaves_per_pass * (-(-(cfg.n_nodes - 1) // cfg.leaves_per_pass))
 
 
+def tree_dtypes(cfg):
+    """(children, n_edge) storage types of `cfg`'s tree, by JAX's rule
+    (`build` there, with its default `compact=True`)."""
+    T = tree_size(cfg)
+    children = torch.int8 if T <= 127 else torch.int32
+    counts = torch.bfloat16 if 2 * T <= 256 else torch.float32
+    return children, counts
+
+
 @dataclass
 class Tree:
     """The search tree of every env. Edge statistics mirror child node
     statistics: n_edge[b,p,a] == n[b,c] and w_edge[b,p,a] == w[b,c,seat(p)]
     for the edge (p, a) -> c."""
 
-    children: torch.Tensor  # (B,T,A) int8, -1 = unexpanded
+    children: torch.Tensor  # (B,T,A) int8 or int32 (`tree_dtypes`), -1 = unexpanded
     parents: torch.Tensor  # (B,T) int32, -1 = no parent
     relation: torch.Tensor  # (B,T) int32, action that led here
     worlds: object  # world dataclass with fields (B,T,...)
@@ -163,7 +176,7 @@ class Tree:
     v: torch.Tensor  # (B,T,S) f32 network value per node
     n: torch.Tensor  # (B,T) int32 visit counts
     w: torch.Tensor  # (B,T,S) f32 value sums
-    n_edge: torch.Tensor  # (B,T,A) bf16 visits of each child (exact up to 256)
+    n_edge: torch.Tensor  # (B,T,A) bf16 (exact up to 256) or f32 visits of each child
     w_edge: torch.Tensor  # (B,T,A) f32 child value sums for the parent's seat
     c_puct: torch.Tensor  # (B,) f32
     sim: int  # next free node slot
@@ -184,6 +197,7 @@ def build(world, cfg: MCTSConfig):
     dev = world.device
     f32 = torch.float32
     K = cfg.leaves_per_pass
+    child_dtype, count_dtype = tree_dtypes(cfg)
 
     def zeros(*shape, dtype=f32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -192,7 +206,7 @@ def build(world, cfg: MCTSConfig):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
     return Tree(
-        children=full((B, T, A), -1, torch.int8),
+        children=full((B, T, A), -1, child_dtype),
         parents=full((B, T), -1, torch.int32),
         relation=full((B, T), -1, torch.int32),
         worlds=_map_world(world, lambda x: x[:, None].expand((B, T) + x.shape[1:]).clone()),
@@ -203,7 +217,7 @@ def build(world, cfg: MCTSConfig):
         v=zeros(B, T, S),
         n=zeros(B, T, dtype=torch.int32),
         w=zeros(B, T, S),
-        n_edge=zeros(B, T, A, dtype=torch.bfloat16),
+        n_edge=zeros(B, T, A, dtype=count_dtype),
         w_edge=zeros(B, T, A),
         c_puct=full((B,), cfg.c_puct, f32),
         sim=0,

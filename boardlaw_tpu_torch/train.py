@@ -433,11 +433,11 @@ def run(boardsize, width, depth, desc="", nodes=64, c_puct=1 / 16, lr=1e-3, n_en
     checkpoint: the weights, the Adam state and the step counter, the
     storer's sample/FLOP/time accounting seeded from it. As in the JAX
     package, a resumed run mixes fresh worlds and refills its buffer from
-    `cfg.seed`'s draws. `arena=True` and `n_devices > 1` raise: the port has
-    no live arena (arena/) and no multi-card training (parallel/) yet."""
-    if arena:
-        raise NotImplementedError("arena=True needs the live arena, and the port has no "
-                                  "arena/ yet")
+    `cfg.seed`'s draws. `arena=True` spawns the live arena
+    (`arena.live.run`, with `arena_ladder` "rollout" or "external"), which
+    evaluates the run's latest checkpoint on the same device while the run
+    trains and is terminated when it ends. `n_devices > 1` raises: the port
+    has no multi-card training (parallel/) yet."""
     if n_devices is not None and n_devices > 1:
         raise NotImplementedError("n_devices > 1 needs the env-sharded learner, and the port "
                                   "has no parallel/ yet")
@@ -478,40 +478,50 @@ def run(boardsize, width, depth, desc="", nodes=64, c_puct=1 / 16, lr=1e-3, n_en
                     n_samples=resumed_payload.get("n_samples", 0.0),
                     runtime=resumed_payload.get("runtime", 0.0))
 
-    with logs.to_run(run_name), stats.to_run(run_name):
-        log.info(f"set-up: init (mix) {init_s:.3f} s, warmup {warmup_s:.3f} s")
-        stats.last("time.setup.init", init_s)
-        stats.last("time.setup.warmup", warmup_s)
-        last = time.perf_counter()
-        while True:
-            state, aux = train_step_fn(state, draws)
-            aux = _host_scalars(aux)
-            now = time.perf_counter()
-            step_s, last = now - last, now
-            with stats.defer():
-                for k, v in aux.items():
-                    if k.startswith(MEAN_PREFIXES):
-                        stats.mean(k, v)
-                # win fractions per finished trajectory
-                n_trajs = max(aux["n-trajs"], 1.0)
-                stats.mean("wins.seat-0", aux["wins.seat-0"], n_trajs)
-                stats.mean("wins.seat-1", aux["wins.seat-1"], n_trajs)
-                stats.rate("sample-rate.actor", cfg.n_envs)
-                stats.rate("step-rate.learner", 1)
-                stats.cumsum("count.samples", cfg.n_envs)
-                stats.mean("n-trajs", aux["n-trajs"])
-                stats.mean("time.step", step_s)
-            pdevice.device(15, device)
-            log.info(f"step {state.step}")
+    live = None
+    if arena:
+        from .arena import live as arena_live
 
-            finished = storer.step(state_dict(state, cfg), cfg.n_envs)
-            if max_steps is not None and state.step >= max_steps:
-                finished = True
-            if finished:
-                # the full payload (n_flops/n_samples/runtime too), so a
-                # resumed run continues the accounting
-                pstorage.save_latest(run_name, storer.payload(state_dict(state, cfg)))
-                break
+        live = arena_live.run(run_name, ladder=arena_ladder, device=device)
+    try:
+        with logs.to_run(run_name), stats.to_run(run_name):
+            log.info(f"set-up: init (mix) {init_s:.3f} s, warmup {warmup_s:.3f} s")
+            stats.last("time.setup.init", init_s)
+            stats.last("time.setup.warmup", warmup_s)
+            last = time.perf_counter()
+            while True:
+                state, aux = train_step_fn(state, draws)
+                aux = _host_scalars(aux)
+                now = time.perf_counter()
+                step_s, last = now - last, now
+                with stats.defer():
+                    for k, v in aux.items():
+                        if k.startswith(MEAN_PREFIXES):
+                            stats.mean(k, v)
+                    # win fractions per finished trajectory
+                    n_trajs = max(aux["n-trajs"], 1.0)
+                    stats.mean("wins.seat-0", aux["wins.seat-0"], n_trajs)
+                    stats.mean("wins.seat-1", aux["wins.seat-1"], n_trajs)
+                    stats.rate("sample-rate.actor", cfg.n_envs)
+                    stats.rate("step-rate.learner", 1)
+                    stats.cumsum("count.samples", cfg.n_envs)
+                    stats.mean("n-trajs", aux["n-trajs"])
+                    stats.mean("time.step", step_s)
+                pdevice.device(15, device)
+                log.info(f"step {state.step}")
+
+                finished = storer.step(state_dict(state, cfg), cfg.n_envs)
+                if max_steps is not None and state.step >= max_steps:
+                    finished = True
+                if finished:
+                    # the full payload (n_flops/n_samples/runtime too), so a
+                    # resumed run continues the accounting
+                    pstorage.save_latest(run_name, storer.payload(state_dict(state, cfg)))
+                    break
+    finally:
+        if live is not None:
+            live.terminate()
+            live.join()
 
     log.info("Finished")
     return run_name

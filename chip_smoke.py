@@ -6,8 +6,9 @@
 Phases, each a hard failure with a non-zero exit, each printing its seconds:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
   2. build the eight CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a),
-     four of them (`node_actions_multi`, `node_actions`, `descend`,
-     `solve_probs`) also in their bf16-logits instantiation;
+     in every instantiation: four of them (`node_actions_multi`,
+     `node_actions`, `descend`, `solve_probs`) also for bf16 logits, and
+     the seven that read children or edge counts also for the wide tree;
   3. the K=8 kernels against their plain PyTorch twins at the shapes of the
      9x9 main path's last pass, on a real mid-search tree:
      `node_actions_multi` draw for draw up to roundoff at CDF boundaries and
@@ -44,8 +45,9 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      are read in place);
   4. the K=1 kernels at the 6x6 path's shapes (`best_config(6)`, 32,768
      envs, T=64, A=36) on a real tree after 30 sims: `node_actions` draw for
-     draw up to CDF boundaries (timed on all T rows and on the tree.sim live
-     rows the search hands it), `descend` equal to `node_actions` + `walk`,
+     draw up to CDF boundaries, its alpha (a debug output) to rtol 1e-5 of
+     the twin's and equal to `solve_probs`' at 16 Newton steps (timed on
+     all T rows and on the tree.sim live rows the search hands it), `descend` equal to `node_actions` + `walk`,
      `backup` and `backup_dense` equal to `search.backup` bit for bit in n,
      w, n_edge and w_edge (timed there and on an all-chains tree of the same
      shapes, every env a chain of depth T-1, also bit-equal); `walk` by
@@ -111,13 +113,39 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      for bit, the loop's stats channels, `count.samples` by the numpy
      reader; the set-up seconds, the median s/step inside `run` beside 5d's
      bare `train_step`, the snapshot writes' ms and the peak memory;
-  8. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
-     shape, with its figures at the first grow pass, the 6x6 K=1 tree and
-     the chains beside, and each design's times; the four bf16
-     instantiations as entries of their own, `node_actions_multi.bf16`, ...,
-     with their launches from phase 5i and bounds with 2-byte logits; each
-     kernel's launches on the paths of phases 6a, 6b and 7 under
-     `slice_launches`), and the last line {"ok": true, "device": {...}}.
+  8. the wide tree (`n_nodes` > 127: int32 children, f32 edge counts above
+     128 slots, int32 with bf16 at 128) at full width, the 9x9 512x4
+     FCModel: K=1 searches at 256 nodes (`--envs` envs) on the default
+     route and on `descend` with each backup kernel, at 128 nodes on the
+     default and 'delta' routes; one grow and one scan actor step of
+     `make_config(9, 512, 4, nodes=512)` (T = 513) at half the envs; at
+     4,096 envs the bf16-logits searches on wide trees and a one-pass
+     K = 127 search (T = 128); each with its launch counts, seconds and
+     peak memory. On mid-search trees every wide instantiation against its
+     twin by the rules of phases 3, 3b and 4 (the backups and `walk` bit
+     for bit, `walk` at (K, R, L) = (1, 256, 256), (1, 128, 128) and
+     (8, 513, 65)), the bf16 ones bit-equal to the f32 ones on the logits'
+     f32 copy, the sampler's child pointers above 256 equal to the twin's;
+     searches on the card against the CPU's (64 envs; 16 at 256 nodes);
+  9. evaluation on phase 7's run: agents of its latest and first snapshot
+     (K=1, 128 nodes) on 256 envs; `common.evaluate` of the two (K=8 grow,
+     128 nodes) over 256 envs until every game ends, and the league of the
+     two and `rollout-4` (`neural.evaluate`), each with games/s and moves/s;
+     two `RollingArena.play` rounds (the ledger, activelo on the card,
+     `elo-arena`); `train.run(3, 8, 1, max_steps=3, arena=True)`, whose
+     spawned child writes the ledger and `elo-arena` before the run ends
+     and is terminated with it; `PerfectAgent` against itself on 3x3 (black
+     wins every game) and a 3x3 wide-tree agent (K=1, 200 nodes) against
+     it; one external-ladder game against the bundled GTP engine;
+  10. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
+     shape, with its figures at the first grow pass, the 6x6 K=1 tree, the
+     chains and the wide trees beside, and each design's times; every
+     instantiation (the keys of `kernels.launches`: `.bf16` logits, `.mixed`
+     and `.wide` trees) as an entry of its own, with its launches from the
+     path that runs it (phase 5 or 8) and bounds counting its storage
+     types; each kernel's launches on the paths of phases 6a, 6b, 7, 8 and
+     9 under `slice_launches`), and the last line {"ok": true, "device":
+     {...}}.
 
 Each row kernel's f32 operation bound counts the solver steps its inputs
 need (`kernels.solve_steps`, printed as a histogram), not the step budget.
@@ -176,6 +204,19 @@ def steps_line(steps, A):
     counts = {int(k): int(v) for k, v in zip(*flat.unique(return_counts=True))}
     return (f"solver steps per row {counts}, mean {float(flat.float().mean()):.3f}; a warp of "
             f"{per_warp} rows runs {float(warps.amax(1).float().mean()):.3f} on average")
+
+
+def row_bytes(tree):
+    """Bytes of one (row, action lane) of the tree's solve inputs in their
+    storage types: logits (4 or 2), n_edge (2 or 4), w_edge (4)."""
+    return tree.logits.element_size() + tree.n_edge.element_size() + 4
+
+
+def child_bytes(tree, draws):
+    """Bytes of a row's children that `draws` draws need: the drawn ones
+    (at most the row's A), each in the children's storage type (1 or 4).
+    The rest of the row is never read by the function's definition."""
+    return min(draws, tree.children.shape[-1]) * tree.children.element_size()
 
 
 def card_line():
@@ -263,6 +304,13 @@ def fail(msg):
     raise SystemExit(f"FAILED: {msg}")
 
 
+def lap(label, t0):
+    """Prints the seconds of a part of a phase since `t0`; returns now."""
+    now = time.time()
+    print(f"== {label}: {now - t0:.2f} s", flush=True)
+    return now
+
+
 class Phase:
     """Prints a phase's wall seconds when it ends."""
 
@@ -277,33 +325,27 @@ class Phase:
         print(f"== {self.name}: {time.time() - self.t0:.2f} s", flush=True)
 
 
-def counter(name):
-    """What counts the launches of `name` in `KERNELS`: a wrapper of
-    `kernels`, or the counter of its bf16 instantiation ("node_actions.bf16"
-    is `kernels.node_actions.bf16`)."""
+def reset_counts():
     from boardlaw_tpu_torch.mcts import kernels
 
-    obj = kernels
-    for part in name.split("."):
-        obj = getattr(obj, part)
-    return obj
-
-
-def reset_counts():
-    for name in KERNELS:
-        counter(name).launches = 0
+    for name in kernels.launches:
+        kernels.launches[name] = 0
 
 
 def read_counts():
-    return {name: counter(name).launches for name in KERNELS}
+    """Launches by instantiation, `kernels.launches`' keys."""
+    from boardlaw_tpu_torch.mcts import kernels
+
+    return dict(kernels.launches)
 
 
-def logits_kernel(name, mcfg):
-    """The `KERNELS` name of the instantiation of `name` (a kernel that reads
-    the tree's logits) that `mcfg`'s tree launches."""
-    import torch
+def instance(name, mcfg):
+    """The `kernels.launches` name of the instantiation of kernel `name` that
+    `mcfg`'s tree launches (`kernels.instance` over the types of
+    `search.tree_dtypes` and `tree_dtype`)."""
+    from boardlaw_tpu_torch.mcts import kernels, search
 
-    return f"{name}.bf16" if mcfg.tree_dtype == torch.bfloat16 else name
+    return kernels.instance(name, mcfg.tree_dtype, *search.tree_dtypes(mcfg))
 
 
 def search_launches(mcfg):
@@ -311,19 +353,20 @@ def search_launches(mcfg):
     if mcfg.leaves_per_pass == 1:
         sims = mcfg.n_nodes - 1
         if mcfg.descend_kernel:
-            out = {logits_kernel("descend", mcfg): sims}
+            out = {instance("descend", mcfg): sims}
             if mcfg.backup_kernel != "ops":
-                out["backup_dense" if mcfg.backup_kernel == "dense" else "backup"] = sims
+                backup = "backup_dense" if mcfg.backup_kernel == "dense" else "backup"
+                out[instance(backup, mcfg)] = sims
             return out
-        return {"walk": sims, logits_kernel("node_actions", mcfg): sims}
+        return {"walk": sims, instance("node_actions", mcfg): sims}
     P = mcfg.n_passes
     if mcfg.solve_kernel == "fused":
-        return {"walk": P, logits_kernel("node_actions_multi", mcfg): P}
+        return {"walk": P, instance("node_actions_multi", mcfg): P}
     out = {"walk": P}
     if mcfg.solve_kernel in ("probs", "alpha"):
-        out[logits_kernel("solve_probs", mcfg)] = P
+        out[instance("solve_probs", mcfg)] = P
     if mcfg.sample_kernel:
-        out["sample_children_multi"] = P
+        out[instance("sample_children_multi", mcfg)] = P
     return out
 
 
@@ -335,8 +378,10 @@ def run_path(name, expected, fn):
     out = fn()
     sync()
     counts = read_counts()
-    want = {k: expected.get(k, 0) for k in KERNELS}
-    print(f"launches on {name}: {counts} (expected {want})", flush=True)
+    want = {k: expected.get(k, 0) for k in counts}
+    nonzero = {k: v for k, v in counts.items() if v}
+    print(f"launches on {name}: {nonzero} (expected {expected}; every other instantiation 0)",
+          flush=True)
     if counts != want:
         fail(f"{name}: kernel launches {counts}, expected {want}")
     return counts, out
@@ -437,7 +482,8 @@ def multi_agrees(tree, rands, kw, label):
     return ka, kc, kalpha, ralpha
 
 
-def check_node_actions_multi(tree, cfg, draws, report, key="node_actions_multi"):
+def check_node_actions_multi(tree, cfg, draws, report, key="node_actions_multi",
+                             label="9x9 grow tree"):
     """`node_actions_multi` on `tree` against its twin (`multi_agrees`),
     timed; its figures go to report[key]. Returns the kernel's actions and
     children (B,K,T)."""
@@ -448,7 +494,7 @@ def check_node_actions_multi(tree, cfg, draws, report, key="node_actions_multi")
     K = mcfg.leaves_per_pass
     rands = draws.uniform((B, K, T))
     kw = dict(n_iters=mcfg.solve_iters, accel=mcfg.solve_accel)
-    ka, kc, kalpha, ralpha = multi_agrees(tree, rands, kw, f"9x9 grow tree, {key}")
+    ka, kc, kalpha, ralpha = multi_agrees(tree, rands, kw, f"{label}, {key}")
     args = (tree.logits, tree.n_edge, tree.w_edge, tree.children, rands, tree.c_puct,
             search._q_bounds(tree))
     steps = kernels.solve_steps(*args[:3], tree.c_puct, args[-1], **kw)
@@ -456,8 +502,8 @@ def check_node_actions_multi(tree, cfg, draws, report, key="node_actions_multi")
           f"{kernels.row_layout(A)}: {steps_line(steps, A)}", flush=True)
     k_ms, k_call = both_ms(lambda: kernels.node_actions_multi(*args, **kw), 20)
     r_ms = time_ms(lambda: kernels.node_actions_multi_ref(*args, **kw), 5)
-    lb = tree.logits.element_size()
-    nbytes = (B * T * A * (lb + 2 + 4 + 1) + B * K * T * 4 + B * 4 + 8 + 2 * B * K * T * 4)
+    nbytes = (B * T * (A * row_bytes(tree) + child_bytes(tree, K)) + B * K * T * 4 + B * 4 + 8
+              + 2 * B * K * T * 4)
     ops = solve_ops(steps, A) + draw_ops(B * T, A, K)
     report[key] = dict(
         ms=k_call, device_ms=k_ms, plain_ms=r_ms,
@@ -533,9 +579,9 @@ def check_solve_probs(tree, cfg, rands, report, key="solve_probs"):
     a_ms, a_call = both_ms(lambda: kernels.solve_probs(*rows, tree.c_puct, qb, out="alpha", **kw),
                            20)
     r_ms = time_ms(lambda: search.node_probs(*rows, tree.c_puct, qb, **kw), 5)
-    lb = tree.logits.element_size()
-    nbytes = B * T * A * (lb + 2 + 4 + 4) + B * 4 + 8
-    a_bytes = B * T * A * (lb + 2 + 4) + B * T * 4 + B * 4 + 8
+    solve_row = row_bytes(tree)
+    nbytes = B * T * A * (solve_row + 4) + B * 4 + 8
+    a_bytes = B * T * A * solve_row + B * T * 4 + B * 4 + 8
     ops = solve_ops(steps, A)
     report[key] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes,
                        ops=ops)
@@ -547,9 +593,11 @@ def check_solve_probs(tree, cfg, rands, report, key="solve_probs"):
     return probs, r_probs
 
 
-def check_split_kernels(tree, cfg, draws, report):
+def check_split_kernels(tree, cfg, draws, report, keys=("solve_probs", "sample_children_multi")):
     """`solve_probs` and `sample_children_multi` against their twins and
-    against `node_actions_multi`, on one tree and one set of rands."""
+    against `node_actions_multi`, on one tree and one set of rands; their
+    figures go to report[keys[0]] and report[keys[1]]. Returns the
+    sampler's child pointers (B,K,T)."""
     import torch
     from boardlaw_tpu_torch.mcts import kernels
 
@@ -557,7 +605,7 @@ def check_split_kernels(tree, cfg, draws, report):
     B, T, A = tree.logits.shape
     K = mcfg.leaves_per_pass
     rands = draws.uniform((B, K, T))
-    probs, r_probs = check_solve_probs(tree, cfg, rands, report)
+    probs, r_probs = check_solve_probs(tree, cfg, rands, report, key=keys[0])
 
     ka, kc = kernels.sample_children_multi(r_probs, tree.children, rands)
     ra, rc = kernels.sample_children_multi_ref(r_probs, tree.children, rands)
@@ -570,14 +618,15 @@ def check_split_kernels(tree, cfg, draws, report):
 
     s_ms, s_call = both_ms(lambda: kernels.sample_children_multi(probs, tree.children, rands), 20)
     rs_ms = time_ms(lambda: kernels.sample_children_multi_ref(probs, tree.children, rands), 5)
-    s_bytes = B * T * A * (4 + 1) + B * K * T * (4 + 4 + 4)
+    s_bytes = B * T * (A * 4 + child_bytes(tree, K)) + B * K * T * (4 + 4 + 4)
     s_ops = draw_ops(B * T, A, K)
-    report["sample_children_multi"] = dict(ms=s_call, device_ms=s_ms, plain_ms=rs_ms,
-                                           max_abs_err=0.0, bytes=s_bytes, ops=s_ops)
-    print(f"sample_children_multi: kernel {s_ms:.4f} ms on the card ({s_call:.4f} ms a call), "
+    report[keys[1]] = dict(ms=s_call, device_ms=s_ms, plain_ms=rs_ms, max_abs_err=0.0,
+                           bytes=s_bytes, ops=s_ops)
+    print(f"{keys[1]}: kernel {s_ms:.4f} ms on the card ({s_call:.4f} ms a call), "
           f"twin {rs_ms:.4f} ms a call (median); "
           f"{s_bytes / 1e9:.3f} GB -> bytes bound {s_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
           f"{s_ops / 1e9:.2f} GFLOP -> f32 bound {s_ops / F32_FLOPS * 1e3:.4f} ms", flush=True)
+    return kc
 
 
 def walk_bytes(levels, K, B, R, L):
@@ -719,7 +768,7 @@ def check_search_cpu_vs_gpu(cfg, model, n_envs=64):
     print(f"search on the card vs on the CPU ({cfg.boardsize}x{cfg.boardsize}, {B} envs, "
           f"{cfg.width}x{cfg.depth}, K={mcfg.leaves_per_pass}): {n_same}/{B} trees identical "
           f"in children/n/n_edge, max |w| difference on those {w_err:.3g}", flush=True)
-    if n_same < B - 4 or w_err > 1e-4:
+    if n_same < B - max(1, B // 16) or w_err > 1e-4:
         fail("the search on the card disagrees with the search on the CPU")
 
 
@@ -745,10 +794,15 @@ def k1_mid_search_tree(cfg, model, draws, sims):
 
 def node_actions_agrees(tree, rands, label):
     """`node_actions` against its twin on the leading R rows of `tree`, rands
-    (B,R): at least 99.99% of draws equal, every mismatch within 1e-5 of the
-    twin's CDF at its boundary lane, child pointers equal where the actions
-    are. Returns the kernel's actions and children and the largest
-    |kernel - twin| action difference."""
+    (B,R), as `multi_agrees` holds `node_actions_multi`: at least 99.99% of
+    draws equal, every mismatch between the twin's and the kernel's CDF at
+    its boundary lane (+-1e-5), child pointers equal where the actions are,
+    alpha within rtol 1e-5 on 99.99% of rows (at most 1e-3). The kernel's
+    alpha is its debug output, the root its draws used; it must equal
+    `solve_probs`' at the same 16 Newton steps bit for bit (the two share
+    the device solve). Returns the kernel's actions and children and the
+    largest |kernel - twin| action difference."""
+    import torch
     from boardlaw_tpu_torch.mcts import kernels, search
 
     B, R = rands.shape
@@ -756,28 +810,42 @@ def node_actions_agrees(tree, rands, label):
     qb = search._q_bounds(tree)
     args = (tree.logits[:, :R], tree.n_edge[:, :R], tree.w_edge[:, :R], tree.children[:, :R],
             rands, tree.c_puct, qb)
-    ka, kc = kernels.node_actions(*args)
-    ra, rc = search.node_actions(*args)
+    ka, kc, kalpha = kernels.node_actions(*args, return_alpha=True)
+    # the twin, `search.node_actions`, with its alpha
+    probs, ralpha = search.node_probs(*args[:3], tree.c_puct, qb, return_alpha=True)
+    ra, rc = search._sample_children(args[3], probs, rands)
+    del probs
+    salpha = kernels.solve_probs(*args[:3], tree.c_puct, qb, n_iters=16, accel=False,
+                                 out="alpha")
     sync()
+    same_root = torch.equal(kalpha, salpha)
+    rel = ((kalpha - ralpha).abs() / ralpha.abs()).flatten()
+    alpha_ok = float((rel <= 1e-5).float().mean())
     mism = ka != ra
     n_mism = int(mism.sum())
     frac_equal = 1.0 - n_mism / ka.numel()
     err = float((ka - ra).abs().max())
-    within_1e5 = 0
+    within_1e5 = within_cdfs = 0
     if n_mism:
         b, t = mism.nonzero(as_tuple=True)
-        _, ralpha = search.node_probs(*args[:3], tree.c_puct, qb, return_alpha=True)
-        within_1e5, _ = boundary_counts(tree, qb, (b, t), rands[b, t], ka[b, t], ra[b, t],
-                                        (ralpha,))
+        within_1e5, within_cdfs = boundary_counts(tree, qb, (b, t), rands[b, t], ka[b, t],
+                                                  ra[b, t], (ralpha, kalpha))
     print(f"{label}: node_actions vs twin at (B,T,A)=({B},{R},{A}): draws equal "
           f"{frac_equal:.8f} ({n_mism} differ, {within_1e5} of them within 1e-5 of the twin's "
-          f"CDF at the boundary lane; max |action difference| {err:g})", flush=True)
+          f"CDF at the boundary lane, {within_cdfs} between the twin's and the kernel's CDF "
+          f"there; max |action difference| {err:g}); alpha within rtol 1e-5 on "
+          f"{alpha_ok:.8f} of rows (max rel {float(rel.max()):.3g}), equal to solve_probs' "
+          f"at 16 Newton steps: {same_root}", flush=True)
+    if not same_root:
+        fail(f"{label}: node_actions' alpha differs from solve_probs' at the same 16 steps")
     if not bool(((kc == rc) | mism).all()):
         fail(f"{label}: node_actions child pointers differ where the actions agree")
     if frac_equal < 0.9999:
         fail(f"{label}: node_actions: fewer than 99.99% of draws equal the twin's")
-    if within_1e5 != n_mism:
+    if within_cdfs != n_mism:
         fail(f"{label}: node_actions: a mismatched draw is not explained by a CDF boundary")
+    if alpha_ok < 0.9999 or float(rel.max()) > 1e-3:
+        fail(f"{label}: node_actions: alpha disagrees with the twin")
     return ka, kc, err
 
 
@@ -788,18 +856,18 @@ def node_actions_cost(tree, R):
     B, _, A = tree.logits.shape
     steps = kernels.solve_steps(tree.logits[:, :R], tree.n_edge[:, :R], tree.w_edge[:, :R],
                                 tree.c_puct, search._q_bounds(tree))
-    lb = tree.logits.element_size()
-    nbytes = B * R * A * (lb + 2 + 4 + 1) + B * R * 4 + B * 4 + 8 + 2 * B * R * 4
+    nbytes = B * R * (A * row_bytes(tree) + child_bytes(tree, 1)) + B * R * 4 + B * 4 + 8 \
+        + 2 * B * R * 4
     return nbytes, solve_ops(steps, A) + draw_ops(B * R, A, 1), steps
 
 
-def check_node_actions(tree, rands, report, key="node_actions"):
-    """`node_actions` on the 6x6 tree against its twin, timed on all T rows
+def check_node_actions(tree, rands, report, key="node_actions", board="6x6"):
+    """`node_actions` on the K=1 tree against its twin, timed on all T rows
     and on the live rows; its figures (all T rows) go to report[key]."""
     from boardlaw_tpu_torch.mcts import kernels, search
 
     B, T, A = tree.logits.shape
-    ka, kc, err = node_actions_agrees(tree, rands, f"6x6 K=1 tree, {key}")
+    ka, kc, err = node_actions_agrees(tree, rands, f"{board} K=1 tree, {key}")
     qb = search._q_bounds(tree)
     times = {}
     # all T rows, and the R = tree.sim live rows the search hands over
@@ -850,21 +918,22 @@ def descend_equals(tree, rands, acts, nxt, label):
     return wp, halt, path, err
 
 
-def check_descend(tree, rands, acts, nxt, report, key="descend"):
-    """`descend` on the 6x6 tree against `node_actions` + `walk` and its
+def check_descend(tree, rands, acts, nxt, report, key="descend", board="6x6"):
+    """`descend` on the K=1 tree against `node_actions` + `walk` and its
     twin, timed; its figures go to report[key]. Returns the walks' leaves."""
     import torch
     from boardlaw_tpu_torch.mcts import kernels, search
 
     B, T, A = tree.logits.shape
-    wp, halt, path, err = descend_equals(tree, rands, acts, nxt, f"6x6 K=1 tree, {key}")
+    wp, halt, path, err = descend_equals(tree, rands, acts, nxt, f"{board} K=1 tree, {key}")
     levels = int((path >= 0).sum())
     k_ms, k_call = both_ms(lambda: kernels.descend(tree, rands), 20)
     r_ms = time_ms(lambda: search.descend_reference(tree, rands), 3)
-    # each visited level reads its row (11 bytes a lane, 9 with bf16
-    # logits), its rand and the child's terminal flag; per env the root
-    # flag, c_puct, two outputs
-    nbytes = levels * (A * (7 + tree.logits.element_size()) + 4 + 1) + B * (1 + 4 + 8) + 8
+    # each visited level reads its row's solve inputs (`row_bytes` a lane:
+    # 10, 8 with bf16 logits, 12 with f32 counts), the drawn child, its rand
+    # and the child's terminal flag; per env the root flag, c_puct, two
+    # outputs
+    nbytes = levels * (A * row_bytes(tree) + child_bytes(tree, 1) + 4 + 1) + B * (1 + 4 + 8) + 8
     steps = kernels.solve_steps(tree.logits, tree.n_edge, tree.w_edge, tree.c_puct,
                                 search._q_bounds(tree))
     visited = torch.gather(steps, 1, path.long().clamp_min(0))[path >= 0]
@@ -1120,25 +1189,29 @@ def chain_tree(tree, seed):
         relation=relation, seats=ints(S, (B, T)),
         terminal=torch.rand((B, T), generator=gen, device=dev) < 0.15,
         rewards=normal(B, T, S), v=normal(B, T, S), n=ints(100, (B, T)), w=normal(B, T, S),
-        n_edge=ints(100, (B, T, A)).to(torch.bfloat16), w_edge=normal(B, T, A), sim=T)
+        n_edge=ints(100, (B, T, A)).to(tree.n_edge.dtype), w_edge=normal(B, T, A), sim=T)
 
 
-def time_backups(tree, leaves, label, twin_reps=3):
+def time_backups(tree, leaves, label, twin_reps=3, suffix=""):
     """Median ms of each backup kernel and of the twin on `tree`, and the
-    bytes they need."""
+    bytes they need, keyed by the kernels' names plus `suffix` (".wide"
+    for f32 edge counts)."""
     from boardlaw_tpu_torch.mcts import kernels, search
 
     B, T, S = tree.w.shape
     npv = S
     levels, errs = backups_equal(tree, leaves, label)
-    nbytes = levels * BACKUP_BYTES_PER_LEVEL + B * (4 + 4 * S)
+    # the level's n_edge read and write in its storage type (2 bytes each
+    # in BACKUP_BYTES_PER_LEVEL)
+    per_level = BACKUP_BYTES_PER_LEVEL + 2 * (tree.n_edge.element_size() - 2)
+    nbytes = levels * per_level + B * (4 + 4 * S)
     scratch = tree_copy(tree)
     r_ms = time_ms(lambda: search.backup(scratch, leaves, npv), twin_reps)
     out = {}
     for name in BACKUPS:
         k_ms, k_call = both_ms(lambda: getattr(kernels, name)(scratch, leaves, npv), 20)
-        out[name] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=errs[name],
-                         bytes=nbytes, ops=0)
+        out[name + suffix] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms,
+                                  max_abs_err=errs[name], bytes=nbytes, ops=0)
         print(f"{label}: {name} at (B,T,S)=({B},{T},{S}), {levels} levels: kernel {k_ms:.4f} ms "
               f"on the card ({k_call:.4f} ms a call), twin {r_ms:.4f} ms a call (median); "
               f"{nbytes / 1e6:.2f} MB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms",
@@ -1146,13 +1219,15 @@ def time_backups(tree, leaves, label, twin_reps=3):
     return out
 
 
-def check_backups(tree, leaves, report, seed):
+def check_backups(tree, leaves, report, seed, label="6x6 K=1 tree", suffix="", chains=True):
     """Both backup kernels against `search.backup`, bit for bit, and timed:
-    on `tree` from `leaves` (the kernel table's row) and on its all-chains
-    twin (`chain_tree`) from every env's deepest node."""
+    on `tree` from `leaves` (the kernel table's row) and, with `chains`, on
+    its all-chains twin (`chain_tree`) from every env's deepest node."""
     import torch
 
-    report.update(time_backups(tree, leaves, "6x6 K=1 tree"))
+    report.update(time_backups(tree, leaves, label, suffix=suffix))
+    if not chains:
+        return
     chains = chain_tree(tree, seed)
     B, T = chains.parents.shape
     time_backups(chains, torch.full((B,), T - 1, dtype=torch.int32, device=leaves.device),
@@ -1215,7 +1290,7 @@ def check_k1_variants(cfg, model, worlds, seed):
     sync()
     seconds = {"default route": time.time() - t0}
     counts = {}
-    descend = logits_kernel("descend", mcfg)
+    descend = instance("descend", mcfg)
     for variant, kernels_run in (("ops", (descend,)), ("delta", (descend, "backup")),
                                  ("dense", (descend, "backup_dense"))):
         vcfg = replace(mcfg, descend_kernel=True, backup_kernel=variant)
@@ -1619,79 +1694,517 @@ def check_train_run(args, card, bare_step_s):
     bit, the loop's stats channels and `count.samples` by the numpy reader.
     Prints the set-up seconds, the median s/step inside `run` beside the
     bare `train_step`'s (phase 5d), a snapshot write's ms and the peak
-    memory. Returns the launches of the two calls."""
-    import tempfile
+    memory. Runs in the caller's run root. Returns the launches of the two
+    calls and the run."""
     import torch
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.pavlov import runs, stats, storage
-    from boardlaw_tpu_torch.pavlov.tests import mock_dir
 
     B = args.envs
     cfg = train.make_config(9, 512, 4, n_envs=B)
     per_search = search_launches(cfg.mcts_config())
     launches = {}
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-runs-") as root, mock_dir(root):
-        torch.cuda.reset_peak_memory_stats()
-        for label, steps, kw in (("train.run(9, 512, 4, max_steps=10)", 10, {}),
-                                 ("train.run(..., resume=run, max_steps=12)", 12, "resume")):
-            n_actor = cfg.buffer_len + (steps if kw != "resume" else 2)
-            if kw == "resume":
-                kw = {"resume": run}
-            t0 = time.time()
-            c, run = run_path(label, {k: v * n_actor for k, v in per_search.items()},
-                              lambda: train.run(9, 512, 4, n_envs=B, max_steps=steps, **kw))
-            secs = time.time() - t0
-            for k, v in c.items():
-                launches[k] = launches.get(k, 0) + v
-            payload = storage.load_latest(run)
-            if payload["agent"]["step"] != steps or payload["n_samples"] != steps * B:
-                fail(f"{label}: latest step {payload['agent']['step']}, samples "
-                     f"{payload['n_samples']}, expected {steps} and {steps * B}")
-            print(f"{label}: {secs:.2f} s in all; latest step {payload['agent']['step']}, "
-                  f"{payload['n_samples']:.0f} samples", flush=True)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if runs.list_runs() != [run]:
-            fail(f"resume made another run: {runs.list_runs()}")
+    torch.cuda.reset_peak_memory_stats()
+    for label, steps, kw in (("train.run(9, 512, 4, max_steps=10)", 10, {}),
+                             ("train.run(..., resume=run, max_steps=12)", 12, "resume")):
+        n_actor = cfg.buffer_len + (steps if kw != "resume" else 2)
+        if kw == "resume":
+            kw = {"resume": run}
+        t0 = time.time()
+        c, run = run_path(label, {k: v * n_actor for k, v in per_search.items()},
+                          lambda: train.run(9, 512, 4, n_envs=B, max_steps=steps, **kw))
+        secs = time.time() - t0
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+        payload = storage.load_latest(run)
+        if payload["agent"]["step"] != steps or payload["n_samples"] != steps * B:
+            fail(f"{label}: latest step {payload['agent']['step']}, samples "
+                 f"{payload['n_samples']}, expected {steps} and {steps * B}")
+        print(f"{label}: {secs:.2f} s in all; latest step {payload['agent']['step']}, "
+              f"{payload['n_samples']:.0f} samples", flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if runs.list_runs() != [run]:
+        fail(f"resume made another run: {runs.list_runs()}")
 
-        # a fresh model and optimizer on the card take the payload bit for bit
-        model = train.build_model(cfg, device=DEV)
-        state = train.TrainState(worlds=None, buffer=None, ptr=0, model=model,
-                                 optimizer=train.make_optimizer(cfg, model.parameters()), step=0)
-        train.load_state_dict(state, payload["agent"])
-        saved = payload["agent"]
-        same = all(torch.equal(v.cpu(), saved["params"][k]) for k, v in model.state_dict().items())
-        opt = state.optimizer.state_dict()["state"]
-        same &= all(torch.equal(opt[i][k].cpu(), saved["opt"]["state"][i][k])
-                    for i in saved["opt"]["state"] for k in ("step", "exp_avg", "exp_avg_sq"))
-        if not same or state.step != 12 or len(opt) != len(list(model.parameters())):
-            fail("load_state_dict of the last payload does not reproduce it bit for bit")
+    # a fresh model and optimizer on the card take the payload bit for bit
+    model = train.build_model(cfg, device=DEV)
+    state = train.TrainState(worlds=None, buffer=None, ptr=0, model=model,
+                             optimizer=train.make_optimizer(cfg, model.parameters()), step=0)
+    train.load_state_dict(state, payload["agent"])
+    saved = payload["agent"]
+    same = all(torch.equal(v.cpu(), saved["params"][k]) for k, v in model.state_dict().items())
+    opt = state.optimizer.state_dict()["state"]
+    same &= all(torch.equal(opt[i][k].cpu(), saved["opt"]["state"][i][k])
+                for i in saved["opt"]["state"] for k in ("step", "exp_avg", "exp_avg_sq"))
+    if not same or state.step != 12 or len(opt) != len(list(model.parameters())):
+        fail("load_state_dict of the last payload does not reproduce it bit for bit")
 
-        missing = [c for c in RUN_CHANNELS if c not in stats.channels(run)]
-        if missing:
-            fail(f"train.run wrote no stats channels {missing}")
-        total = float(stats.rows(run, "count.samples")["total"].sum())
-        if total != 12 * B:
-            fail(f"count.samples reads {total}, expected {12 * B}")
-        step_rows = stats.rows(run, "time.step")["total"]
-        inside = statistics.median(list(step_rows[1:10]) + list(step_rows[11:]))
-        setup = {k: stats.rows(run, f"time.setup.{k}")["x"].tolist() for k in ("init", "warmup")}
-        snap = stats.rows(run, "time.save.snapshot")
-        snap_ms = [1e3 * float(x) for x in snap["total"]] if snap is not None else []
-        latest = [1e3 * float(x) for x in stats.rows(run, "time.save.latest")["total"]]
-        ckpt_mb = os.path.getsize(runs.run_dir(run) / "storage.latest.pkl") / 1e6
-        print(f"train.run on the card (9x9, 512x4, {B} envs, K=8 grow, f32): set-up seconds "
-              f"init (mix) {setup['init']}, warmup {setup['warmup']}; s/step inside run, "
-              f"median of the steps after each call's first {inside:.4f} (steps "
-              f"{[round(float(x), 4) for x in step_rows]}); bare train_step (phase 5d) "
-              f"{bare_step_s:.4f}, so run adds {100 * (inside / bare_step_s - 1):.2f}%; snapshot "
-              f"writes {len(snap_ms)}, ms {[round(x, 2) for x in snap_ms]}; latest writes ms "
-              f"{[round(x, 2) for x in latest]}; checkpoint {ckpt_mb:.2f} MB; peak memory "
-              f"{peak_gb:.2f} GB; card: {card}", flush=True)
+    missing = [c for c in RUN_CHANNELS if c not in stats.channels(run)]
+    if missing:
+        fail(f"train.run wrote no stats channels {missing}")
+    total = float(stats.rows(run, "count.samples")["total"].sum())
+    if total != 12 * B:
+        fail(f"count.samples reads {total}, expected {12 * B}")
+    step_rows = stats.rows(run, "time.step")["total"]
+    inside = statistics.median(list(step_rows[1:10]) + list(step_rows[11:]))
+    setup = {k: stats.rows(run, f"time.setup.{k}")["x"].tolist() for k in ("init", "warmup")}
+    snap = stats.rows(run, "time.save.snapshot")
+    snap_ms = [1e3 * float(x) for x in snap["total"]] if snap is not None else []
+    latest = [1e3 * float(x) for x in stats.rows(run, "time.save.latest")["total"]]
+    ckpt_mb = os.path.getsize(runs.run_dir(run) / "storage.latest.pkl") / 1e6
+    print(f"train.run on the card (9x9, 512x4, {B} envs, K=8 grow, f32): set-up seconds "
+          f"init (mix) {setup['init']}, warmup {setup['warmup']}; s/step inside run, "
+          f"median of the steps after each call's first {inside:.4f} (steps "
+          f"{[round(float(x), 4) for x in step_rows]}); bare train_step (phase 5d) "
+          f"{bare_step_s:.4f}, so run adds {100 * (inside / bare_step_s - 1):.2f}%; snapshot "
+          f"writes {len(snap_ms)}, ms {[round(x, 2) for x in snap_ms]}; latest writes ms "
+          f"{[round(x, 2) for x in latest]}; checkpoint {ckpt_mb:.2f} MB; peak memory "
+          f"{peak_gb:.2f} GB; card: {card}", flush=True)
+    return launches, run
+
+
+# --------------------------------------------------------------------------
+# Phase 8: the wide tree (n_nodes > 127)
+# --------------------------------------------------------------------------
+
+def k1_config(cfg, n_nodes, **kw):
+    """`cfg` (9x9 512x4) with the K=1 search of `n_nodes` nodes."""
+    return replace(cfg, n_nodes=n_nodes, leaves_per_pass=1, grow_passes=False, **kw)
+
+
+def timed_search(label, cfg, model, worlds, seed, card, **route):
+    """One search under `cfg`'s search (its `MCTSConfig` with the fields of
+    `route`) through `run_path`, with its launch counts
+    (`search_launches`); prints its seconds and peak memory."""
+    import torch
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.mcts import search
+    from boardlaw_tpu_torch.models.networks import make_eval_fn
+
+    mcfg = replace(cfg.mcts_config(), **route)
+    eval_fn = make_eval_fn(model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    counts, tree = run_path(label, search_launches(mcfg),
+                            lambda: search.mcts(worlds, eval_fn, Draws(seed, DEV), mcfg))
+    secs = time.time() - t0
+    B, T, A = tree.children.shape
+    root = mcfg.leaves_per_pass * mcfg.n_passes * 2
+    if not (tree.n[:, 0] == root).all():
+        fail(f"{label}: root visits {tree.n[:, 0].unique().tolist()}, expected {root}")
+    print(f"{label}: {secs:.3f} s a search ({B} envs, T={T}, children {tree.children.dtype}, "
+          f"n_edge {tree.n_edge.dtype}, logits {tree.logits.dtype}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {card}", flush=True)
+    return counts, tree
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        if v:
+            total[k] = total.get(k, 0) + v
+
+
+def wide_k1_kernels(tree, cfg, draws, report, seed, tag):
+    """The K=1 kernels on a wide K=1 tree (`tag` ".wide" or ".mixed") by the
+    rules of phase 4: `node_actions` and `descend` against their twins and
+    each other, `walk` by every design, both backups bit-equal to their twin
+    (the `.wide` instantiations where the counts are f32, the compact ones
+    at T = 128), `node_actions_multi` at K = 8 on the same rows; then the
+    bf16 instantiations on the tree's bf16 copy, bit-equal to the f32
+    kernels on its f32 copy and timed."""
+    import torch
+
+    B, T = tree.parents.shape
+    rands = draws.uniform((B, T))
+    acts, nxt = check_node_actions(tree, rands, report, key=f"node_actions{tag}", board="9x9")
+    leaves = check_descend(tree, rands, acts, nxt, report, key=f"descend{tag}", board="9x9")
+    report["walk"][f"k1_T{T}"] = time_walk(f"9x9 K=1 tree, T={T}", tree.terminal, acts, nxt, T,
+                                           twin_reps=1)
+    # bf16 counts (T = 128) take the compact backups, whose figures are
+    # phase 4's: here they are checked only
+    wide = tree.n_edge.dtype == torch.float32
+    check_backups(tree, leaves, report if wide else {}, seed, label=f"9x9 K=1 tree, T={T}",
+                  suffix=".wide" if wide else "", chains=False)
+    k8 = replace(cfg, leaves_per_pass=8)
+    check_node_actions_multi(tree, k8, draws, report, key=f"node_actions_multi{tag}",
+                             label=f"9x9 K=1 tree, T={T}, K=8 draws")
+    del acts, nxt, leaves
+    torch.cuda.empty_cache()
+
+    bf = replace(tree, logits=tree.logits.bfloat16())
+    del tree
+    torch.cuda.empty_cache()
+    acts, nxt = check_node_actions(bf, rands, report, key=f"node_actions{tag}.bf16", board="9x9")
+    check_descend(bf, rands, acts, nxt, report, key=f"descend{tag}.bf16", board="9x9")
+    rands_k = draws.uniform((B, 8, T))
+    check_node_actions_multi(bf, k8, draws, report, key=f"node_actions_multi{tag}.bf16",
+                             label=f"9x9 K=1 tree, T={T}, K=8 draws")
+    bf16_equals_f32(bf, ("node_actions", "descend", "node_actions_multi"),
+                    f"9x9 K=1 tree, T={T}, bf16 logits", rands, rands_k,
+                    dict(n_iters=6, accel=True))
+
+
+def check_wide_tree(args, card, report):
+    """Phase 8: the wide tree at full width, the 9x9 512x4 FCModel with
+    random weights from `--seed`. The searches, each with its launch counts:
+    K=1 at n_nodes=256 (int32 children, f32 counts) at `--envs` envs on the
+    default route and on `descend` with each backup kernel; K=1 at
+    n_nodes=128 (int32, bf16); one `make_config(9, 512, 4, nodes=512)` grow
+    actor step (T = 513) and one scan actor step through `solve_probs` +
+    `sample_children_multi`, at half the envs (the twins' temporaries at
+    T = 513 do not fit beside a 32,768-env tree); then, at 4,096 envs, the
+    bf16-logits searches on wide trees and the one-pass K = 127 search
+    (T = 128) of `node_actions_multi`'s mixed instantiations. The kernels
+    against their twins on mid-search trees by the rules of phases 3, 3b
+    and 4; the sampler's child pointers above 256 exact; 64 envs (16 at 256
+    nodes) on the card against the CPU's search. Returns the launches by
+    instantiation."""
+    import torch
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.draws import Draws
+
+    B = args.envs
+    cfg = train.make_config(9, 512, 4, n_envs=B)
+    model = train.build_model(cfg, device=DEV, generator=torch.Generator().manual_seed(args.seed))
+    launches = {}
+    draws = Draws(args.seed + 20, DEV)
+    worlds = mix_worlds(9, B, draws, 40)
+
+    # K=1 at 256 nodes: the default route, descend with each backup kernel
+    t0 = time.time()
+    cfg256 = k1_config(cfg, 256)
+    for variant in (None, "delta", "dense"):
+        route = {} if variant is None else dict(descend_kernel=True, backup_kernel=variant)
+        label = f"9x9 K=1 search, n_nodes=256, {variant or 'default'} route"
+        counts, tree = timed_search(label, cfg256, model, worlds, args.seed + 21, card, **route)
+        add_counts(launches, counts)
+        del tree
+    tree = k1_mid_search_tree(cfg256, model, draws, sims=120)
+    wide_k1_kernels(tree, cfg256, draws, report, args.seed + 22, ".wide")
+    del tree
+    torch.cuda.empty_cache()
+    # 16 envs: the CPU's twins take some 45 s over 64 envs of 256 nodes
+    check_search_cpu_vs_gpu(cfg256, model, n_envs=16)
+
+    # K=1 at 128 nodes: int32 children, bf16 counts
+    t0 = lap("phase 8, K=1 at 256 nodes", t0)
+    cfg128 = k1_config(cfg, 128)
+    for variant in (None, "delta"):
+        route = {} if variant is None else dict(descend_kernel=True, backup_kernel=variant)
+        counts, tree = timed_search(f"9x9 K=1 search, n_nodes=128, {variant or 'default'} route",
+                                    cfg128, model, worlds, args.seed + 23, card, **route)
+        add_counts(launches, counts)
+        del tree
+    tree = k1_mid_search_tree(cfg128, model, draws, sims=80)
+    wide_k1_kernels(tree, cfg128, draws, report, args.seed + 24, ".mixed")
+    del tree, worlds
+    torch.cuda.empty_cache()
+    check_search_cpu_vs_gpu(cfg128, model)
+
+    # the grow and scan searches at 512 nodes (T = 513)
+    t0 = lap("phase 8, K=1 at 128 nodes", t0)
+    B2 = B // 2
+    cfg512 = train.make_config(9, 512, 4, nodes=512, n_envs=B2)
+    mcfg512 = cfg512.mcts_config()
+    draws = Draws(args.seed + 25, DEV)
+    worlds = mix_worlds(9, B2, draws, 40)
+    torch.cuda.reset_peak_memory_stats()
+    root = 2 * mcfg512.leaves_per_pass * mcfg512.n_passes
+    c, (_, step_s) = run_path("one 9x9 grow actor step, nodes=512",
+                              search_launches(mcfg512),
+                              lambda: actor_steps(cfg512, model, worlds, draws, 1, root))
+    add_counts(launches, c)
+    print(f"grow actor step (9x9, 512x4, {B2} envs, nodes=512, T=513, K=8): {step_s[0]:.3f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {card}",
+          flush=True)
+    cfg512s = scan_config(cfg512)
+    torch.cuda.reset_peak_memory_stats()
+    c, (_, step_s) = run_path("one 9x9 scan actor step, nodes=512",
+                              search_launches(cfg512s.mcts_config()),
+                              lambda: actor_steps(cfg512s, model, worlds, draws, 1, root))
+    add_counts(launches, c)
+    print(f"scan actor step (9x9, 512x4, {B2} envs, nodes=512, T=513, K=8, solve_probs + "
+          f"sample_children_multi): {step_s[0]:.3f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {card}", flush=True)
+    del worlds
+    torch.cuda.empty_cache()
+
+    tree = mid_search_tree(cfg512, model, draws, B2, passes=40)
+    ka, kc = check_node_actions_multi(tree, cfg512, draws, report, key="node_actions_multi.wide")
+    report["walk"]["grow_T513"] = time_walk(
+        "9x9 grow tree, T=513", tree.terminal, ka.permute(1, 0, 2), kc.permute(1, 0, 2),
+        search_levels(mcfg512))
+    del ka, kc
+    bf = replace(tree, logits=tree.logits.bfloat16())
+    del tree
+    torch.cuda.empty_cache()
+    check_node_actions_multi(bf, cfg512, draws, report, key="node_actions_multi.wide.bf16")
+    rands_k = draws.uniform((B2, 8, bf.children.shape[1]))
+    bf16_equals_f32(bf, ("node_actions_multi",), "9x9 grow tree, T=513, bf16 logits",
+                    rands_k=rands_k, kw=dict(n_iters=6, accel=True))
+    del bf, rands_k
+    torch.cuda.empty_cache()
+
+    tree = mid_search_tree(cfg512s, model, draws, B2, passes=40)
+    kc = check_split_kernels(tree, cfg512s, draws, report,
+                             keys=("solve_probs.wide", "sample_children_multi.wide"))
+    n_high = int((kc > 256).sum())
+    print(f"sample_children_multi.wide: {n_high} draws' child pointers above 256, each equal to "
+          f"the twin's", flush=True)
+    if n_high == 0:
+        fail("the T=513 scan tree gave no child pointer above 256 to check")
+    bf = replace(tree, logits=tree.logits.bfloat16())
+    del tree, kc
+    torch.cuda.empty_cache()
+    rands_k = draws.uniform((B2, 8, bf.children.shape[1]))
+    check_solve_probs(bf, cfg512s, rands_k, report, key="solve_probs.wide.bf16")
+    bf16_equals_f32(bf, ("solve_probs",), "9x9 scan tree, T=513, bf16 logits",
+                    kw=dict(n_iters=6, accel=True))
+    del bf, rands_k
+    torch.cuda.empty_cache()
+    for c in (cfg512, cfg512s):
+        check_search_cpu_vs_gpu(c, model)
+
+    # the bf16-logits searches on wide trees, and K = 127 at T = 128
+    t0 = lap("phase 8, grow and scan at 512 nodes", t0)
+    B3 = min(4096, B)
+    draws = Draws(args.seed + 26, DEV)
+    worlds = mix_worlds(9, B3, draws, 40)
+    bf = dict(tree_dtype="bfloat16")
+    dense, delta = (dict(descend_kernel=True, backup_kernel=k) for k in ("dense", "delta"))
+    small = [("K=1, n_nodes=256, bf16 logits", k1_config(cfg, 256, **bf), {}),
+             ("K=1, n_nodes=256, bf16 logits, descend + dense", k1_config(cfg, 256, **bf), dense),
+             ("K=1, n_nodes=128, bf16 logits", k1_config(cfg, 128, **bf), {}),
+             ("K=1, n_nodes=128, bf16 logits, descend + delta", k1_config(cfg, 128, **bf), delta),
+             ("K=127, n_nodes=128 (T=128, one pass)",
+              replace(cfg, n_nodes=128, leaves_per_pass=127), {}),
+             ("K=127, n_nodes=128, bf16 logits",
+              replace(cfg, n_nodes=128, leaves_per_pass=127, **bf), {}),
+             ("grow, nodes=512, bf16 logits", replace(cfg512, **bf), {}),
+             ("scan, nodes=512, bf16 logits", replace(cfg512s, **bf), {})]
+    for label, c, route in small:
+        counts, tree = timed_search(f"9x9 search, {label}", replace(c, n_envs=B3), model, worlds,
+                                    args.seed + 27, card, **route)
+        add_counts(launches, counts)
+        del tree
+    del worlds
+    torch.cuda.empty_cache()
+    lap("phase 8, the bf16-logits and K=127 searches", t0)
+    return launches
+
+
+def search_levels(mcfg):
+    """The walk levels of the last pass of a grow search."""
+    from boardlaw_tpu_torch.mcts import search
+
+    return search.pass_shape(mcfg, mcfg.n_passes - 1)[1]
+
+
+# --------------------------------------------------------------------------
+# Phase 9: evaluation on the card
+# --------------------------------------------------------------------------
+
+def counted_path(name, must, fn):
+    """Drive one evaluation path with every count at 0 before; fail unless
+    each kernel in `must` launched at least once (a game's plies, and so
+    its searches, depend on the moves). Returns the counts and the output."""
+    reset_counts()
+    sync()
+    out = fn()
+    sync()
+    counts = read_counts()
+    print(f"launches on {name}: { {k: v for k, v in counts.items() if v} }", flush=True)
+    missing = [k for k in must if counts[k] == 0]
+    if missing:
+        fail(f"{name}: {missing} launched no time")
+    return counts, out
+
+
+def eval_figures(label, results, secs, card):
+    """Checks `common.evaluate`'s results (every game ended, wins sum to
+    games) and prints games/s and moves/s."""
+    games = sum(r["games"] for r in results)
+    moves = sum(r["moves"] for r in results)
+    wins = sum(sum(r["wins"]) for r in results)
+    print(f"{label}: {results}; {games:.0f} games, {moves:.0f} moves in {secs:.2f} s: "
+          f"{games / secs:.2f} games/s, {moves / secs:.1f} moves/s; card: {card}", flush=True)
+    if wins != games:
+        fail(f"{label}: wins {wins} do not sum to games {games}")
+    return games
+
+
+def check_live_arena_run(n_envs, card):
+    """`train.run(3, 8, 1, max_steps=3, arena=True)` (1,024 envs, an
+    8-step buffer, 500 mix steps) with the live arena's child spawned at a 0.5 s
+    interval; its last step waits for the child's first `elo-arena` row
+    (up to 300 s). The child's ledger and stats, and its end with the run.
+    Returns the run."""
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.arena import live
+    from boardlaw_tpu_torch.pavlov import runs, stats
+
+    children = []
+    spawn, step = live.run, train.train_step
+
+    def fast_spawn(run_name, ladder, device):
+        children.append(spawn(run_name, interval=0.5, ladder=ladder, device=device))
+        return children[-1]
+
+    def waiting_step(cfg, state, draws):
+        out = step(cfg, state, draws)
+        if state.step == 3:
+            run = runs.list_runs()[-1]
+            deadline = time.monotonic() + 300
+            while "elo-arena" not in stats.channels(run) and time.monotonic() < deadline:
+                if not children[0].is_alive():
+                    fail("the live arena's child died")
+                time.sleep(0.2)
+        return out
+
+    live.run, train.train_step = fast_spawn, waiting_step
+    t0 = time.time()
+    try:
+        run = train.run(3, 8, 1, max_steps=3, arena=True, n_envs=n_envs, buffer_len=8,
+                        mix_steps=500)
+    finally:
+        live.run, train.train_step = spawn, step
+    trials = live.ledger_trials(run)
+    games = float((trials.black_wins + trials.white_wins).sum())
+    print(f"train.run(3, 8, 1, max_steps=3, arena=True): {time.time() - t0:.2f} s; the child "
+          f"wrote {games:.0f} games to the ledger ({trials.rows()}) and elo-arena rows "
+          f"{stats.rows(run, 'elo-arena').tolist()}; child alive after the run: "
+          f"{children[0].is_alive()}, exit code {children[0].exitcode}; card: {card}", flush=True)
+    if games == 0 or "elo-arena" not in stats.channels(run) or children[0].is_alive():
+        fail("the live arena's child wrote no ledger or elo-arena rows, or outlived the run")
+    return run
+
+
+def check_evaluation(args, card, run):
+    """Phase 9: evaluation on the card, on phase 7's run. Agents of its
+    latest and first snapshot (K=1, n_nodes=128: the mixed tree), one search
+    each on 256 envs; `common.evaluate` of the two over 256 envs until every
+    game ends, on the live arena's K=8 grow route at n_nodes=128 (T = 129,
+    the wide tree); `neural.evaluate`'s league of those two and
+    `rollout-4`; two `RollingArena.play` rounds on the run (ledger, activelo
+    on the card, `elo-arena`); `train.run(3, 8, 1, arena=True)`; the exact
+    3x3 oracle against itself (black always wins) and a 3x3 wide-tree agent
+    (K=1, n_nodes=200) against it; one external-ladder game against the
+    bundled GTP engine. Returns the launches of the phase's paths."""
+    import numpy as np
+    import torch
+    from boardlaw_tpu_torch.arena import common, live, neural, perfect
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.envs import hex
+    from boardlaw_tpu_torch.pavlov import stats
+
+    launches = {}
+    t0 = time.time()
+    grow = dict(live.SEARCH)
+    E = min(256, args.envs)
+    world = common.worlds(run, E)
+
+    # the snapshots' agents, K=1 at 128 nodes
+    latest, first = common.agent(run, n_nodes=128), common.agent(run, idx=0, n_nodes=128)
+    if latest is None or first is None:
+        fail("arena.common.agent found no checkpoint in phase 7's run")
+
+    def both():
+        return [ag(world, Draws(args.seed + 30, DEV), eval=True)["actions"]
+                for ag in (latest, first)]
+
+    c, acts = run_path(f"the snapshots' agents (K=1, n_nodes=128, {E} envs)",
+                       {"node_actions.mixed": 2 * 127, "walk": 2 * 127}, both)
+    add_counts(launches, c)
+    for a in acts:
+        if not world.valid[torch.arange(E, device=DEV), a.long()].all():
+            fail("an arena agent chose an invalid move")
+
+    # common.evaluate over 256 envs, the live arena's grow route at 128 nodes
+    g_latest = common.agent(run, n_nodes=128, **grow)
+    g_first = common.agent(run, idx=0, n_nodes=128, **grow)
+    t0 = time.time()
+    c, results = counted_path(
+        f"common.evaluate (9x9, {E} envs, K=8 grow, n_nodes=128)",
+        ("node_actions_multi.wide", "walk"),
+        lambda: common.evaluate(world, {"latest": g_latest, "first": g_first},
+                                draws=Draws(args.seed + 31, DEV)))
+    add_counts(launches, c)
+    if eval_figures("common.evaluate, latest vs first snapshot", results, time.time() - t0,
+                    card) != E:
+        fail("common.evaluate: not every game ended")
+
+    t0 = lap("phase 9, the agents and common.evaluate", t0)
+    # the league
+    league = {"latest": g_latest, "first": g_first, **live.rollout_ladder((4,))}
+    t0 = time.time()
+    c, trials = counted_path("neural.evaluate (a league of 3, 9x9)",
+                             ("node_actions_multi.wide", "walk", "node_actions"),
+                             lambda: neural.evaluate(9, league, n_envs_per=8, seed=args.seed))
+    add_counts(launches, c)
+    secs = time.time() - t0
+    games = float((trials.black_wins + trials.white_wins).sum())
+    print(f"neural.evaluate league: {trials.rows()}; {games:.0f} games in {secs:.2f} s: "
+          f"{games / secs:.2f} games/s; card: {card}", flush=True)
+    if len(trials) != 6 or games != 6 * 8:
+        fail(f"the league played {games} games over {len(trials)} matchups, expected 48 over 6")
+
+    t0 = lap("phase 9, the league", t0)
+    # the rolling arena on the run: two rounds
+    arena = live.RollingArena(run, search_kwargs=grow)
+    t0 = time.time()
+    with stats.to_run(run):
+        rels = [arena.play(), arena.play()]
+    trials = live.ledger_trials(run)
+    games = float((trials.black_wins + trials.white_wins).sum())
+    print(f"RollingArena: two rounds in {time.time() - t0:.2f} s, elo {rels}, ledger "
+          f"{trials.rows()}, posterior mu {arena.soln.mu.tolist()} over {arena.soln.names}; "
+          f"card: {card}", flush=True)
+    if games != 2 * arena.n_envs or not all(np.isfinite(r) for r in rels) \
+            or "elo-arena" not in stats.channels(run):
+        fail("RollingArena: the ledger, the posterior or elo-arena is wrong")
+
+    t0 = lap("phase 9, RollingArena", t0)
+    # train.run with its live arena
+    run3 = check_live_arena_run(min(1024, args.envs), card)
+
+    t0 = lap("phase 9, train.run(arena=True)", t0)
+    # the exact 3x3 oracle, and a wide-tree agent against it
+    solver = perfect.Solver(3)
+    res = common.evaluate(hex.Hex.initial(8, 3), {"p": perfect.PerfectAgent(solver),
+                                                  "q": perfect.PerfectAgent(solver, 1)})
+    print(f"PerfectAgent against itself on 3x3: {res}; {solver.states_solved()} states solved "
+          f"in {time.time() - t0:.2f} s", flush=True)
+    if [r["wins"] for r in res] != [(4.0, 0.0), (4.0, 0.0)]:
+        fail("perfect play on 3x3: black does not win every game")
+    agent3 = common.agent(run3, n_nodes=200)
+    c, cal = counted_path("perfect.calibrate_exact (3x3, K=1, n_nodes=200)",
+                          ("node_actions.wide", "walk"),
+                          lambda: perfect.calibrate_exact(agent3, 3, n_envs=16))
+    add_counts(launches, c)
+    print(f"a 3x3 wide-tree agent (K=1, n_nodes=200) against perfect play: win rate "
+          f"{cal['winrate']:.3f} over {cal['games']:.0f} games", flush=True)
+    if cal["games"] != 16:
+        fail("calibrate_exact: not every game ended")
+
+    t0 = lap("phase 9, perfect play", t0)
+    # one external-ladder game against the bundled GTP engine
+    ladder = live.external_ladder(randoms=(0.0,), max_proxies=2)
+    try:
+        c, res = counted_path("common.evaluate against the GTP engine (3x3)", ("walk",),
+                              lambda: common.evaluate(hex.Hex.initial(2, 3),
+                                                      {"net": agent3, **ladder}))
+    finally:
+        for a in ladder.values():
+            a.close()
+    add_counts(launches, c)
+    eval_figures("external ladder (3x3, K=1 n_nodes=200 vs the gtphex engine)", res,
+                 time.time() - t0, card)
     return launches
 
 
 # the eight kernels: route, source, the Pallas kernel each replaces
-KERNELS = {
+BASE_KERNELS = {
     "walk": ("cuda", "boardlaw_tpu_torch/csrc/walk.cu", "boardlaw_tpu/mcts/pallas_kernels.py:530"),
     "node_actions_multi": ("cuda", "boardlaw_tpu_torch/csrc/node_actions_multi.cu",
                            "boardlaw_tpu/mcts/pallas_kernels.py:327"),
@@ -1708,12 +2221,6 @@ KERNELS = {
     "sample_children_multi": ("cuda", "boardlaw_tpu_torch/csrc/sample_children_multi.cu",
                               "boardlaw_tpu/mcts/pallas_kernels.py:457"),
 }
-# the bf16 instantiations of the four kernels that read the tree's logits
-# (csrc/row_solve.cuh `load_logit`), each counted on `wrapper.bf16`
-KERNELS.update({f"{name}.bf16": KERNELS[name] for name in
-                ("node_actions_multi", "node_actions", "descend", "solve_probs")})
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--envs", type=int, default=32 * 1024)
@@ -1729,9 +2236,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 1
+    import tempfile
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.draws import Draws
     from boardlaw_tpu_torch.mcts import kernels
+    from boardlaw_tpu_torch.pavlov.tests import mock_dir
 
     # 1. the card
     card = card_line()
@@ -1846,10 +2355,11 @@ def main(argv=None):
                                                    "the 9x9 learner (K=8)")
         torch.cuda.empty_cache()
 
-    # 5e. the 6x6 K=1 learner
+    # 5e. the 6x6 K=1 learner; its warmup cut to 16 actor steps (a
+    # 16-step buffer), the depth that keeps the script inside its time
     with Phase("6x6 K=1 learner"):
-        check_learner(train.best_config(6, n_envs=args.k1_learner_envs), args.seed, 1,
-                      "the 6x6 learner (K=1)")
+        check_learner(train.best_config(6, n_envs=args.k1_learner_envs, buffer_len=16),
+                      args.seed, 1, "the 6x6 learner (K=1, a 16-step buffer)")
         torch.cuda.empty_cache()
 
     # 5f. a tiny train step on the card against the CPU
@@ -1901,12 +2411,29 @@ def main(argv=None):
         slice_launches["planted_hex"] = check_planted_hex(args.seed + 10, args.envs)
         torch.cuda.empty_cache()
 
-    # 7. the training entry point: a run, and its resume
-    with Phase("train.run and resume"):
-        slice_launches["run"] = check_train_run(args, card, f32_figures["learner"][0])
-        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-runs-") as root, mock_dir(root):
+        # 7. the training entry point: a run, and its resume
+        with Phase("train.run and resume"):
+            slice_launches["run"], run = check_train_run(args, card, f32_figures["learner"][0])
+            torch.cuda.empty_cache()
 
-    # 8. the records
+        # 8. the wide tree at full width
+        with Phase("the wide tree (n_nodes > 127)"):
+            wide = check_wide_tree(args, card, report)
+            launches.update({k: v for k, v in wide.items() if k not in launches})
+            slice_launches["wide"] = wide
+            torch.cuda.empty_cache()
+
+        # 9. evaluation on the card, on phase 7's run
+        with Phase("evaluation"):
+            slice_launches["eval"] = check_evaluation(args, card, run)
+            torch.cuda.empty_cache()
+
+    unlaunched = [k for k in kernels.launches if not launches.get(k)]
+    if unlaunched:
+        fail(f"no path launched {unlaunched}")
+
+    # 10. the records
     def figures(r):
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / F32_FLOPS * 1e3
@@ -1915,13 +2442,19 @@ def main(argv=None):
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
     rows = []
-    for name, (route, source, replaces) in KERNELS.items():
+    # every instantiation an entry of its own, as `kernels.instance` names
+    # them: the bf16 logits' (`.bf16`, csrc/row_solve.cuh `load_logit`), the
+    # wide tree's int32 children with bf16 counts (`.mixed`, T = 128) and
+    # with f32 counts (`.wide`)
+    for name in kernels.launches:
+        route, source, replaces = BASE_KERNELS[name.split(".")[0]]
         r = report[name]
         row = {"name": name, "route": route, "source": source, "replaces": replaces,
                "launches": launches[name], **figures(r), "library_ms": None,
                "slice_launches": {path: c.get(name, 0) for path, c in slice_launches.items()}}
-        if name == "walk":  # the other shapes it runs at: the first grow pass, K=1
-            for shape in ("first_grow_pass", "k1", "k1_chain"):
+        if name == "walk":  # the other shapes it runs at: the first grow pass, K=1, wide
+            for shape in ("first_grow_pass", "k1", "k1_chain", "k1_T256", "k1_T128",
+                          "grow_T513"):
                 row[shape] = {**figures(r[shape]), "shape": r[shape]["shape"],
                               "designs": r[shape]["designs"]}
             row["k1"]["launches"] = r["k1"]["launches"]

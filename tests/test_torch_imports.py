@@ -1,8 +1,10 @@
 """The port and chip_smoke.py import with JAX, flax, optax and the JAX
 package blocked, and with the packages the card's machine lacks blocked too
 (pandas, portalocker, cloudpickle, msgpack, matplotlib): they import torch,
-numpy and the standard library only. Without pandas, the dataframe readers
-of `pavlov` raise a clear ImportError and the numpy readers still work."""
+numpy, scipy and the standard library only. Without pandas, the dataframe
+readers of `pavlov` raise a clear ImportError and the numpy readers still
+work, and the evaluation path (a league, the Elo solvers, the live arena's
+round) runs on numpy arrays with names."""
 import os
 import re
 import subprocess
@@ -32,7 +34,12 @@ def test_port_imports_without_jax():
         assert not any(k.split(".")[0] in blocked for k, v in sys.modules.items()
                        if v is not None)
         for name in ("boardlaw_tpu_torch.pavlov", "boardlaw_tpu_torch.storage",
-                     "boardlaw_tpu_torch.envs.validation", "boardlaw_tpu_torch.train"):
+                     "boardlaw_tpu_torch.envs.validation", "boardlaw_tpu_torch.train",
+                     "boardlaw_tpu_torch.arena.common", "boardlaw_tpu_torch.arena.neural",
+                     "boardlaw_tpu_torch.arena.live", "boardlaw_tpu_torch.arena.perfect",
+                     "boardlaw_tpu_torch.activelo.solvers", "boardlaw_tpu_torch.elos",
+                     "boardlaw_tpu_torch.mohex", "boardlaw_tpu_torch.gtp_engine",
+                     "boardlaw_tpu_torch.pavlov.json_store"):
             assert name in sys.modules
         print("ok", len(names))
     """ % ROOT)
@@ -79,5 +86,46 @@ def test_pandas_readers_raise_clearly_without_pandas(tmp_path):
     """ % (ROOT, str(tmp_path)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_evaluation_runs_without_pandas(tmp_path):
+    code = textwrap.dedent("""
+        import sys
+        for name in ("pandas", "portalocker", "matplotlib", "jax", "boardlaw_tpu"):
+            sys.modules[name] = None
+        sys.path.insert(0, %r)
+        import numpy as np
+        from boardlaw_tpu_torch import activelo, elos, train
+        from boardlaw_tpu_torch.arena import common, live, neural
+        from boardlaw_tpu_torch.pavlov import stats
+        from boardlaw_tpu_torch.pavlov.tests import mock_dir
+        agents = {n: live._random_agent() for n in "abc"}
+        trials = neural.evaluate(3, agents, n_envs_per=2, n_envs=6, device="cpu")
+        assert len(trials) == 6
+        ws, gs, names = elos.symmetrize(trials)
+        assert names == ["a", "b", "c"] and np.isfinite(elos.solve(ws, gs, device="cpu")).all()
+        n, w = live.symmetric_counts(trials, names)
+        soln = activelo.solve(n, w, names=names, device="cpu")
+        assert activelo.suggest(soln)[0] in names
+        try:
+            trials.frame()
+        except ImportError:
+            pass
+        else:
+            raise AssertionError("a DataFrame without pandas")
+        with mock_dir(%r):
+            run = train.run(3, 4, 1, n_envs=8, nodes=8, mix_steps=16, buffer_len=4,
+                            max_steps=1, device="cpu")
+            arena = live.RollingArena(run, n_envs=4, ladder={"rollout-1": live._random_agent()},
+                                      device="cpu")
+            with stats.to_run(run):
+                assert np.isfinite(arena.play())
+            assert "elo-arena" in stats.channels(run)
+        print("ok")
+    """ % (ROOT, str(tmp_path)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")

@@ -289,6 +289,14 @@ def test_node_actions_twin_matches_xla_and_pallas(seed, c_puct):
         np.testing.assert_array_equal(ta.numpy(), np.asarray(j))
     for j in (xc, pc):
         np.testing.assert_array_equal(tc.numpy(), np.asarray(j))
+    # the debug alpha: the same draws, and the roots of the 16 Newton steps
+    inp = _port_inputs(tree)
+    aa, ac, alpha = kernels.node_actions(rands=_t(rands), return_alpha=True, **inp)
+    assert torch.equal(aa, ta) and torch.equal(ac, tc)
+    ref = kernels.solve_probs_ref(*(inp[k] for k in ("logits", "n_edge", "w_edge", "c_puct",
+                                                     "q_bounds")),
+                                  n_iters=16, accel=False, out="alpha")
+    assert torch.equal(alpha, ref)
 
 
 @pytest.mark.parametrize("seed,c_puct", [(0, 1.0), (1, 0.0625), (2, 10.0)])
@@ -302,9 +310,9 @@ def test_descend_twin_matches_xla_and_pallas(seed, c_puct):
     xp, xa = S.descend(tree, rands)
     pp, pa = PK.descend(tree, rands, block_envs=8, interpret=True)
     ttree = _port_tree(tree)
-    n0 = kernels.descend.launches
+    n0 = kernels.launches["descend"]
     tp, ta = kernels.descend(ttree, _t(rands))  # CPU: search.descend_reference
-    assert kernels.descend.launches == n0
+    assert kernels.launches["descend"] == n0
     for jp, ja in ((xp, xa), (pp, pa)):
         np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
         np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
@@ -406,7 +414,7 @@ def test_cuda_wrappers_refuse_bad_inputs():
     tree = _port_tree(_random_tree(rng, 2, 4, 3))
     leaves = torch.zeros((2,), dtype=torch.int32)
     for name, bad in (("n", tree.n.long()), ("w", tree.w.double()),
-                      ("n_edge", tree.n_edge.float()), ("w_edge", tree.w_edge[:, :, :2]),
+                      ("n_edge", tree.n_edge.half()), ("w_edge", tree.w_edge[:, :, :2]),
                       ("relation", tree.relation.long()), ("seats", tree.seats[:1]),
                       ("parents", tree.parents.t())):
         with pytest.raises(ValueError, match=f"^{name} must be"):
@@ -449,9 +457,9 @@ def test_sample_children_twin_matches_pallas(seed):
     rands = jax.random.uniform(jax.random.PRNGKey(seed), (B, K, T))
     probs = S.node_probs(tree, S._q_bounds(tree))
     ja, jc = PK.sample_children_multi(probs, tree.children, rands, block_envs=8, interpret=True)
-    n0 = kernels.sample_children_multi.launches
+    n0 = kernels.launches["sample_children_multi"]
     ta, tc = kernels.sample_children_multi(_t(probs), _t(tree.children, torch.int8), _t(rands))
-    assert kernels.sample_children_multi.launches == n0
+    assert kernels.launches["sample_children_multi"] == n0
     assert ta.dtype == tc.dtype == torch.int32 and ta.shape == (B, K, T)
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))

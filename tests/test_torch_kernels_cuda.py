@@ -31,7 +31,22 @@ rules above (`solve_probs`: alpha to rtol 1e-5 and the probs to rtol 1e-5
 of the twin's formula at the kernel's alpha, as chip_smoke.py phase 3b
 holds them; on one row of one case the solved probs differ from the twin's
 own solve by 1.6e-5 relative, where alpha - q is small), and counts its
-launch on `wrapper.bf16`, not on the f32 counter.
+launch under its name's `.bf16` entry of `kernels.launches`, not the f32
+one.
+
+The wide tree (`search.tree_dtypes`: int32 children with bf16 counts at
+T = 128, int32 with f32 counts above) has instantiations of its own in the
+seven kernels that read children or counts, counted under `.mixed` and
+`.wide` in `kernels.launches`: each agrees with its twin by the rules above on trees of
+128, 300 and 513 slots, whose child ids pass 127 and 256 (on bf16 logits,
+`node_actions_multi`'s alpha is held bit for bit against the f32
+instantiation on the logits' f32 copy, and its draws against the twin: on
+one row of the T = 128 tree the twin's alpha differs by 3.5e-5 relative, a
+root where the solve is ill-conditioned); at T = 128 the
+mixed instantiation equals the compact one on int8 copies of the ids, bit
+for bit. `walk` runs each design at the wide trees' shapes (T = 513 with
+L = 65 at K = 8, T = L = 256 at K = 1), and a dtype with no instantiation
+raises.
 """
 from dataclasses import replace
 
@@ -51,11 +66,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _random_search_tree(seed, B, T, A, c_puct=1.0, n_seats=2, chains=False):
+def _random_search_tree(seed, B, T, A, c_puct=1.0, n_seats=2, chains=False,
+                        dtypes=(torch.int8, torch.bfloat16)):
     """A random port tree (the tree of tests/test_pallas.py `_random_tree`,
-    in numpy) in the port's storage types, with sim = T. With `chains`, each
-    even env is one chain (node c's parent c-1) with a terminal node at
-    T // 2."""
+    in numpy) in the port's storage types, children and n_edge in `dtypes`,
+    with sim = T. With `chains`, each even env is one chain (node c's parent
+    c-1) with a terminal node at T // 2."""
     rng = np.random.default_rng(seed)
     children = np.full((B, T, A), -1, np.int32)
     parents = np.full((B, T), -1, np.int32)
@@ -87,17 +103,17 @@ def _random_search_tree(seed, B, T, A, c_puct=1.0, n_seats=2, chains=False):
     rewards = rng.normal(0, 0.5, (B, T, n_seats)).astype(np.float32)
     t = torch.tensor
     return search.Tree(
-        children=t(children).to(torch.int8), parents=t(parents), relation=t(relation),
+        children=t(children).to(dtypes[0]), parents=t(parents), relation=t(relation),
         worlds=None, seats=t(seats).to(torch.int32), terminal=t(terminal), rewards=t(rewards),
         logits=t(logits), v=t(v), n=t(n).to(torch.int32), w=t(w),
-        n_edge=t(n_edge).to(torch.bfloat16), w_edge=t(w_edge),
+        n_edge=t(n_edge).to(dtypes[1]), w_edge=t(w_edge),
         c_puct=torch.full((B,), c_puct, dtype=torch.float32), sim=T, prew=None)
 
 
-def _random_tree(seed, B, T, A, c_puct=1.0):
+def _random_tree(seed, B, T, A, c_puct=1.0, dtypes=(torch.int8, torch.bfloat16)):
     """A random tree's solve inputs in the port's storage types, and its
     terminal flags."""
-    tree = _random_search_tree(seed, B, T, A, c_puct)
+    tree = _random_search_tree(seed, B, T, A, c_puct, dtypes=dtypes)
     return dict(logits=tree.logits, n_edge=tree.n_edge, w_edge=tree.w_edge,
                 children=tree.children, c_puct=tree.c_puct,
                 q_bounds=search._q_bounds(tree)), tree.terminal
@@ -170,12 +186,12 @@ def _walk_matches(cuda, terminal, acts, nxt, K, max_levels, form, design, gterm=
     ref = kernels.walk_ref(terminal, acts, nxt, max_levels=max_levels)
     gterm = terminal.to(cuda) if gterm is None else gterm
     ga, gn = (_walk_form(x.to(cuda), K, form) for x in (acts, nxt))
-    n0 = kernels.walk.launches
+    n0 = kernels.launches["walk"]
     outs = [kernels._walk_launch(gterm, ga, gn, max_levels, design)]
     if design == kernels.walk_design(K, acts.shape[1]):
         outs.append(kernels.walk(gterm, ga, gn, max_levels=max_levels))
     torch.cuda.synchronize()
-    assert kernels.walk.launches == n0 + len(outs)
+    assert kernels.launches["walk"] == n0 + len(outs)
     for out in outs:
         for name, r, o in zip(("parents", "actions", "halt_child", "path"), ref, out):
             assert o.dtype == torch.int32 and o.shape == r.shape, name
@@ -247,11 +263,11 @@ def test_node_actions_multi_kernel_matches_ref(cuda, seed, c_puct, n_iters, acce
     assert _min_boundary_gap(inp, rands, n_iters, accel) > 1e-6
     ra, rc, ralpha = kernels.node_actions_multi_ref(rands=rands, n_iters=n_iters, accel=accel,
                                                     return_alpha=True, **inp)
-    n0 = kernels.node_actions_multi.launches
+    n0 = kernels.launches["node_actions_multi"]
     ka, kc, kalpha = kernels.node_actions_multi(rands=rands.to(cuda), n_iters=n_iters,
                                                 accel=accel, return_alpha=True, **_to(inp, cuda))
     torch.cuda.synchronize()
-    assert kernels.node_actions_multi.launches == n0 + 1
+    assert kernels.launches["node_actions_multi"] == n0 + 1
     torch.testing.assert_close(kalpha.cpu(), ralpha, rtol=1e-5, atol=0)
     assert torch.equal(ka.cpu(), ra)
     assert torch.equal(kc.cpu(), rc)
@@ -295,7 +311,7 @@ def test_wrappers_raise_on_wrong_inputs(cuda):
         kernels.walk(gt, ga[:31], gn[:31])
     inp, _ = _random_tree(1, 4, 6, 7)
     bad = _to(inp, cuda)
-    bad["n_edge"] = bad["n_edge"].float()  # the kernel reads bf16 counts as stored
+    bad["n_edge"] = bad["n_edge"].float()  # int8 children come with bf16 counts only
     with pytest.raises(ValueError):
         kernels.node_actions_multi(rands=torch.rand((4, 2, 6), device=cuda), **bad)
     with pytest.raises(ValueError):
@@ -306,7 +322,7 @@ def test_wrappers_raise_on_wrong_inputs(cuda):
         kernels.backup(tree, leaves.long(), 1)
     for wrapper in (kernels.backup, kernels.backup_dense):  # the tensors the kernels write
         for name, bad in (("n", tree.n.float()), ("w_edge", tree.w_edge[:, :5]),
-                          ("n_edge", tree.n_edge.float()), ("seats", tree.seats.cpu())):
+                          ("n_edge", tree.n_edge.half()), ("seats", tree.seats.cpu())):
             with pytest.raises(ValueError, match=f"^{name} must be"):
                 wrapper(replace(tree, **{name: bad}), leaves, 1)
     with pytest.raises(ValueError):  # rands must be (B,T)
@@ -326,13 +342,23 @@ def test_node_actions_kernel_matches_ref(cuda, seed, c_puct, B, T, R, A):
     assert _min_boundary_gap(ref_inp, rands, 16, False) > 1e-6
     ra, rc = search.node_actions(rands=rands, **ref_inp)
     sliced = {k: (v[:, :R] if v.dim() == 3 else v) for k, v in _to(inp, cuda).items()}
-    n0 = kernels.node_actions.launches
+    n0 = kernels.launches["node_actions"]
     ka, kc = kernels.node_actions(rands=rands.to(cuda), **sliced)
     torch.cuda.synchronize()
-    assert kernels.node_actions.launches == n0 + 1
+    assert kernels.launches["node_actions"] == n0 + 1
     assert ka.dtype == torch.int32 and ka.shape == (B, R)
     assert torch.equal(ka.cpu(), ra)
     assert torch.equal(kc.cpu(), rc)
+    # the debug alpha: the root the draws used, which is solve_probs' at the
+    # same 16 Newton steps bit for bit, and the twin's to float32 roundoff
+    aa, ac, kalpha = kernels.node_actions(rands=rands.to(cuda), return_alpha=True, **sliced)
+    assert torch.equal(aa, ka) and torch.equal(ac, kc)
+    salpha = kernels.solve_probs(*(sliced[k] for k in ("logits", "n_edge", "w_edge", "c_puct",
+                                                       "q_bounds")),
+                                 n_iters=16, accel=False, out="alpha")
+    assert torch.equal(kalpha, salpha)
+    _, _, ralpha = kernels.node_actions(rands=rands, return_alpha=True, **ref_inp)
+    torch.testing.assert_close(kalpha.cpu(), ralpha, rtol=1e-5, atol=0)
 
 
 @pytest.mark.gpu
@@ -347,10 +373,10 @@ def test_descend_kernel_matches_ref(cuda, seed, c_puct, A):
     assert _min_boundary_gap(inp, rands, 16, False) > 1e-6
     rp, ra = search.descend_reference(tree, rands)
     gtree = _tree_to(tree, cuda)
-    n0 = kernels.descend.launches
+    n0 = kernels.launches["descend"]
     kp, ka = kernels.descend(gtree, rands.to(cuda))
     torch.cuda.synchronize()
-    assert kernels.descend.launches == n0 + 1
+    assert kernels.launches["descend"] == n0 + 1
     assert torch.equal(kp.cpu(), rp) and torch.equal(ka.cpu(), ra)
     # node_actions + walk kernels on the card, bit for bit
     wp, wa = search.descend(gtree, rands.to(cuda))
@@ -373,10 +399,10 @@ def test_backup_kernels_match_ref(cuda, variant, n_seats, T, npv):
     leaves = torch.tensor(leaves, dtype=torch.int32)
     wrapper = kernels.backup if variant == "delta" else kernels.backup_dense
     ref = wrapper(_tree_to(tree, "cpu"), leaves, npv)  # the CPU tree: the twin
-    n0 = wrapper.launches
+    n0 = kernels.launches[wrapper.__name__]
     out = wrapper(_tree_to(tree, cuda), leaves.to(cuda), npv)
     torch.cuda.synchronize()
-    assert wrapper.launches == n0 + 1
+    assert kernels.launches[wrapper.__name__] == n0 + 1
     for name in ("n", "w", "n_edge", "w_edge"):  # the twin's adds: bit for bit
         assert torch.equal(getattr(out, name).cpu(), getattr(ref, name)), name
     assert int((ref.n - tree.n)[0::2].sum()) == npv * T * B // 2
@@ -403,10 +429,10 @@ def test_solve_probs_kernel_matches_ref(cuda, out, seed, B, T, A, R, n_iters, ac
     ref = kernels.solve_probs_ref(n_iters=n_iters, accel=accel, out=out,
                                   **_lead(_solve_inputs(inp), R, copy=True))
     sliced = _lead(_to(inp, cuda), R)
-    n0 = kernels.solve_probs.launches
+    n0 = kernels.launches["solve_probs"]
     res = kernels.solve_probs(n_iters=n_iters, accel=accel, out=out, **_solve_inputs(sliced))
     torch.cuda.synchronize()
-    assert kernels.solve_probs.launches == n0 + 1
+    assert kernels.launches["solve_probs"] == n0 + 1
     assert res.dtype == torch.float32 and res.is_contiguous() and res.shape == ref.shape
     torch.testing.assert_close(res.cpu(), ref, rtol=1e-5, atol=1e-7)
     if out == "alpha":  # the same floats as the fused kernel's roots
@@ -425,10 +451,10 @@ def test_sample_children_multi_kernel_matches_ref_and_fused(cuda, seed, B, T, A,
     sliced = _lead(_to(inp, cuda), R)
     rands = torch.rand((B, K, R), generator=torch.Generator().manual_seed(seed)).to(cuda)
     probs = kernels.solve_probs(**_solve_inputs(sliced))
-    n0 = kernels.sample_children_multi.launches
+    n0 = kernels.launches["sample_children_multi"]
     ka, kc = kernels.sample_children_multi(probs, sliced["children"], rands)
     torch.cuda.synchronize()
-    assert kernels.sample_children_multi.launches == n0 + 1
+    assert kernels.launches["sample_children_multi"] == n0 + 1
     assert ka.dtype == kc.dtype == torch.int32 and ka.shape == (B, K, R)
     # the twin on the same probs, bit for bit
     ra, rc = kernels.sample_children_multi_ref(probs.cpu(), inp["children"][:, :R], rands.cpu())
@@ -448,7 +474,7 @@ def test_split_wrappers_raise_on_wrong_inputs(cuda):
     inp, _ = _random_tree(1, 4, 6, 7)
     good = _solve_inputs(_to(inp, cuda))
     with pytest.raises(ValueError):
-        kernels.solve_probs(**{**good, "n_edge": good["n_edge"].float()})
+        kernels.solve_probs(**{**good, "n_edge": good["n_edge"].half()})
     with pytest.raises(ValueError):
         kernels.solve_probs(**{**good, "c_puct": good["c_puct"][:2]})
     with pytest.raises(ValueError):
@@ -459,7 +485,7 @@ def test_split_wrappers_raise_on_wrong_inputs(cuda):
     with pytest.raises(ValueError):
         kernels.sample_children_multi(probs.double(), children, rands)
     with pytest.raises(ValueError):
-        kernels.sample_children_multi(probs, children.int(), rands)
+        kernels.sample_children_multi(probs, children.short(), rands)
     with pytest.raises(ValueError):
         kernels.sample_children_multi(probs, children, rands.permute(0, 2, 1).contiguous())
 
@@ -474,7 +500,7 @@ def _f32_copy(inp):
 
 
 def _launch_counts(wrapper):
-    return wrapper.launches, wrapper.bf16.launches
+    return kernels.launches[wrapper.__name__], kernels.launches[wrapper.__name__ + ".bf16"]
 
 
 @pytest.mark.gpu
@@ -581,3 +607,166 @@ def test_logits_wrappers_refuse_other_dtypes(cuda):
     tree = _tree_to(_random_search_tree(1, 4, 6, 7), cuda)
     with pytest.raises(ValueError, match="logits must be float32 or bfloat16"):
         kernels.descend(replace(tree, logits=tree.logits.half()), torch.rand((4, 6), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the wide tree: int32 children, bf16 or f32 edge counts
+# ---------------------------------------------------------------------------
+
+MIXED = (torch.int32, torch.bfloat16)
+WIDE = (torch.int32, torch.float32)
+# (dtypes, T, the counter's name): the mixed case at T = 128, the wide one at
+# 300 and 513 (K = 8 with n_nodes = 512)
+WIDE_TREES = [(MIXED, 128, "mixed"), (WIDE, 300, "wide"), (WIDE, 513, "wide")]
+
+
+def _counts(wrapper):
+    return {n: v for n, v in kernels.launches.items() if n.split(".")[0] == wrapper.__name__}
+
+
+def _one_launch_on(wrapper, before, name):
+    after = _counts(wrapper)
+    assert after == {k: v + (k == name) for k, v in before.items()}, (name, before, after)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logits", ["float32", "bfloat16"])
+@pytest.mark.parametrize("A", [9, 81])
+@pytest.mark.parametrize("dtypes,T,inst", WIDE_TREES)
+def test_wide_row_kernels_match_ref(cuda, dtypes, T, inst, A, logits):
+    B, K = 4, 8
+    inp, _ = _random_tree(T + A, B, T, A, c_puct=1 / 16, dtypes=dtypes)
+    inp = {**inp, "logits": inp["logits"].to(getattr(torch, logits))}
+    assert int(inp["children"].max()) > (T // 2 if T == 128 else 256)
+    tag = ".bf16" if logits == "bfloat16" else ""
+    g = _to(inp, cuda)
+    rands = torch.rand((B, K, T), generator=torch.Generator().manual_seed(T))
+    rands = _away_from_boundaries(inp, rands, 6, True, T)
+    # node_actions_multi
+    n0 = _counts(kernels.node_actions_multi)
+    ka, kc, kalpha = kernels.node_actions_multi(rands=rands.to(cuda), return_alpha=True, **g)
+    torch.cuda.synchronize()
+    _one_launch_on(kernels.node_actions_multi, n0, f"node_actions_multi.{inst}{tag}")
+    ra, rc, ralpha = kernels.node_actions_multi_ref(rands=rands, return_alpha=True, **inp)
+    assert torch.equal(ka.cpu(), ra) and torch.equal(kc.cpu(), rc)
+    if logits == "float32":
+        torch.testing.assert_close(kalpha.cpu(), ralpha, rtol=1e-5, atol=0)
+    else:  # bf16 logits: the f32 instantiation on their f32 copy, bit for bit
+        fa, fc, falpha = kernels.node_actions_multi(rands=rands.to(cuda), return_alpha=True,
+                                                    **_f32_copy(g))
+        assert torch.equal(ka, fa) and torch.equal(kc, fc) and torch.equal(kalpha, falpha)
+    # the split pair, from the same tree: the same draws
+    n0 = _counts(kernels.solve_probs), _counts(kernels.sample_children_multi)
+    probs = kernels.solve_probs(**_solve_inputs(g))
+    sa, sc = kernels.sample_children_multi(probs, g["children"], rands.to(cuda))
+    torch.cuda.synchronize()
+    counts_inst = "wide" if inst == "wide" else ""
+    _one_launch_on(kernels.solve_probs, n0[0],
+                   ".".join(x for x in ("solve_probs", counts_inst, tag[1:]) if x))
+    _one_launch_on(kernels.sample_children_multi, n0[1], "sample_children_multi.wide")
+    assert torch.equal(sa, ka) and torch.equal(sc, kc)
+    pa, pc = kernels.sample_children_multi_ref(probs.cpu(), inp["children"], rands)
+    assert torch.equal(sa.cpu(), pa) and torch.equal(sc.cpu(), pc)
+    # node_actions (K = 1), on a leading slice of the rows
+    R = T - 3
+    ref_inp = _lead(inp, R, copy=True)
+    r1 = _away_from_boundaries(ref_inp, rands[:, 0, :R].contiguous(), 16, False, T)
+    n0 = _counts(kernels.node_actions)
+    na, nc = kernels.node_actions(rands=r1.to(cuda), **_lead(g, R))
+    torch.cuda.synchronize()
+    _one_launch_on(kernels.node_actions, n0, f"node_actions.{inst}{tag}")
+    ra, rc = search.node_actions(rands=r1, **ref_inp)
+    assert torch.equal(na.cpu(), ra) and torch.equal(nc.cpu(), rc)
+    if T == 128:  # the compact instantiation on int8 copies of the ids, bit for bit
+        narrow = {**_lead(g, R), "children": g["children"].to(torch.int8)[:, :R]}
+        ca, cc = kernels.node_actions(rands=r1.to(cuda), **narrow)
+        assert torch.equal(ca, na) and torch.equal(cc, nc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A", [9, 81])
+@pytest.mark.parametrize("dtypes,T,inst", WIDE_TREES)
+def test_wide_descend_matches_ref(cuda, dtypes, T, inst, A):
+    B = 8
+    tree = _random_search_tree(T, B, T, A, 1.0, chains=True, dtypes=dtypes)
+    inp = dict(logits=tree.logits, n_edge=tree.n_edge, w_edge=tree.w_edge, c_puct=tree.c_puct,
+               q_bounds=search._q_bounds(tree))
+    rands = torch.rand((B, T), generator=torch.Generator().manual_seed(T))
+    rands = _away_from_boundaries(inp, rands, 16, False, T)
+    rp, ra = search.descend_reference(tree, rands)
+    gtree = _tree_to(tree, cuda)
+    n0 = _counts(kernels.descend)
+    kp, ka = kernels.descend(gtree, rands.to(cuda))
+    torch.cuda.synchronize()
+    _one_launch_on(kernels.descend, n0, f"descend.{inst}")
+    assert torch.equal(kp.cpu(), rp) and torch.equal(ka.cpu(), ra)
+    wp, wa = search.descend(gtree, rands.to(cuda))  # node_actions + walk on the card
+    assert torch.equal(wp, kp) and torch.equal(wa, ka)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("npv", [1, 2])
+@pytest.mark.parametrize("variant,n_seats", [("delta", 2), ("dense", 1), ("dense", 3)])
+@pytest.mark.parametrize("dtypes,T,inst", WIDE_TREES)
+def test_wide_backup_kernels_match_ref(cuda, dtypes, T, inst, variant, n_seats, npv):
+    B, A = 8, 9
+    tree = _random_search_tree(T, B, T, A, n_seats=n_seats, chains=True, dtypes=dtypes)
+    leaves = np.random.default_rng(T).integers(0, T, B)
+    leaves[0::2] = T - 1
+    leaves = torch.tensor(leaves, dtype=torch.int32)
+    wrapper = kernels.backup if variant == "delta" else kernels.backup_dense
+    ref = wrapper(_tree_to(tree, "cpu"), leaves, npv)
+    n0 = _counts(wrapper)
+    out = wrapper(_tree_to(tree, cuda), leaves.to(cuda), npv)
+    torch.cuda.synchronize()
+    # bf16 counts (T = 128) take the compact instantiation
+    _one_launch_on(wrapper, n0, wrapper.__name__ + (".wide" if inst == "wide" else ""))
+    for name in ("n", "w", "n_edge", "w_edge"):
+        assert torch.equal(getattr(out, name).cpu(), getattr(ref, name)), name
+    assert int((ref.n - tree.n)[0::2].sum()) == npv * T * B // 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", WALK_DESIGNS)
+@pytest.mark.parametrize("K,R,max_levels", [(8, 513, 65), (1, 256, 256), (1, 513, 513)])
+def test_walk_kernel_wide_trees(cuda, K, R, max_levels, design):
+    # random trees of the wide shapes, and depth-(R-1) chains at K = 1
+    B = 8
+    gen = torch.Generator().manual_seed(R)
+    tree = _random_search_tree(R, B, R, 9, chains=True, dtypes=WIDE)
+    rands = torch.rand((B, K, R), generator=gen)
+    a, c = kernels.node_actions_multi_ref(
+        tree.logits, tree.n_edge, tree.w_edge, tree.children, rands, tree.c_puct,
+        search._q_bounds(tree))
+    acts, nxt = (x.permute(1, 0, 2).reshape(K * B, R) for x in (a, c))
+    for form in ("rows", "view"):
+        _walk_matches(cuda, tree.terminal, acts, nxt, K, max_levels, form, design)
+    if K == 1:
+        chain = torch.arange(1, R + 1, dtype=torch.int32).repeat(B, 1)
+        chain[:, -1] = -1
+        ref = _walk_matches(cuda, torch.zeros((B, R), dtype=torch.bool), acts, chain, 1,
+                            max_levels, "rows", design)
+        assert ((ref[3] >= 0).sum(1) == min(R, max_levels)).all()
+
+
+@pytest.mark.gpu
+def test_wide_wrappers_refuse_other_dtypes(cuda):
+    inp, _ = _random_tree(1, 4, 6, 7, dtypes=WIDE)
+    g = _to(inp, cuda)
+    rands = torch.rand((4, 2, 6), device=cuda)
+    for children, n_edge in ((torch.int8, torch.float32), (torch.int16, torch.float32),
+                             (torch.int64, torch.float32), (torch.int32, torch.float16)):
+        bad = {**g, "children": g["children"].to(children), "n_edge": g["n_edge"].to(n_edge)}
+        with pytest.raises(ValueError):
+            kernels.node_actions_multi(rands=rands, **bad)
+        with pytest.raises(ValueError):
+            kernels.node_actions(rands=rands[:, 0].contiguous(), **bad)
+        tree = replace(_tree_to(_random_search_tree(1, 4, 6, 7, dtypes=WIDE), cuda),
+                       children=bad["children"], n_edge=bad["n_edge"])
+        with pytest.raises(ValueError):
+            kernels.descend(tree, rands[:, 0].contiguous())
+    with pytest.raises(ValueError):
+        kernels.sample_children_multi(kernels.solve_probs(**_solve_inputs(g)),
+                                      g["children"].long(), rands)
+    with pytest.raises(ValueError):
+        kernels.solve_probs(**_solve_inputs({**g, "n_edge": g["n_edge"].double()}))

@@ -7,6 +7,7 @@ built from a JAX `init` state and one optax update; no JAX `train_step` is
 compiled).
 """
 import copy
+import time
 
 import numpy as np
 import jax
@@ -180,8 +181,6 @@ def test_resumes_a_checkpoint_the_jax_package_wrote():
 
 def test_entry_points_refuse_what_the_port_lacks(monkeypatch):
     with mock_dir():
-        with pytest.raises(NotImplementedError, match="arena/"):
-            train.run(arena=True, **TINY)
         with pytest.raises(NotImplementedError, match="parallel/"):
             train.run(n_devices=2, **TINY)
         if not torch.cuda.is_available():  # the card by default, never a quiet CPU run
@@ -193,3 +192,41 @@ def test_entry_points_refuse_what_the_port_lacks(monkeypatch):
     monkeypatch.setattr(train, "run", lambda *a, **kw: calls.append((a, kw)) or "name")
     assert train.run_best(9, max_steps=1) == "name"
     assert calls == [((9, 512, 4), {"nodes": 64, "c_puct": 1 / 16, "max_steps": 1})]
+
+
+def test_run_with_live_arena(monkeypatch):
+    # `arena=True` spawns the live arena beside the run: the child loads the
+    # run's latest checkpoint, plays the ladder, writes the `arena-games`
+    # ledger and the `elo-arena` channel, and is terminated when the run
+    # ends. The last step waits (up to 240 s) for the child's first round.
+    from boardlaw_tpu_torch.arena import live
+
+    children = []
+
+    def spawn(run_name, ladder, device):
+        children.append(live_run(run_name, interval=0.5, ladder=ladder, device=device))
+        return children[-1]
+
+    live_run = live.run
+    monkeypatch.setattr(live, "run", spawn)
+    step = train.train_step
+
+    def waiting_step(cfg, state, draws):
+        out = step(cfg, state, draws)
+        if state.step == 3:
+            run = runs.list_runs()[-1]
+            deadline = time.monotonic() + 240
+            while "elo-arena" not in stats.channels(run) and time.monotonic() < deadline:
+                assert children[0].is_alive()
+                time.sleep(0.2)
+        return out
+
+    monkeypatch.setattr(train, "train_step", waiting_step)
+    with mock_dir():
+        run = train.run(max_steps=3, arena=True, **TINY)
+        assert len(children) == 1 and not children[0].is_alive()  # terminated and reaped
+        assert "elo-arena" in stats.channels(run)
+        trials = live.ledger_trials(run)
+        assert set(trials.black_agent) | set(trials.white_agent) == {"latest", "rollout-1"}
+        assert (trials.black_wins + trials.white_wins).sum() % 32 == 0
+        assert storage.load_latest(run)["agent"]["step"] == 3

@@ -8,12 +8,14 @@ agent at a time, collecting results as games finish. A league's results are
 what the Elo solvers read on the card's machine, which has no pandas;
 `Trials.frame()` gives the JAX package's DataFrame where pandas is present.
 
-`evaluate_parallel`, the farm-out of chunk jobs over a worker pool, waits
-for the port's `utils/parallel.py`; `evaluate_gen` yields the jobs.
+`evaluate_parallel` farms a league's chunk jobs (`evaluate_gen`) out over
+a worker pool (`utils.parallel`, by default two workers pinned to the
+cards) and merges their `Trials`.
 """
 from __future__ import annotations
 
 import time
+from functools import partial
 from logging import getLogger
 
 import numpy as np
@@ -248,22 +250,60 @@ def chunk_jobs(specs, chunk_size):
     return jobs
 
 
-def _run_chunk(args):
-    """One chunk job: build the agents from their picklable specs and play
-    the chunk's matchups to completion. Module-level so it pickles."""
+def _run_chunk(args, device=None):
+    """One chunk job: build the agents from their picklable specs with
+    ``loader(spec, device)`` and play the chunk's matchups to completion on
+    `device`. Module-level so it pickles."""
     boardsize, specs, loader, matchups, n_envs_per, n_envs, seed = args
-    agents = {name: loader(spec) for name, spec in specs.items()}
-    ev = ChunkEvaluator(boardsize, n_envs, agents, matchups, n_envs_per, seed)
+    agents = {name: loader(spec, device) for name, spec in specs.items()}
+    ev = ChunkEvaluator(boardsize, n_envs, agents, matchups, n_envs_per, seed, device)
     return ev.play()
 
 
-def run_agent_loader(spec):
+def run_agent_loader(spec, device=None):
     """Default loader: spec = (run, snapshot index or None), loaded from run
-    storage."""
+    storage onto `device`."""
     from . import common
 
     run, idx = spec
-    return common.agent(run, idx)
+    return common.agent(run, idx, device=device)
+
+
+def merge(trials):
+    """One `Trials` of several, the rows of each (black, white) pair
+    summed."""
+    rows = {}
+    for t in trials:
+        for b, w, bw, ww in t.rows():
+            rec = rows.setdefault((b, w), [0.0, 0.0])
+            rec[0] += bw
+            rec[1] += ww
+    return Trials((b, w, bw, ww) for (b, w), (bw, ww) in rows.items())
+
+
+def evaluate_parallel(boardsize, specs, loader=run_agent_loader, n_envs_per=4, chunk_size=8,
+                      n_envs=None, memory_bytes=2 * 1024**3, kind="device", max_workers=2,
+                      seed=0, device=None, timeout=None):
+    """Farm the league's chunk jobs out over a worker pool and merge their
+    trials, summed per (black, white) pair, into one `Trials` (reference
+    neural.py:256-274, a 2-worker CUDA pool). `kind="device"`: workers
+    pinned to the cards round-robin, or seeing none with `device="cpu"`;
+    each plays its jobs on its card (`device` None) or the CPU. `loader`
+    is called as ``loader(spec, device)`` in the workers and must pickle,
+    as must the specs. Past `timeout` seconds (None: no limit) the workers
+    are ended and TimeoutError raised."""
+    from ..utils import parallel as upar
+
+    job_args = list(evaluate_gen(boardsize, specs, loader, n_envs_per, chunk_size, n_envs,
+                                 memory_bytes, seed))
+    start = time.time()
+    trials = merge(upar.parallel(partial(_run_chunk, device=device), job_args, kind=kind,
+                                 max_workers=max_workers, device=device, timeout=timeout))
+    games = float((trials.black_wins + trials.white_wins).sum())
+    dt = time.time() - start
+    log.info(f"league farm-out: {len(job_args)} jobs, {games:.0f} games in {dt:.1f}s "
+             f"({games / max(dt, 1e-9):.1f} games/s)")
+    return trials
 
 
 def evaluate_gen(boardsize, specs, loader=run_agent_loader, n_envs_per=4,

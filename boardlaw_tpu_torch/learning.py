@@ -53,7 +53,9 @@ def noise_scale(batch_size, optimizer):
     """Gradient noise-scale estimate from Adam's first and second moments
     (reference learning.py:26-41), read from a `torch.optim.Adam`'s state:
     `step`, `exp_avg` and `exp_avg_sq` are optax's `count`, `mu` and `nu`.
-    NaN before the first step."""
+    `batch_size` is the whole batch's: on a data-parallel rank, every
+    rank's envs (`train_step` passes `cfg.n_envs`). NaN before the first
+    step."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     states = [optimizer.state[p] for p in params if p in optimizer.state]
     if not states:

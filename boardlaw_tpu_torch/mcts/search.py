@@ -57,9 +57,15 @@ class MCTSConfig:
 
     The knobs that describe only TPU dataflow are not carried: the
     `pallas_*` switches and block sizes, `use_pallas`, `write_mode`,
-    `gather_mode`, `mesh`/`mesh_axis` and `compact` (JAX's switch to the
+    `gather_mode`, `mesh_axis` and `compact` (JAX's switch to the
     wide types at every tree size, which no caller turns off). The port runs
-    its kernels on the card. Its kernels sample with the log-shift prefix
+    its kernels on the card.
+
+    `mesh` (a `parallel.Mesh`, None in one process) makes the search one
+    rank's part of a data-parallel search over its block of the envs: the
+    tree records it, and `_q_bounds`, the search's one whole-batch
+    reduction, all-reduces over it. The kernels run on the rank's block
+    with the global bounds, as JAX's `shard_map` runs them per shard. Its kernels sample with the log-shift prefix
     sum (the JAX `sample_cum='shift'` order); the K>1 torch sampler follows
     `sample_cum`.
 
@@ -119,6 +125,7 @@ class MCTSConfig:
     solve_kernel: str = "fused"
     sample_kernel: bool = False
     tree_dtype: torch.dtype = torch.float32
+    mesh: object = None
 
     def __post_init__(self):
         if self.leaves_per_pass < 1:
@@ -182,6 +189,7 @@ class Tree:
     sim: int  # next free node slot
     prew: torch.Tensor | None  # (B,T,S) f32 cumulative rewards root->node inclusive (K>1 prefix)
     alpha: torch.Tensor | None = None  # (B,T) f32 the last pass's roots (K>1 warm_solve)
+    mesh: object = None  # the data-parallel world the bounds reduce over (MCTSConfig.mesh)
 
 
 def _map_world(world, fn):
@@ -224,6 +232,7 @@ def build(world, cfg: MCTSConfig):
         prew=zeros(B, T, S) if K > 1 and cfg.backup_mode == "prefix" else None,
         # zeros fail the warm gate (0 <= floor): the first pass starts cold
         alpha=zeros(B, T) if K > 1 and cfg.warm_solve else None,
+        mesh=cfg.mesh,
     )
 
 
@@ -379,9 +388,13 @@ def _q_bounds(tree):
     """Global (min, max) of the per-(node, seat) q estimates w/n over all
     envs, as a (2,) tensor on the tree's device. Rows beyond a pass's R hold
     zeros, as do its unwritten rows, so the full tree gives the bounds of
-    the first R rows."""
+    the first R rows. On a rank of a mesh (`tree.mesh`) the envs are every
+    rank's: one all-reduce MAX of (-min, max)."""
     q = tree.w / (tree.n[..., None].float() + 1e-4)
-    return torch.stack([q.min(), q.max()])
+    if tree.mesh is None:
+        return torch.stack([q.min(), q.max()])
+    b = tree.mesh.all_reduce(torch.stack([-q.min(), q.max()]), "max")
+    return torch.stack([-b[0], b[1]])
 
 
 def node_probs(logits, n_edge, w_edge, c_puct, q_bounds, n_iters=16, accel=False,

@@ -18,11 +18,22 @@ a `TimeStorer` or `FlopsStorer` that writes log-spaced snapshots and a
 throttled `latest` (`storage`), and `resume=`, which continues a run, the
 port's or one the JAX package wrote, from its latest checkpoint.
 `state_dict`/`load_state_dict` are the checkpoint's agent part.
+
+Data parallelism (`parallel/`): a `TrainState` that carries a mesh holds
+one rank's block of the envs (`cfg.n_envs` stays the global count, as in
+JAX) and a replica of the model and its Adam state. Its `train_step`
+all-reduces the gradient (averaged) before the Adam step, so every rank
+applies the same update, and makes the aux global, so every rank holds
+what the single process logs; the search all-reduces its q-bounds. With
+the sharded view of the same draws (`Draws.shard`), the world computes the
+single-process step up to the all-reduce's order of summation.
+`run(n_devices=n)` spawns n such ranks.
 """
 from __future__ import annotations
 
 import copy
 import time
+from contextlib import ExitStack
 from dataclasses import dataclass, fields
 from functools import partial
 from logging import getLogger
@@ -30,7 +41,7 @@ from logging import getLogger
 import torch
 
 from . import learning, storage as bstorage
-from .draws import Draws
+from .draws import Draws, ShardedDraws
 from .envs import hex
 from .mcts import MCTSConfig, mcts as run_mcts, root as mcts_root, n_leaves
 from .mcts.search import _map_world
@@ -94,7 +105,7 @@ class TrainConfig:
     def compute_dtype(self):
         return getattr(torch, self.dtype)
 
-    def mcts_config(self):
+    def mcts_config(self, mesh=None):
         return MCTSConfig(
             n_nodes=self.n_nodes,
             c_puct=self.c_puct,
@@ -109,6 +120,7 @@ class TrainConfig:
             solve_kernel=self.solve_kernel,
             sample_kernel=self.sample_kernel,
             tree_dtype=getattr(torch, self.tree_dtype),
+            mesh=mesh,
         )
 
 
@@ -142,19 +154,39 @@ def make_optimizer(cfg: TrainConfig, params):
     return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def init_worlds(cfg: TrainConfig, draws: Draws):
-    """`cfg.n_envs` decorrelated worlds: `learning.mix` over fresh boards, on
-    the device of `draws`."""
-    worlds = hex.Hex.initial(cfg.n_envs, cfg.boardsize, device=draws.device)
+def local_envs(cfg: TrainConfig, mesh=None):
+    """The envs one rank holds: all `cfg.n_envs`, or the mesh's block of
+    them (ValueError unless they split evenly)."""
+    if mesh is None:
+        return cfg.n_envs
+    blk = mesh.block(cfg.n_envs)
+    return blk.stop - blk.start
+
+
+def _check_draws(draws, mesh):
+    """On a mesh every seam must draw the whole batch's numbers and keep
+    this rank's block: the draws must be `Draws.shard(rank, size)`."""
+    if mesh is not None and not (isinstance(draws, ShardedDraws)
+                                 and (draws.rank, draws.world) == (mesh.rank, mesh.size)):
+        raise ValueError(f"rank {mesh.rank} of {mesh.size} needs draws.shard({mesh.rank}, "
+                         f"{mesh.size})")
+
+
+def init_worlds(cfg: TrainConfig, draws: Draws, mesh=None):
+    """`cfg.n_envs` decorrelated worlds (a mesh's block of them):
+    `learning.mix` over fresh boards, on the device of `draws`."""
+    _check_draws(draws, mesh)
+    worlds = hex.Hex.initial(local_envs(cfg, mesh), cfg.boardsize, device=draws.device)
     return learning.mix(worlds, draws, cfg.mix_steps)
 
 
 @torch.no_grad()
-def actor_record(cfg: TrainConfig, model, worlds, draws: Draws, return_tree=False):
-    """One self-play step for every env: search, act, step. Returns the new
+def actor_record(cfg: TrainConfig, model, worlds, draws: Draws, return_tree=False, mesh=None):
+    """One self-play step for every env (of a mesh's rank: its block,
+    searched with the global q-bounds): search, act, step. Returns the new
     worlds and the replay record of the pre-step state (and the search tree
     with `return_tree`)."""
-    tree = run_mcts(worlds, make_eval_fn(model), draws, cfg.mcts_config())
+    tree = run_mcts(worlds, make_eval_fn(model), draws, cfg.mcts_config(mesh))
     r = mcts_root(tree)
     actions = torch.argmax(r["logits"] + draws.gumbel(r["logits"].shape), -1)
     new_worlds, transition = worlds.step(actions)
@@ -189,6 +221,7 @@ class TrainState:
     model: FCModel
     optimizer: torch.optim.Adam
     step: int  # learner steps taken
+    mesh: object = None  # a parallel.Mesh: this state is one rank's block of the envs
 
 
 def _masked_corr(x, y, m):
@@ -241,29 +274,37 @@ def ordered(tree, ptr):
     return {k: x.index_select(0, idx.to(x.device)) for k, x in tree.items()}
 
 
-def init(cfg: TrainConfig, model, draws: Draws):
+def init(cfg: TrainConfig, model, draws: Draws, mesh=None):
     """A fresh train state: `init_worlds` from `draws`, a copy of `model`'s
-    weights, its Adam optimizer and an empty buffer."""
+    weights, its Adam optimizer and an empty buffer. On a mesh: the rank's
+    block of the worlds (`draws` the sharded view), the weights broadcast
+    from rank 0."""
     model = copy.deepcopy(model)
-    worlds = init_worlds(cfg, draws)
+    worlds = init_worlds(cfg, draws, mesh)
+    if mesh is not None:
+        for p in model.parameters():
+            mesh.broadcast(p.data)
     return TrainState(worlds=worlds, buffer=empty_buffer(cfg, worlds), ptr=0, model=model,
-                      optimizer=make_optimizer(cfg, model.parameters()), step=0)
+                      optimizer=make_optimizer(cfg, model.parameters()), step=0, mesh=mesh)
 
 
 def warmup(cfg: TrainConfig, state: TrainState, draws: Draws):
     """Fill the buffer with `buffer_len` actor steps, no learning (reference
     main.py:174), in place."""
+    _check_draws(draws, state.mesh)
     for _ in range(cfg.buffer_len):
-        state.worlds, record = actor_record(cfg, state.model, state.worlds, draws)
+        state.worlds, record = actor_record(cfg, state.model, state.worlds, draws,
+                                            mesh=state.mesh)
         push(state.buffer, state.ptr, record)
         state.ptr = (state.ptr + 1) % cfg.buffer_len
     return state
 
 
 def losses(model, batch):
-    """(loss, aux): policy cross-entropy against the stored root policy plus
-    the value MSE against reward-to-go, and the learner telemetry. The -inf
-    logits of invalid actions are masked to 0; bf16 targets are upcast."""
+    """(loss, aux, v): policy cross-entropy against the stored root policy
+    plus the value MSE against reward-to-go, the learner telemetry and the
+    network's (detached) values. The -inf logits of invalid actions are
+    masked to 0; bf16 targets are upcast."""
     worlds = batch["worlds"]
     d = model(worlds.obs, worlds.valid, worlds.seats)
 
@@ -295,15 +336,77 @@ def losses(model, batch):
         "v.outputs.std": vd.std(correction=0),
         "policy-conc": torch.exp(l0).max(-1).values.mean(),
     }
-    return loss, aux
+    return loss, aux, vd
+
+
+# How the aux of the ranks' blocks make the whole batch's (`train_step` on a
+# mesh): means over equal blocks average and counts add; the stds and the
+# correlations are recomputed from global sums; grad.*, step.* and
+# noise-scale are read from the reduced gradient and the replicated Adam
+# state, so they are the whole batch's on every rank already.
+_SUMMED = ("n-trajs", "wins.seat-0", "wins.seat-1")
+_REPLICATED = ("grad.norm", "grad.max", "step.std", "step.max", "noise-scale")
+
+
+def _global_aux(mesh, aux, spreads, corrs):
+    """The whole batch's aux on every rank of `mesh`, from this rank's
+    `aux` in two all-reduces. `spreads`: key -> this rank's values, whose
+    std (correction 0) the key holds; `corrs`: key -> (x, y, m) of a
+    `_masked_corr`. Sums travel in float64; each entry keeps its type."""
+    own = set(_SUMMED) | set(_REPLICATED) | set(spreads) | set(corrs)
+    means = [k for k in aux if k not in own]
+    first = [aux[k] for k in means] + [aux[k] for k in _SUMMED]
+    first += [x.sum() for x in spreads.values()]
+    for x, y, m in corrs.values():
+        m = m.to(torch.float32)
+        first += [m.sum(), (x * m).sum(), (y * m).sum()]
+    r1 = mesh.all_reduce(torch.stack([v.to(torch.float64) for v in first]))
+    out = dict(aux)
+    for i, k in enumerate(means):
+        out[k] = (r1[i] / mesh.size).to(aux[k].dtype)
+    for i, k in enumerate(_SUMMED, len(means)):
+        out[k] = r1[i].to(aux[k].dtype)
+    i = len(means) + len(_SUMMED)
+
+    # second round: the squares about the global means
+    second = []
+    for x in spreads.values():
+        mu = (r1[i] / (x.numel() * mesh.size)).to(x.dtype)
+        second.append(torch.square(x - mu).sum())
+        i += 1
+    centres = []
+    for x, y, m in corrs.values():
+        m = m.to(torch.float32)
+        n = r1[i] + 1e-6
+        mx, my = (r1[i + 1] / n).to(x.dtype), (r1[i + 2] / n).to(y.dtype)
+        second += [((x - mx) * (y - my) * m).sum(), (torch.square(x - mx) * m).sum(),
+                   (torch.square(y - my) * m).sum()]
+        centres.append(n)
+        i += 3
+    r2 = mesh.all_reduce(torch.stack([v.to(torch.float64) for v in second]))
+    for j, (k, x) in enumerate(spreads.items()):
+        out[k] = torch.sqrt(r2[j] / (x.numel() * mesh.size)).to(aux[k].dtype)
+    j = len(spreads)
+    for k, n in zip(corrs, centres):
+        cov, vx, vy = r2[j] / n, r2[j + 1] / n, r2[j + 2] / n
+        out[k] = (cov / torch.sqrt(vx * vy + 1e-12)).to(aux[k].dtype)
+        j += 3
+    return out
 
 
 def train_step(cfg: TrainConfig, state: TrainState, draws: Draws):
     """One actor step and one learner step (reference main.py:171-198), in
     place. Returns (state, aux), aux a dict of 0-dim tensors on the state's
-    device; nothing here waits for the device."""
-    B, T = cfg.n_envs, cfg.buffer_len
-    worlds, record = actor_record(cfg, state.model, state.worlds, draws)
+    device; nothing here waits for the device.
+
+    On a mesh (`state.mesh`, `draws` its sharded view): the rank's block is
+    searched, pushed and sampled, its gradient all-reduced (one flat
+    buffer, averaged) before the Adam step, and the aux made the whole
+    batch's (`_global_aux`)."""
+    mesh = state.mesh
+    _check_draws(draws, mesh)
+    B, T = state.worlds.n_envs, cfg.buffer_len
+    worlds, record = actor_record(cfg, state.model, state.worlds, draws, mesh=mesh)
     push(state.buffer, state.ptr, record)
     ptr = (state.ptr + 1) % T
 
@@ -324,9 +427,14 @@ def train_step(cfg: TrainConfig, state: TrainState, draws: Draws):
     params = list(state.model.parameters())
     before = [p.detach().clone() for p in params]
     state.optimizer.zero_grad(set_to_none=True)
-    loss, aux = losses(state.model, batch)
+    loss, aux, v_out = losses(state.model, batch)
     loss.backward()
     gflat = torch.cat([p.grad.reshape(-1) for p in params])
+    if mesh is not None:
+        # the mean over the whole batch: equal blocks' means, averaged
+        mesh.all_reduce(gflat).div_(mesh.size)
+        for p, g in zip(params, gflat.split([p.numel() for p in params])):
+            p.grad.copy_(g.view_as(p))
     state.optimizer.step()
     uflat = torch.cat([(p.detach() - b).reshape(-1) for p, b in zip(params, before)])
 
@@ -344,25 +452,38 @@ def train_step(cfg: TrainConfig, state: TrainState, draws: Draws):
         "mcts-n-leaves": record["n_leaves"].float().mean(),
         "corr.terminal": _masked_corr(osmall["v"], osmall["rewards"], tb),
         "corr.penultimate": _masked_corr(osmall["v"][:-1], osmall["rewards"][1:], tb[1:]),
-        "noise-scale": learning.noise_scale(B, state.optimizer),
+        "noise-scale": learning.noise_scale(cfg.n_envs, state.optimizer),
     })
+    if mesh is not None:
+        aux = _global_aux(
+            mesh, aux, {"v.target.std": batch["reward_to_go"], "v.outputs.std": v_out},
+            {"corr.terminal": (osmall["v"], osmall["rewards"], tb),
+             "corr.penultimate": (osmall["v"][:-1], osmall["rewards"][1:], tb[1:])})
     state.worlds = worlds
     state.ptr = ptr
     state.step += 1
     return state, aux
 
 
-def make_train(cfg: TrainConfig, device=None):
+def make_train(cfg: TrainConfig, device=None, mesh=None):
     """The learner's parts for a config, as the JAX package's `make_train`
     returns them: ``(model, opt, init, warmup, train_step)``.
 
     `model` holds the initial weights, made on the CPU from `cfg.seed` and
     moved to `device`; `opt(params)` builds the Adam optimizer;
     ``init(draws) -> state``, ``warmup(state, draws) -> state`` and
-    ``train_step(state, draws) -> (state, aux)`` update the state in place."""
+    ``train_step(state, draws) -> (state, aux)`` update the state in place.
+    With a `mesh` (`parallel.make_mesh`), on the rank's device, `init` makes
+    the rank's part of the state from the sharded view of the draws
+    (`Draws.shard`); warmup and train_step follow the state's mesh."""
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the rank's {mesh.device}")
+        device = mesh.device
+        local_envs(cfg, mesh)
     device = resolve_device(device)
     model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
-    return (model, partial(make_optimizer, cfg), partial(init, cfg, model),
+    return (model, partial(make_optimizer, cfg), partial(init, cfg, model, mesh=mesh),
             partial(warmup, cfg), partial(train_step, cfg))
 
 
@@ -436,31 +557,73 @@ def run(boardsize, width, depth, desc="", nodes=64, c_puct=1 / 16, lr=1e-3, n_en
     `cfg.seed`'s draws. `arena=True` spawns the live arena
     (`arena.live.run`, with `arena_ladder` "rollout" or "external"), which
     evaluates the run's latest checkpoint on the same device while the run
-    trains and is terminated when it ends. `n_devices > 1` raises: the port
-    has no multi-card training (parallel/) yet."""
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError("n_devices > 1 needs the env-sharded learner, and the port "
-                                  "has no parallel/ yet")
+    trains and is terminated when it ends.
+
+    `n_devices=n > 1` trains data-parallel over n spawned ranks, rank r on
+    card r (every rank on the CPU with `device="cpu"`), each holding
+    `n_envs / n` envs (`parallel/`). Rank 0 alone makes the run directory
+    and writes the log, the stats, the checkpoints and the storer's
+    accounting, of the whole batch; it alone spawns the live arena. A
+    resumed run loads the same checkpoint on every rank. Fewer visible cards
+    than `n_devices`, or `n_envs` not divisible by it, raise ValueError."""
     cfg = make_config(boardsize, width, depth, nodes=nodes, c_puct=c_puct, lr=lr, n_envs=n_envs,
                       **overrides)
-    device = resolve_device(device)
-    _, _, init_fn, warmup_fn, train_step_fn = make_train(cfg, device=device)
+    setup = dict(desc=desc, storer=storer, max_steps=max_steps, resume=resume, arena=arena,
+                 arena_ladder=arena_ladder)
+    if n_devices is None or n_devices <= 1:
+        return _train(cfg, device=resolve_device(device), **setup)
+    from .parallel import distributed
+
+    rank_device = _rank_device(n_devices, device)
+    if cfg.n_envs % n_devices:
+        raise ValueError(f"n_envs={cfg.n_envs} does not split over n_devices={n_devices}")
+    if resume is not None:
+        setup["resume"] = runs.resolve(resume)
+    return distributed.launch(_train_rank, n_devices, device=rank_device, args=(cfg, setup))[0]
+
+
+def _rank_device(n_devices, device):
+    """`distributed.launch`'s device for `run`'s ranks: 'cpu', or None
+    (rank r on card r) when enough cards are visible."""
+    if device is not None and torch.device(device).type == "cpu":
+        return "cpu"
+    if device is not None and torch.device(device) != torch.device("cuda"):
+        raise ValueError(f"n_devices > 1 puts rank r on card r: device must be 'cuda' or "
+                         f"'cpu', got {device!r}")
+    visible = torch.cuda.device_count()
+    if visible < n_devices:
+        raise ValueError(f"n_devices={n_devices} needs {n_devices} cards; {visible} visible")
+    return None
+
+
+def _train_rank(mesh, cfg, setup):
+    return _train(cfg, device=mesh.device, mesh=mesh, **setup)
+
+
+def _train(cfg, desc, storer, max_steps, resume, arena, arena_ladder, device, mesh=None):
+    """`run`'s loop in one process, or in one rank of a mesh (rank 0 keeps
+    the run). Returns the run's name (None on the other ranks)."""
+    main = mesh is None or mesh.rank == 0
+    _, _, init_fn, warmup_fn, train_step_fn = make_train(cfg, device=device, mesh=mesh)
     draws = Draws(cfg.seed, device)
+    if mesh is not None:
+        draws = draws.shard(mesh.rank, mesh.size)
 
     t0 = time.perf_counter()
     state = init_fn(draws)
     _sync(device)
     init_s = time.perf_counter() - t0
 
-    resumed_payload = None
+    resumed_payload = run_name = None
     if resume is not None:
         run_name = runs.resolve(resume)
         resumed_payload = pstorage.load_latest(run_name)
         state = load_state_dict(state, resumed_payload["agent"])
         log.info(f"resumed {run_name} at step {state.step}")
-    else:
-        run_name = runs.new_run(description=desc, boardsize=boardsize, width=width, depth=depth,
-                                nodes=nodes, c_puct=c_puct, lr=lr, n_envs=n_envs)
+    elif main:
+        run_name = runs.new_run(description=desc, boardsize=cfg.boardsize, width=cfg.width,
+                                depth=cfg.depth, nodes=cfg.n_nodes, c_puct=cfg.c_puct, lr=cfg.lr,
+                                n_envs=cfg.n_envs)
         pstorage.save_raw(run_name, "model", {"cfg": dict(cfg.__dict__), "kind": "FCModel"})
 
     t0 = time.perf_counter()
@@ -468,55 +631,44 @@ def run(boardsize, width, depth, desc="", nodes=64, c_puct=1 / 16, lr=1e-3, n_en
     _sync(device)
     warmup_s = time.perf_counter() - t0
 
-    flops_per = bstorage.flops_per_sample(state.model, cfg.n_nodes)
-    storer_cls = bstorage.TimeStorer if storer == "time" else bstorage.FlopsStorer
-    storer = storer_cls(run_name, boardsize, flops_per)
-    if resumed_payload is not None:
-        # continue the sample/FLOP accounting: seed the counters from the
-        # checkpoint and skip the savepoints the run already took
-        storer.seed(n_flops=resumed_payload.get("n_flops", 0.0),
-                    n_samples=resumed_payload.get("n_samples", 0.0),
-                    runtime=resumed_payload.get("runtime", 0.0))
-
     live = None
-    if arena:
-        from .arena import live as arena_live
+    if main:
+        flops_per = bstorage.flops_per_sample(state.model, cfg.n_nodes)
+        storer_cls = bstorage.TimeStorer if storer == "time" else bstorage.FlopsStorer
+        storer = storer_cls(run_name, cfg.boardsize, flops_per)
+        if resumed_payload is not None:
+            # continue the sample/FLOP accounting: seed the counters from
+            # the checkpoint and skip the savepoints the run already took
+            storer.seed(n_flops=resumed_payload.get("n_flops", 0.0),
+                        n_samples=resumed_payload.get("n_samples", 0.0),
+                        runtime=resumed_payload.get("runtime", 0.0))
+        if arena:
+            from .arena import live as arena_live
 
-        live = arena_live.run(run_name, ladder=arena_ladder, device=device)
+            live = arena_live.run(run_name, ladder=arena_ladder, device=device)
     try:
-        with logs.to_run(run_name), stats.to_run(run_name):
-            log.info(f"set-up: init (mix) {init_s:.3f} s, warmup {warmup_s:.3f} s")
-            stats.last("time.setup.init", init_s)
-            stats.last("time.setup.warmup", warmup_s)
+        with ExitStack() as stack:
+            if main:
+                stack.enter_context(logs.to_run(run_name))
+                stack.enter_context(stats.to_run(run_name))
+                log.info(f"set-up: init (mix) {init_s:.3f} s, warmup {warmup_s:.3f} s")
+                stats.last("time.setup.init", init_s)
+                stats.last("time.setup.warmup", warmup_s)
             last = time.perf_counter()
             while True:
                 state, aux = train_step_fn(state, draws)
-                aux = _host_scalars(aux)
-                now = time.perf_counter()
-                step_s, last = now - last, now
-                with stats.defer():
-                    for k, v in aux.items():
-                        if k.startswith(MEAN_PREFIXES):
-                            stats.mean(k, v)
-                    # win fractions per finished trajectory
-                    n_trajs = max(aux["n-trajs"], 1.0)
-                    stats.mean("wins.seat-0", aux["wins.seat-0"], n_trajs)
-                    stats.mean("wins.seat-1", aux["wins.seat-1"], n_trajs)
-                    stats.rate("sample-rate.actor", cfg.n_envs)
-                    stats.rate("step-rate.learner", 1)
-                    stats.cumsum("count.samples", cfg.n_envs)
-                    stats.mean("n-trajs", aux["n-trajs"])
-                    stats.mean("time.step", step_s)
-                pdevice.device(15, device)
-                log.info(f"step {state.step}")
-
-                finished = storer.step(state_dict(state, cfg), cfg.n_envs)
-                if max_steps is not None and state.step >= max_steps:
-                    finished = True
+                finished = max_steps is not None and state.step >= max_steps
+                if main:
+                    stored, last = _record_step(cfg, state, aux, storer, device, last)
+                    finished = stored or finished
+                if mesh is not None:  # rank 0's storer decides for every rank
+                    flag = torch.tensor([int(finished)], dtype=torch.int32, device=device)
+                    finished = bool(mesh.broadcast(flag).item())
                 if finished:
-                    # the full payload (n_flops/n_samples/runtime too), so a
-                    # resumed run continues the accounting
-                    pstorage.save_latest(run_name, storer.payload(state_dict(state, cfg)))
+                    if main:
+                        # the full payload (n_flops/n_samples/runtime too), so
+                        # a resumed run continues the accounting
+                        pstorage.save_latest(run_name, storer.payload(state_dict(state, cfg)))
                     break
     finally:
         if live is not None:
@@ -525,6 +677,31 @@ def run(boardsize, width, depth, desc="", nodes=64, c_puct=1 / 16, lr=1e-3, n_en
 
     log.info("Finished")
     return run_name
+
+
+def _record_step(cfg, state, aux, storer, device, last):
+    """The loop's writes after a step: its aux as stats, the log line and
+    the storer's step. Returns whether the storer has finished, and the
+    time the step's clock stopped (the next one's start)."""
+    aux = _host_scalars(aux)
+    now = time.perf_counter()
+    step_s = now - last
+    with stats.defer():
+        for k, v in aux.items():
+            if k.startswith(MEAN_PREFIXES):
+                stats.mean(k, v)
+        # win fractions per finished trajectory
+        n_trajs = max(aux["n-trajs"], 1.0)
+        stats.mean("wins.seat-0", aux["wins.seat-0"], n_trajs)
+        stats.mean("wins.seat-1", aux["wins.seat-1"], n_trajs)
+        stats.rate("sample-rate.actor", cfg.n_envs)
+        stats.rate("step-rate.learner", 1)
+        stats.cumsum("count.samples", cfg.n_envs)
+        stats.mean("n-trajs", aux["n-trajs"])
+        stats.mean("time.step", step_s)
+    pdevice.device(15, device)
+    log.info(f"step {state.step}")
+    return storer.step(state_dict(state, cfg), cfg.n_envs), now
 
 
 def run_best(boardsize, **kwargs):

@@ -66,7 +66,8 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         default route's (equal on all but 0.1% of envs, w to atol 1e-4);
         the four searches' seconds on one line;
      d. the 9x9 learner: `make_train`, `init`, a full warmup (64 actor steps)
-        and `--steps` train steps, all aux finite, parameters moved;
+        and `--steps` (at least 2) train steps, all aux finite, parameters
+        moved; its first two steps and its state are kept for phase 10;
      e. one 6x6 K=1 train step after its warmup, at `--k1-learner-envs`;
      f. a tiny train step on the card against the same step on the CPU:
         losses to rtol 1e-4; the same with a bf16 network and bf16 tree
@@ -137,15 +138,39 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      and is terminated with it; `PerfectAgent` against itself on 3x3 (black
      wins every game) and a 3x3 wide-tree agent (K=1, 200 nodes) against
      it; one external-ladder game against the bundled GTP engine;
-  10. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
+  10. data parallelism (`parallel/`), the process pools and `utils/`:
+     a. two ranks spawned on the one card over gloo
+        (`parallel.distributed.launch`, `initialize`), `make_config(9, 512,
+        4)` with `--envs` envs in all, half a rank: `init`, the full warmup
+        and 2 train steps through `Draws(seed).shard(rank, 2)`, each rank's
+        launches (8 of `walk` and `node_actions_multi` an actor step), held
+        against phase 5d's single process on the same draws: the ranks'
+        parameters bit-equal, the pushed records equal env by env on all
+        but `DP_DIVERGED_SHARE` of the envs (integer leaves equal, f32
+        leaves to `DP_RECORD_ATOL`, bf16 ones to a bf16 step), the aux to
+        `DP_AUX_RTOL`, the parameters to `DP_PARAM_RTOL`/`DP_PARAM_ATOL`;
+        the s per train step beside 5d's, the gradient's and the q-bounds'
+        all-reduce ms, the ms of a step's draws for all envs (what each
+        rank generates) and each rank's peak memory;
+     b. `train.run(9, 512, 4, n_devices=2)` on one card: ValueError naming
+        the visible card count, no run left;
+     c. phase 9's league by `neural.evaluate_parallel` over 2 spawned
+        workers on the card, 8 games an ordered pair, games/s beside phase
+        9's `neural.evaluate`;
+     d. one more train step of 5d's state under `utils.profiling.trace`
+        (the chrome trace names `walk` and `node_actions_multi`) between
+        `utils.memory.Monitor` snapshots (a positive delta), and
+        `memory.usage`'s total of the card.
+     A rank or worker that fails or outlives its deadline fails the phase;
+  11. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
      shape, with its figures at the first grow pass, the 6x6 K=1 tree, the
      chains and the wide trees beside, and each design's times; every
      instantiation (the keys of `kernels.launches`: `.bf16` logits, `.mixed`
      and `.wide` trees) as an entry of its own, with its launches from the
      path that runs it (phase 5 or 8) and bounds counting its storage
-     types; each kernel's launches on the paths of phases 6a, 6b, 7, 8 and
-     9 under `slice_launches`), and the last line {"ok": true, "device":
-     {...}}.
+     types; each kernel's launches on the paths of phases 6a, 6b, 7, 8, 9
+     and 10a (both ranks) under `slice_launches`), and the last line
+     {"ok": true, "device": {...}}.
 
 Each row kernel's f32 operation bound counts the solver steps its inputs
 need (`kernels.solve_steps`, printed as a histogram), not the step budget.
@@ -1316,11 +1341,25 @@ def check_k1_variants(cfg, model, worlds, seed):
     return counts
 
 
-def check_learner(cfg, seed, steps, label, worlds=None):
+def host_record(state, slot):
+    """The buffer's slot `slot` (a pushed record) as numpy on the host:
+    the record's leaves (bf16 ones widened) and the worlds' board and
+    seats."""
+    out = {k: x[slot].float().cpu().numpy() if x.is_floating_point() else x[slot].cpu().numpy()
+           for k, x in state.buffer.items() if k != "worlds"}
+    out.update(board=state.buffer["worlds"].board[slot].cpu().numpy(),
+               seats=state.buffer["worlds"].seats[slot].cpu().numpy())
+    return out
+
+
+def check_learner(cfg, seed, steps, label, worlds=None, keep=None):
     """make_train, init (on `worlds` if given, else on freshly mixed ones), a
     full warmup and `steps` train steps, with their launch counts. Returns
     the counts, the median train step after the first (s) and the peak
-    memory (GB)."""
+    memory (GB). With a dict `keep`, it is filled for phase 10: the pushed
+    record and the aux of the first `keep["steps"]` train steps on the host
+    (`records`, `auxes`), the parameters after them (`params`), the step
+    times, and the final state and draws."""
     import torch
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.draws import Draws
@@ -1346,13 +1385,19 @@ def check_learner(cfg, seed, steps, label, worlds=None):
         print(f"{label}: warmup of {cfg.buffer_len} actor steps {time.time() - t0:.2f} s",
               flush=True)
         auxes = []
-        for _ in range(steps):
+        for i in range(steps):
             sync()
+            slot = state.ptr
             t0 = time.time()
             state, aux = train_step(state, draws)
             sync()
             step_s.append(time.time() - t0)
             auxes.append(aux)
+            if keep is not None and i < keep["steps"]:
+                keep.setdefault("records", []).append(host_record(state, slot))
+                keep.setdefault("auxes", []).append({k: float(v) for k, v in aux.items()})
+                keep["params"] = {k: p.detach().cpu().numpy()
+                                  for k, p in state.model.named_parameters()}
         return auxes
 
     counts, auxes = run_path(label, {k: v * (cfg.buffer_len + steps) for k, v in expected.items()},
@@ -1368,6 +1413,8 @@ def check_learner(cfg, seed, steps, label, worlds=None):
     print(f"{label} ({cfg.n_envs} envs): train steps {step_s} s, median after the first "
           f"{steady(step_s):.4f} s/step, peak memory {peak_gb:.2f} GB; last aux {last}",
           flush=True)
+    if keep is not None:
+        keep.update(state=state, draws=draws, step_s=step_s)
     return counts, steady(step_s), peak_gb
 
 
@@ -2080,7 +2127,7 @@ def check_live_arena_run(n_envs, card):
     return run
 
 
-def check_evaluation(args, card, run):
+def check_evaluation(args, card, run, figures):
     """Phase 9: evaluation on the card, on phase 7's run. Agents of its
     latest and first snapshot (K=1, n_nodes=128: the mixed tree), one search
     each on 256 envs; `common.evaluate` of the two over 256 envs until every
@@ -2090,7 +2137,8 @@ def check_evaluation(args, card, run):
     on the card, `elo-arena`); `train.run(3, 8, 1, arena=True)`; the exact
     3x3 oracle against itself (black always wins) and a 3x3 wide-tree agent
     (K=1, n_nodes=200) against it; one external-ladder game against the
-    bundled GTP engine. Returns the launches of the phase's paths."""
+    bundled GTP engine. Returns the launches of the phase's paths; the
+    league's games/s go to `figures["league"]`."""
     import numpy as np
     import torch
     from boardlaw_tpu_torch.arena import common, live, neural, perfect
@@ -2144,6 +2192,7 @@ def check_evaluation(args, card, run):
     add_counts(launches, c)
     secs = time.time() - t0
     games = float((trials.black_wins + trials.white_wins).sum())
+    figures["league"] = games / secs
     print(f"neural.evaluate league: {trials.rows()}; {games:.0f} games in {secs:.2f} s: "
           f"{games / secs:.2f} games/s; card: {card}", flush=True)
     if len(trials) != 6 or games != 6 * 8:
@@ -2201,6 +2250,302 @@ def check_evaluation(args, card, run):
     eval_figures("external ladder (3x3, K=1 n_nodes=200 vs the gtphex engine)", res,
                  time.time() - t0, card)
     return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 10: data parallelism, the process pools and utils/ on the card
+# --------------------------------------------------------------------------
+
+# phase 10a: the share of envs whose pushed record may differ from the
+# single process's in a step. A roundoff difference (a block's GEMMs, the
+# reduced gradient's order of summation) can move a draw at a CDF boundary;
+# that env's search, and its game after, go their own way. An env agrees
+# where its integer leaves (n_leaves, terminal, board, seats) are equal,
+# its -inf are where they were, its f32 leaves (v, rewards) within
+# DP_RECORD_ATOL (phase 5c's rule) and its bf16 leaves (logits, prior)
+# within one bf16 step (rtol 2^-7, atol 1e-5, tests/test_torch_train.py's).
+DP_DIVERGED_SHARE = 0.01
+DP_RECORD_ATOL = 1e-4
+# the aux, and the parameters after the two steps
+DP_AUX_RTOL = 1e-4
+DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-4, 1e-6
+
+
+def dp_rank(mesh, cfg, seed, steps, reps):
+    """Phase 10a's rank: `make_train(cfg, mesh=mesh)`, init, the full warmup
+    and `steps` train steps through the sharded view of `Draws(seed)`, its
+    launch counts over all of them, each step's pushed record (its block)
+    and aux, the parameters after; then the two collectives alone, both
+    ranks at once: the gradient's flat all-reduce and the q-bounds' (2,)
+    MAX, and the whole batch's draws of a train step (`step_draws`), median
+    ms of `reps` calls each. Returns numpy and floats."""
+    import torch
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.mcts import kernels
+
+    cuda = mesh.device.type == "cuda"
+
+    def sync_rank():
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+
+    if cuda:
+        kernels.build()  # the parent built it: this loads it
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    _, _, init, warmup, train_step = train.make_train(cfg, mesh=mesh)
+    draws = Draws(seed, mesh.device).shard(mesh.rank, mesh.size)
+    reset_counts()
+    t0 = time.time()
+    state = init(draws)
+    sync_rank()
+    init_s, t0 = time.time() - t0, time.time()
+    state = warmup(state, draws)
+    sync_rank()
+    warmup_s = time.time() - t0
+    records, auxes, step_s = [], [], []
+    for _ in range(steps):
+        slot = state.ptr
+        sync_rank()
+        t0 = time.time()
+        state, aux = train_step(state, draws)
+        sync_rank()
+        step_s.append(time.time() - t0)
+        records.append(host_record(state, slot))
+        auxes.append({k: float(v) for k, v in aux.items()})
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(mesh.device) / 1e9 if cuda else 0.0
+
+    def timed_ms(fn):
+        times = []
+        for _ in range(reps + 1):
+            mesh.all_reduce(torch.zeros(1, device=mesh.device))  # line the ranks up
+            sync_rank()
+            t0 = time.perf_counter()
+            fn()
+            sync_rank()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times[1:])
+
+    grads = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+    bounds = torch.zeros(2, device=mesh.device)
+    return {"counts": counts, "init_s": init_s, "warmup_s": warmup_s, "step_s": step_s,
+            "draw_ms": timed_ms(lambda: step_draws(cfg, Draws(seed + 1, mesh.device))),
+            "records": records, "auxes": auxes, "peak_gb": peak_gb,
+            "params": {k: p.detach().cpu().numpy() for k, p in state.model.named_parameters()},
+            "grad_ms": timed_ms(lambda: mesh.all_reduce(grads)), "n_grad": grads.numel(),
+            "q_bounds_ms": timed_ms(lambda: mesh.all_reduce(bounds, "max"))}
+
+
+def step_draws(cfg, draws):
+    """Every number a K>1 train step of `cfg` draws for all its envs (what
+    each rank of phase 10a generates, to keep its block): the Dirichlet
+    noise, each pass's uniforms, the action's Gumbel noise and the slots."""
+    from boardlaw_tpu_torch.mcts import search
+
+    mcfg = cfg.mcts_config()
+    B, A, K = cfg.n_envs, cfg.boardsize ** 2, mcfg.leaves_per_pass
+    draws.dirichlet((B, A), 4)
+    for p in range(mcfg.n_passes):
+        draws.pass_rands(p, (K, B, search.pass_shape(mcfg, p)[0]))
+    draws.gumbel((B, A))
+    draws.slots(B, cfg.buffer_len)
+
+
+def dp_records_agree(got, want, label):
+    """The ranks' blocks of a step's pushed record against the single
+    process's, env by env (`DP_DIVERGED_SHARE`'s rule). Returns the
+    envs that differ: by integer leaves, by float leaves only."""
+    import numpy as np
+
+    B = len(want["n_leaves"])
+    by_ints = np.zeros(B, bool)
+    for k in ("n_leaves", "terminal", "board", "seats"):
+        by_ints |= (got[k] != want[k]).reshape(B, -1).any(1)
+    by_floats = np.zeros(B, bool)
+    for k, (rtol, atol) in (("v", (0, DP_RECORD_ATOL)), ("rewards", (0, DP_RECORD_ATOL)),
+                            ("logits", (2 ** -7, 1e-5)), ("prior", (2 ** -7, 1e-5))):
+        g, w = got[k].reshape(B, -1), want[k].reshape(B, -1)
+        fin = np.isfinite(w)
+        with np.errstate(invalid="ignore"):  # -inf - -inf, masked by fin
+            off = (np.isneginf(g) != np.isneginf(w)) | (
+                fin & ~(np.abs(g - w) <= atol + rtol * np.abs(np.where(fin, w, 0))))
+        by_floats |= off.any(1)
+    n_ints, n_floats = int(by_ints.sum()), int((by_floats & ~by_ints).sum())
+    if n_ints + n_floats > DP_DIVERGED_SHARE * B:
+        fail(f"{label}: {n_ints} of {B} envs differ from the single process's in integer "
+             f"leaves and {n_floats} more in float leaves (at most a share of "
+             f"{DP_DIVERGED_SHARE})")
+    return n_ints, n_floats
+
+
+def check_data_parallel(args, card, cfg, ref):
+    """Phase 10a: two ranks spawned on the one card over gloo
+    (`distributed.launch(..., device="cuda:0")`), 16,384 envs each of
+    `cfg` (32,768), run `init`, the full warmup and 2 train steps through
+    the sharded view of `Draws(seed)`, held against phase 5d's single
+    process on the same draws (`ref`, `check_learner`'s `keep`): each
+    rank's launches (8 of `walk` and `node_actions_multi` an actor step),
+    the ranks' parameters bit-equal, the pushed records by
+    `dp_records_agree`, the aux to `DP_AUX_RTOL`, the parameters to
+    `DP_PARAM_RTOL`/`DP_PARAM_ATOL`. Prints the s per train step beside
+    5d's, the collectives' ms, the ms of a step's draws and each rank's
+    peak memory. Returns the launches of both ranks together."""
+    import numpy as np
+    from boardlaw_tpu_torch.parallel import distributed
+
+    steps, world = 2, 2
+    t0 = time.time()
+    ranks = distributed.launch(dp_rank, world, device=f"{DEV}:0" if DEV == "cuda" else DEV,
+                               args=(cfg, args.seed, steps, 10), timeout=900)
+    wall = time.time() - t0
+    want = {k: v * (cfg.buffer_len + steps) for k, v in search_launches(cfg.mcts_config()).items()}
+    total = {}
+    for r, out in enumerate(ranks):
+        nonzero = {k: v for k, v in out["counts"].items() if v}
+        print(f"launches on rank {r} of 2 (init, {cfg.buffer_len} warmup and {steps} train "
+              f"steps): {nonzero} (expected {want})", flush=True)
+        if DEV == "cuda" and nonzero != want:
+            fail(f"rank {r}: kernel launches {nonzero}, expected {want}")
+        add_counts(total, out["counts"])
+
+    for k, p in ranks[0]["params"].items():
+        if not np.array_equal(p, ranks[1]["params"][k]):
+            fail(f"the ranks' parameter {k} differs: they applied different updates")
+    for i in range(steps):
+        got = {k: np.concatenate([out["records"][i][k] for out in ranks])
+               for k in ranks[0]["records"][i]}
+        n_ints, n_floats = dp_records_agree(got, ref["records"][i], f"train step {i + 1}")
+        aux, ref_aux = ranks[0]["auxes"][i], ref["auxes"][i]
+        if aux != ranks[1]["auxes"][i]:
+            fail(f"train step {i + 1}: the ranks' aux differ")
+        rel = {k: abs(aux[k] - v) / max(abs(v), 1e-6) for k, v in ref_aux.items()}
+        bad = {k: (aux[k], ref_aux[k]) for k, v in rel.items()
+               if abs(aux[k] - ref_aux[k]) > DP_AUX_RTOL * abs(ref_aux[k]) + 1e-6}
+        print(f"train step {i + 1}: envs whose record differs from the single process's: "
+              f"{n_ints} by integer leaves, {n_floats} more by float leaves, of "
+              f"{len(got['n_leaves'])}; aux largest relative difference "
+              f"{max(rel.values()):.3g} ({max(rel, key=rel.get)})", flush=True)
+        if bad:
+            fail(f"train step {i + 1}: aux beyond rtol {DP_AUX_RTOL}: {bad}")
+    err = 0.0
+    for k, p in ranks[0]["params"].items():
+        w = ref["params"][k]
+        if not np.allclose(p, w, rtol=DP_PARAM_RTOL, atol=DP_PARAM_ATOL):
+            fail(f"parameter {k} after {steps} steps differs from the single process's")
+        err = max(err, float(np.abs(p - w).max()))
+    step_s = [out["step_s"] for out in ranks]
+    print(f"2 ranks on one card (9x9, 512x4, {cfg.n_envs} envs, {cfg.n_envs // world} a rank, "
+          f"gloo): "
+          f"{wall:.2f} s in all; init (mix) {[round(o['init_s'], 2) for o in ranks]} s, warmup "
+          f"{[round(o['warmup_s'], 2) for o in ranks]} s; s per train step by rank "
+          f"{step_s}, single process (5d) {ref['step_s'][:steps]}; gradient all-reduce of "
+          f"{ranks[0]['n_grad']} f32 {[round(o['grad_ms'], 3) for o in ranks]} ms, q-bounds "
+          f"all-reduce {[round(o['q_bounds_ms'], 4) for o in ranks]} ms a pass "
+          f"({cfg.mcts_config().n_passes} a search); a train step's draws for all envs "
+          f"{[round(o['draw_ms'], 3) for o in ranks]} ms; peak memory by rank "
+          f"{[round(o['peak_gb'], 2) for o in ranks]} GB; parameters within {err:.3g} of the "
+          f"single process's; card: {card}", flush=True)
+    return total
+
+
+def check_run_refuses():
+    """Phase 10b: `train.run(9, 512, 4, n_devices=2)` with fewer cards
+    visible raises ValueError naming their count and leaves no run."""
+    import torch
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.pavlov import runs
+
+    before = runs.list_runs()
+    visible = torch.cuda.device_count()
+    n = max(2, visible + 1)
+    try:
+        train.run(9, 512, 4, n_devices=n)
+    except ValueError as e:
+        if f"{visible} visible" not in str(e):
+            fail(f"train.run(n_devices={n}) raised {e!r}, which names no card count")
+        print(f"train.run(9, 512, 4, n_devices={n}) with {visible} card(s): ValueError({e})",
+              flush=True)
+    else:
+        fail(f"train.run(n_devices={n}) ran on {visible} card(s)")
+    if runs.list_runs() != before:
+        fail("the refused train.run left a run behind")
+
+
+def league_loader(spec, device=None):
+    """Phase 10c's loader: a snapshot of phase 7's run searching as the
+    live arena does (K=8 grow, 128 nodes), or the rollout-4 agent."""
+    from boardlaw_tpu_torch.arena import common, live
+
+    if spec == "rollout-4":
+        return live.rollout_ladder((4,))["rollout-4"]
+    run, idx = spec
+    agent = common.agent(run, idx, device=device, n_nodes=128, **live.SEARCH)
+    if agent is None:
+        raise RuntimeError(f"no checkpoint {idx} in {run}")
+    return agent
+
+
+def check_evaluate_parallel(args, card, run, league_rate):
+    """Phase 10c: phase 9's league (phase 7's latest and first snapshots
+    and rollout-4) by `neural.evaluate_parallel` over 2 spawned workers on
+    the card, in chunks of 2 agents (2 jobs): every ordered pair plays 8
+    games. Prints games/s beside phase 9's `neural.evaluate`."""
+    from boardlaw_tpu_torch.arena import neural
+
+    specs = {"latest": (run, None), "first": (run, 0), "rollout-4": "rollout-4"}
+    t0 = time.time()
+    trials = neural.evaluate_parallel(9, specs, loader=league_loader, n_envs_per=8,
+                                      chunk_size=2, max_workers=2, seed=args.seed,
+                                      device=None if DEV == "cuda" else DEV, timeout=600)
+    secs = time.time() - t0
+    games = float((trials.black_wins + trials.white_wins).sum())
+    print(f"neural.evaluate_parallel league over 2 workers on the card: {trials.rows()}; "
+          f"{games:.0f} games in {secs:.2f} s: {games / secs:.2f} games/s (phase 9's "
+          f"neural.evaluate {league_rate:.2f}); card: {card}", flush=True)
+    if len(trials) != 6 or games != 6 * 8:
+        fail(f"evaluate_parallel played {games} games over {len(trials)} matchups, "
+             f"expected 48 over 6")
+
+
+def check_utils_on_card(cfg, keep, card):
+    """Phase 10d: one more train step of phase 5d's state (10a's shape,
+    one process) under `utils.profiling.trace`, whose chrome trace must
+    name the kernels `walk` and `node_actions_multi`, between two
+    `utils.memory.Monitor` snapshots (a positive delta: the step's aux
+    stay); `memory.usage` gives the card's total."""
+    import json
+    import tempfile
+    import torch
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.utils import memory, profiling
+
+    state, draws = keep["state"], keep["draws"]
+    monitor = memory.Monitor(DEV)
+    used, total = memory.usage(DEV)
+    if DEV == "cuda" and total != torch.cuda.get_device_properties(0).total_memory:
+        fail(f"memory.usage gives {total} bytes for the card")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-trace-") as d:
+        monitor.snap("before the step")
+        t0 = time.time()
+        with profiling.trace(d) as prof:
+            state, aux = train.train_step(cfg, state, draws)
+        secs = time.time() - t0
+        monitor.snap("after the step")
+        trace_mb = os.path.getsize(prof.path) / 1e6
+        events = json.loads(prof.path.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {k: sorted(n for n in names if k in n)[:2] for k in ("walk", "node_actions_multi")}
+    rows = monitor.rows()
+    print(f"profiling.trace of one train step ({cfg.n_envs} envs): {secs:.2f} s with the "
+          f"trace, {trace_mb:.1f} MB, {len(events)} events, {len(names)} kernel names, among "
+          f"them {found}; memory.Monitor {rows}; memory.usage {used} of {total} bytes; card: "
+          f"{card}", flush=True)
+    if DEV == "cuda" and not all(found.values()):
+        fail(f"the trace names no kernel of {[k for k, v in found.items() if not v]}")
+    if rows[1]["delta"] <= 0 and DEV == "cuda":
+        fail(f"memory.Monitor: no positive delta around the step ({rows})")
+    return aux
 
 
 # the eight kernels: route, source, the Pallas kernel each replaces
@@ -2349,10 +2694,12 @@ def main(argv=None):
         del worlds
         torch.cuda.empty_cache()
 
-    # 5d. the 9x9 learner
+    # 5d. the 9x9 learner; its first two steps are phase 10a's reference,
+    # its state phase 10d's
     with Phase("9x9 learner"):
-        _, *f32_figures["learner"] = check_learner(cfg9, args.seed, args.steps,
-                                                   "the 9x9 learner (K=8)")
+        single = {"steps": 2}
+        _, *f32_figures["learner"] = check_learner(cfg9, args.seed, max(args.steps, 2),
+                                                   "the 9x9 learner (K=8)", keep=single)
         torch.cuda.empty_cache()
 
     # 5e. the 6x6 K=1 learner; its warmup cut to 16 actor steps (a
@@ -2425,15 +2772,28 @@ def main(argv=None):
             torch.cuda.empty_cache()
 
         # 9. evaluation on the card, on phase 7's run
+        eval_figures = {}
         with Phase("evaluation"):
-            slice_launches["eval"] = check_evaluation(args, card, run)
+            slice_launches["eval"] = check_evaluation(args, card, run, eval_figures)
+            torch.cuda.empty_cache()
+
+        # 10. data parallelism, the process pools and utils/ on the card
+        with Phase("two ranks on the card (data parallel)"):
+            slice_launches["data_parallel"] = check_data_parallel(args, card, cfg9, single)
+        with Phase("train.run(n_devices=2) on one card"):
+            check_run_refuses()
+        with Phase("evaluate_parallel on the card"):
+            check_evaluate_parallel(args, card, run, eval_figures["league"])
+        with Phase("utils on the card"):
+            check_utils_on_card(cfg9, single, card)
+            del single
             torch.cuda.empty_cache()
 
     unlaunched = [k for k in kernels.launches if not launches.get(k)]
     if unlaunched:
         fail(f"no path launched {unlaunched}")
 
-    # 10. the records
+    # 11. the records
     def figures(r):
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / F32_FLOPS * 1e3

@@ -1,7 +1,8 @@
-"""The port and chip_smoke.py import with JAX, flax, optax and the JAX
-package blocked, and with the packages the card's machine lacks blocked too
-(pandas, portalocker, cloudpickle, msgpack, matplotlib): they import torch,
-numpy, scipy and the standard library only. Without pandas, the dataframe
+"""The port (`parallel/` and `utils/` among it) and chip_smoke.py import
+with JAX, flax, optax and the JAX package blocked, and with the packages
+the card's machine lacks blocked too (pandas, portalocker, cloudpickle,
+msgpack, matplotlib): they import torch, numpy, scipy and the standard
+library only. Without pandas, the dataframe
 readers of `pavlov` raise a clear ImportError and the numpy readers still
 work, and the evaluation path (a league, the Elo solvers, the live arena's
 round) runs on numpy arrays with names."""
@@ -39,7 +40,11 @@ def test_port_imports_without_jax():
                      "boardlaw_tpu_torch.arena.live", "boardlaw_tpu_torch.arena.perfect",
                      "boardlaw_tpu_torch.activelo.solvers", "boardlaw_tpu_torch.elos",
                      "boardlaw_tpu_torch.mohex", "boardlaw_tpu_torch.gtp_engine",
-                     "boardlaw_tpu_torch.pavlov.json_store"):
+                     "boardlaw_tpu_torch.pavlov.json_store", "boardlaw_tpu_torch.parallel",
+                     "boardlaw_tpu_torch.parallel.mesh", "boardlaw_tpu_torch.parallel.distributed",
+                     "boardlaw_tpu_torch.utils.parallel", "boardlaw_tpu_torch.utils.memory",
+                     "boardlaw_tpu_torch.utils.profiling", "boardlaw_tpu_torch.utils.recording",
+                     "boardlaw_tpu_torch.utils.trees"):
             assert name in sys.modules
         print("ok", len(names))
     """ % ROOT)

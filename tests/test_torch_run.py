@@ -181,8 +181,11 @@ def test_resumes_a_checkpoint_the_jax_package_wrote():
 
 def test_entry_points_refuse_what_the_port_lacks(monkeypatch):
     with mock_dir():
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            train.run(n_devices=2, **TINY)
+        with pytest.raises(ValueError, match="n_envs=8 does not split over n_devices=3"):
+            train.run(n_devices=3, **TINY)
+        cards = torch.cuda.device_count()
+        with pytest.raises(ValueError, match=f"{cards} visible"):
+            train.run(n_devices=max(cards + 1, 2), **{k: v for k, v in TINY.items() if k != "device"})
         if not torch.cuda.is_available():  # the card by default, never a quiet CPU run
             with pytest.raises(RuntimeError):
                 train.run(**{k: v for k, v in TINY.items() if k != "device"})

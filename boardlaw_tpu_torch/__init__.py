@@ -20,4 +20,10 @@ JAX package's layout (`pavlov`: run registry, stats, logs, checkpoints),
 log-spaced snapshots (`storage`) and `resume=`, for the port's runs and the
 JAX package's. `envs/hex.py` also carries `from_string` and the one-player
 worlds, and `envs/validation.py` the planted-value games and proxy agents.
+
+Evaluation (`arena/`, `elos`, `activelo/`) rates a run's agents; the
+results database (`sql`, in the JAX package's SQLite schema) holds runs,
+snapshots, agents and trials for the scaling study (`scaling/`,
+scripts/torch_scaling_study.py), the top-agent games (`arena.best`), the
+MoHex calibration and the gradient noise scales (`noisescales`).
 """

@@ -15,8 +15,10 @@ and the JAX package's alike, into an `MCTSAgent` whose network is shared by
 every agent of its architecture on its device: one module, its weights
 swapped in when an agent is called.
 
-`sql_agent`/`sql_world` (agents by results-DB row) wait for the port's
-`sql.py`.
+`sql_agent`/`sql_world` load an agent, and make its worlds, by its
+results-database row (`sql.agent_query`). As in the JAX package,
+`sql_agent` searches with the row's `test_nodes` and the run's c_puct: the
+row's `test_c` is not applied.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from logging import getLogger
 import numpy as np
 import torch
 
-from .. import train
+from .. import sql, train
 from ..draws import Draws
 from ..envs import hex
 from ..mcts.search import MCTSAgent
@@ -110,6 +112,19 @@ class SharedParamsAgent:
             self.model.load_state_dict(self.params)
             self.model.owner = self
         return self.search(world, draws, eval=eval)
+
+
+def sql_agent(agent_id, device=None, **kwargs):
+    """The agent of a results-database row, searching with the row's
+    `test_nodes` (its `test_c` is not applied, as in the JAX package)."""
+    row = sql.agent_query().row(agent_id)
+    return agent(row.run, int(row.idx), device=device, n_nodes=int(row.test_nodes), **kwargs)
+
+
+def sql_world(agent_id, n_envs, device=None):
+    """Fresh worlds at the boardsize of a results-database agent's run."""
+    row = sql.agent_query().row(agent_id)
+    return hex.Hex.initial(n_envs, int(row.boardsize), device=device)
 
 
 def worlds(run, n_envs, device=None):

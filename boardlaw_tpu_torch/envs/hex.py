@@ -12,7 +12,9 @@ the JAX package. White plays and observes in the transposed frame.
 `Solitaire` is one-player Hex: after each move an opponent `_play`s until
 the protagonist (black) is to move again; `Lazy`'s opponent takes the first
 valid cell, `Random`'s a uniform valid one, drawn through `Draws`.
-`from_string` builds a one-env world from an ASCII board.
+`from_string` builds a one-env world from an ASCII board; `color_board`,
+`plot_board` and `plot_worlds` draw boards (they import matplotlib where
+they are called).
 """
 from __future__ import annotations
 
@@ -287,6 +289,55 @@ class Random(Solitaire):
         logits = torch.where(world.valid, 0.0, -torch.inf)
         actions = torch.argmax(logits + draws.gumbel(logits.shape), -1)
         return Hex.step(world, actions)
+
+
+# -- display ---------------------------------------------------------------
+
+def color_board(board, colors="obs"):
+    """RGB of each cell of an (S, S) board of labels: by stone colour
+    ('obs'), or with the edge-connected groups tinted ('board')."""
+    import matplotlib as mpl
+
+    black = (0, 0, 0.4)
+    white = (0, 0, 0.8)
+    tan = (0.07, 0.4, 0.8)
+    if colors == "obs":
+        hsv = [tan, black, white, black, black, white, white]
+    elif colors == "board":
+        hsv = [tan, black, white, (0.16, 0.2, 0.4), (0.33, 0.2, 0.4), (0.66, 0.2, 0.8),
+               (0.72, 0.2, 0.8)]
+    else:
+        raise ValueError(colors)
+    rgb = np.stack([mpl.colors.hsv_to_rgb(c) for c in hsv])
+    return rgb[np.asarray(board)]
+
+
+def plot_board(colors, ax=None):
+    """Draw a hex board from an (S, S, 3) colour array: hexagon patches on
+    offset rows. Returns the axes."""
+    import matplotlib as mpl
+    import matplotlib.pyplot as plt
+
+    ax = plt.subplots()[1] if ax is None else ax
+    ax.set_aspect(1)
+    S = colors.shape[0]
+    sin60 = np.sin(np.pi / 3)
+    radius = 0.5 / sin60
+    for r in range(S):
+        for c in range(S):
+            ax.add_patch(mpl.patches.RegularPolygon(
+                (c + 0.5 * r, sin60 * (S - 1 - r)), numVertices=6, radius=radius,
+                facecolor=colors[r, c], edgecolor="k", linewidth=1))
+    ax.set_xlim(-1, 1.5 * S)
+    ax.set_ylim(-1, sin60 * S + 1)
+    ax.set_frame_on(False)
+    ax.set_xticks([])
+    ax.set_yticks([])
+    return ax
+
+
+def plot_worlds(world, e=0, ax=None, colors="obs"):
+    return plot_board(color_board(world.board[e].cpu().numpy(), colors), ax=ax)
 
 
 # -- test and analysis helpers -----------------------------------------------

@@ -18,7 +18,9 @@ are float32 under either compute dtype.
 `torch.optim.Adam` (step, exp_avg, exp_avg_sq); `adam_from_leaves` rebuilds
 that state from the flat `jax.tree.leaves(opt_state)` list that the JAX
 package's checkpoints hold (`boardlaw_tpu/train.py` `state_dict`);
-`train_state_from_jax`
+`flax_order` lists a model's parameters in the leaf order of the flax tree
+`from_flax` reads (what `jax.tree.leaves(params)` gives), each with
+whether its flax leaf is its transpose. `train_state_from_jax`
 carries a whole JAX `TrainState` (worlds, buffer, ptr, params, optimizer
 state, step) into a port `train.TrainState`. The JAX objects come in as they
 are or with their leaves turned into numpy arrays: only attributes and
@@ -65,6 +67,33 @@ def from_flax(params):
         if head in tree:
             sd.update(_dense(tree[head], head))
     return sd
+
+
+def _flax_path(name):
+    """The flax tree path of a parameter named as `from_flax` names it, and
+    whether the flax leaf is its transpose (a Dense kernel)."""
+    parts = name.split(".")
+    path = []
+    while parts:
+        head = parts.pop(0)
+        if head == "blocks":
+            path.append(f"block_{parts.pop(0)}")
+        elif head == "intakes":
+            path.append(f"intake_{parts.pop(0)}")
+        elif head == "dense":
+            leaf = parts.pop(0)
+            path += ["Dense_0", "kernel" if leaf == "weight" else "bias"]
+            return tuple(path), leaf == "weight"
+        else:
+            path.append(head)
+    return tuple(path), False
+
+
+def flax_order(model):
+    """[(name, parameter, transposed)] of a model's parameters in flax leaf
+    order: the paths' keys sorted at every level."""
+    named = [(_flax_path(n), n, p) for n, p in model.named_parameters()]
+    return [(n, p, t) for (_, t), n, p in sorted(named, key=lambda x: x[0][0])]
 
 
 def _tensor(x, device=None):

@@ -162,14 +162,34 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         `utils.memory.Monitor` snapshots (a positive delta), and
         `memory.usage`'s total of the card.
      A rank or worker that fails or outlives its deadline fails the phase;
-  11. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
+  11. the results database and the scaling study on phase 7's run, in a
+     spawned process of its own (phase 10d's profiler trace leaves the
+     card's tracing on in this one), with `BOARDLAW_DB` in a temporary
+     directory and neither pandas nor matplotlib used
+     (`check_results_database`): a. `sql.refresh()` over
+     phases 7 and 9's run root, one agent row per snapshot; b.
+     scripts/torch_scaling_study.py's `train` stage (`STUDY`: 9x9, 64x2 and
+     512x4, 4,096 envs, 3 steps; two snapshots registered a run) and its
+     `evaluate` stage (K=8 grow, 8 launches of `walk` and
+     `node_actions_multi` a search; every ordered pair of the four agents; a
+     rerun adds nothing), `elos.solve` on the trials and `data.fit_model`
+     on the card, with games/s, the fit's seconds and RMSE; c.
+     `best.std_available(9)` and `best.evaluate(9, n_envs=256, rounds=1)`
+     (K=1, 63 launches of `node_actions` and `walk` a search); d.
+     `noisescales.evaluate` on phase 7's latest snapshot (64 nodes, 1,024
+     envs, 16 steps, its perf games): three finite rows over 1,176,150
+     parameters, a second call adding nothing, the collection's and the
+     gradients' seconds; e. `mohex_calibration.play_out` of `PerfectAgent`
+     against itself on 3x3 (black wins every game) and `calibrate` of phase
+     9's 3x3 run against tests/gtp_stub.py as the MoHex binary;
+  12. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
      shape, with its figures at the first grow pass, the 6x6 K=1 tree, the
      chains and the wide trees beside, and each design's times; every
      instantiation (the keys of `kernels.launches`: `.bf16` logits, `.mixed`
      and `.wide` trees) as an entry of its own, with its launches from the
      path that runs it (phase 5 or 8) and bounds counting its storage
-     types; each kernel's launches on the paths of phases 6a, 6b, 7, 8, 9
-     and 10a (both ranks) under `slice_launches`), and the last line
+     types; each kernel's launches on the paths of phases 6a, 6b, 7, 8, 9,
+     10a (both ranks) and 11b-11e under `slice_launches`), and the last line
      {"ok": true, "device": {...}}.
 
 Each row kernel's f32 operation bound counts the solver steps its inputs
@@ -2548,6 +2568,310 @@ def check_utils_on_card(cfg, keep, card):
     return aux
 
 
+# --------------------------------------------------------------------------
+# Phase 11: the results database and the scaling study on the card
+# --------------------------------------------------------------------------
+
+# phase 11b's study: boardsize, ladder, envs and steps. 3 steps, not 4: a
+# fourth step of the 512x4 run crosses the 9x9 FlopsStorer's first savepoint
+# (1e12 FLOPs), whose snapshot would add a fifth agent to the league
+STUDY = dict(boardsize=9, sizes="64:2,512:4", envs=4096, steps=3, k=8, test_k=8, envs_per=4,
+             league_envs=1024, dtype="float32")
+# the parameters of the 9x9 512x4 FCModel (phase 7's), each noise-scale row's
+FLAGSHIP_PARAMS = 1_176_150
+
+
+class Searches:
+    """Counts the `MCTSAgent` searches made inside the block, by their
+    leaves per pass."""
+
+    def __enter__(self):
+        from boardlaw_tpu_torch.mcts import search
+
+        self.calls = []
+        self._search, self._call = search, search.MCTSAgent.__call__
+
+        def counted(agent, world, draws=None, eval=False, **overrides):
+            self.calls.append(agent.cfg.leaves_per_pass)
+            return self._call(agent, world, draws, eval=eval, **overrides)
+
+        search.MCTSAgent.__call__ = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._search.MCTSAgent.__call__ = self._call
+
+
+def per_search(label, counts, searches):
+    """Fails unless each search of `searches` launched its route's kernels
+    once a pass: 8 of `walk` and `node_actions_multi` a K=8 grow search at
+    64 nodes, 63 of `node_actions` and `walk` a K=1 search, nothing else."""
+    k8 = sum(1 for k in searches if k == 8)
+    k1 = sum(1 for k in searches if k == 1)
+    want = {"walk": 8 * k8 + 63 * k1, "node_actions_multi": 8 * k8, "node_actions": 63 * k1}
+    got = {k: v for k, v in counts.items() if v}
+    print(f"{label}: {k8} K=8 grow searches, {k1} K=1 searches; launches {got}", flush=True)
+    if len(searches) != k8 + k1 or got != {k: v for k, v in want.items() if v}:
+        fail(f"{label}: launches {got}, expected {want} for {k8} K=8 and {k1} K=1 searches")
+
+
+def check_results_database(args, card, run, slice_launches):
+    """Phase 11: the results database (`sql`) and the scaling study on the
+    card, on phase 7's run, with `BOARDLAW_DB` in a temporary directory and
+    neither pandas nor matplotlib used. a. `sql.refresh()` over phases 7 and
+    9's run root: one agent row per snapshot. b. `torch_scaling_study`'s
+    `train` stage (`STUDY`: 9x9, 64x2 and 512x4, 4,096 envs, 3 steps, two
+    snapshots registered a run at two FLOP points as the JAX test does),
+    its `evaluate` stage (K=8 grow leagues, every ordered pair of the four
+    agents, a rerun adding nothing), `elos.solve` on the `trial_query` rows
+    and `data.fit_model` on (flops, boardsize, elo) arrays; games/s, the
+    fit's seconds and RMSE. c. `best.std_available(9)` and
+    `best.evaluate(9, n_envs=256, rounds=1)` through `sql_agent`/`sql_world`.
+    d. `noisescales.evaluate` on phase 7's latest snapshot (64 nodes, c
+    1/16, perf, 1,024 envs, 16 steps): three finite rows over 1,176,150
+    parameters, a second call adding nothing; the collection's and the
+    gradients' seconds. e. `mohex_calibration.play_out` of `PerfectAgent`
+    against itself on 3x3 (black wins every game), then `calibrate` of a
+    snapshot of phase 9's 3x3 run against tests/gtp_stub.py as the MoHex
+    binary, with `calibrations` and `best_agent`. Each part's launches go
+    to `slice_launches`."""
+    import argparse
+    import tempfile
+
+    import numpy as np
+    import torch
+    from boardlaw_tpu_torch import elos, mohex, noisescales, sql, train
+    from boardlaw_tpu_torch.arena import best, mohex_calibration, perfect
+    from boardlaw_tpu_torch.envs import hex
+    from boardlaw_tpu_torch.pavlov import runs, storage
+    from boardlaw_tpu_torch.scaling import data
+    from scripts import torch_scaling_study as study
+
+    old_db = os.environ.get("BOARDLAW_DB")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-db-") as tmp:
+        os.environ["BOARDLAW_DB"] = os.path.join(tmp, "database.sql")
+        try:
+            # a. the registry
+            t0 = time.time()
+            sql.refresh()
+            ags = sql.agent_query()
+            snaps = {(r, i) for r in runs.list_runs()
+                     if "boardsize" in runs.info(r).get("params", {})
+                     for i in storage.snapshots(r)}
+            print(f"sql.refresh: {len(sql.query('select * from runs'))} runs, {len(snaps)} "
+                  f"snapshots, {len(ags)} agents ({[(r.run[-10:], r.idx, r.test_nodes) for r in ags]})",
+                  flush=True)
+            if len(ags) != len(snaps) or {(r.run, r.idx) for r in ags} != snaps \
+                    or run not in set(ags.run):
+                fail("sql.refresh: not one agent row per snapshot")
+
+            # b. the study: train, league, Elos, fit
+            t0 = lap("phase 11a, sql.refresh", t0)
+            sargs = argparse.Namespace(seed=args.seed, device=DEV, **STUDY)
+            before = set(runs.list_runs())
+            cfg = train.make_config(9, 512, 4, n_envs=STUDY["envs"], leaves_per_pass=STUDY["k"])
+            per_run = {k: (cfg.buffer_len + STUDY["steps"]) * v  # warmup, then train steps
+                       for k, v in search_launches(cfg.mcts_config()).items()}
+            c, _ = run_path("torch_scaling_study train (9x9, 64x2 and 512x4, 4096 envs)",
+                            {k: 2 * v for k, v in per_run.items()}, lambda: study.train(sargs))
+            slice_launches["study_train"] = c
+            new = sorted(set(runs.list_runs()) - before)
+            for r in new:
+                latest = storage.load_latest(r)
+                f0, n0 = latest["n_flops"], latest["n_samples"]
+                storage.save_snapshot(r, {"agent": latest["agent"]}, n_samples=n0, n_flops=f0)
+                storage.save_snapshot(r, {"agent": latest["agent"]}, n_samples=2 * n0,
+                                      n_flops=4 * f0)
+            t0 = lap("phase 11b, the study's train stage", t0)
+            with Searches() as league:
+                c, trials = counted_path("torch_scaling_study evaluate (test_k=8)",
+                                         ("walk", "node_actions_multi"),
+                                         lambda: study.evaluate(sargs))
+            secs = time.time() - t0
+            per_search("the study's league", c, league.calls)
+            slice_launches["study_league"] = c
+            rows = sql.trial_query(9, study.DESC)
+            ids = [int(r.id) for r in sql.agent_query() if r.run in new]
+            pairs = {(b, w) for b in ids for w in ids if b != w}
+            games = float((rows.black_wins + rows.white_wins).sum())
+            print(f"the study's league: {len(ids)} agents, {len(rows)} trial rows, {games:.0f} "
+                  f"games in {secs:.2f} s: {games / secs:.2f} games/s; card: {card}", flush=True)
+            if len(ids) != 4 or set(zip(rows.black_agent.tolist(), rows.white_agent.tolist())) \
+                    != pairs or not (rows.black_wins + rows.white_wins > 0).all():
+                fail("the study's league: not every ordered pair of its four agents played")
+            if study.evaluate(sargs) is not None or len(sql.trial_query(9, study.DESC)) != len(rows):
+                fail("the study's league: a rerun added trials")
+            ws, gs, order = sql.trial_matrices(rows)
+            elo = elos.solve(ws, gs)
+            agents = sql.agent_query()
+            arrays = argparse.Namespace(
+                train_flops=np.array([agents.row(i).train_flops for i in order]),
+                boardsize=np.array([agents.row(i).boardsize for i in order], float), elo=elo)
+            tf = time.time()
+            params = data.fit_model(arrays)
+            fit_s = time.time() - tf
+            fitted = data.changepoint_apply(params, data.model_inputs(arrays)).numpy()
+            rmse = float(np.sqrt(np.mean((fitted - elo) ** 2)))
+            print(f"the study's Elos {dict(zip(order, np.round(elo, 4).tolist()))}; "
+                  f"data.fit_model on the card: {fit_s:.2f} s, RMSE {rmse:.4f} nats "
+                  f"({rmse * data.ELO:.1f} Elo), params "
+                  f"{ {k: v.tolist() for k, v in params.items()} }; card: {card}", flush=True)
+            if not (np.isfinite(elo).all() and elo.max() == 0 and np.isfinite(rmse)):
+                fail("the study's Elos or fit are not finite")
+
+            # c. the top agent's challengers
+            t0 = lap("phase 11b, the league, Elos and fit", t0)
+            avail = best.std_available(9)
+            last_id = int(sql.trial_query(9).index.max())
+            with Searches() as calls:
+                c, _ = counted_path("best.evaluate(9, n_envs=256, rounds=1)", ("walk",),
+                                    lambda: best.evaluate(9, n_envs=256, rounds=1))
+            secs = time.time() - t0
+            per_search("best.evaluate", c, calls.calls)
+            slice_launches["best"] = c
+            added = sql.trial_query(9)
+            added = added.take(added.index > last_id)
+            games = float((added.black_wins + added.white_wins).sum())
+            print(f"best.std_available(9): {list(zip(avail.agent.tolist(), np.round(avail.std, 4).tolist()))}; "
+                  f"best.evaluate: {len(added)} trial rows, {games:.0f} games in {secs:.2f} s: "
+                  f"{games / secs:.2f} games/s; card: {card}", flush=True)
+            if len(avail) == 0 or len(added) != 2 or games != 256:
+                fail("best: no challenger, or its 256 games were not saved")
+
+            # d. the noise scales of phase 7's latest snapshot
+            t0 = lap("phase 11c, best", t0)
+            idx = max(storage.snapshots(run))
+            timed = {}
+
+            def timing(name, fn):
+                def wrapped(*a, **kw):
+                    t = time.time()
+                    out = fn(*a, **kw)
+                    sync()
+                    timed[name] = time.time() - t
+                    return out
+                return wrapped
+
+            collect, gradients = noisescales.collect, noisescales.gradients
+            noisescales.collect = timing("collect", collect)
+            noisescales.gradients = timing("gradients", gradients)
+            try:
+                with Searches() as calls:
+                    c, aid = counted_path(
+                        "noisescales.evaluate (9x9, 1024 envs, 16 steps, perf)", ("walk",),
+                        lambda: noisescales.evaluate(run, idx, nodes=64, c_puct=1 / 16, perf=True,
+                                                     n_envs=1024, chunk_len=16))
+            finally:
+                noisescales.collect, noisescales.gradients = collect, gradients
+            secs = time.time() - t0
+            per_search("noisescales.evaluate", c, calls.calls)
+            slice_launches["noise_scales"] = c
+            noise = sql.query("select * from noise_scales where agent_id == ?", aid)
+            print(f"noise scales of agent {aid} (phase 7's snapshot {idx}): "
+                  f"{[(r.kind, r.mean_sq, r.sq_mean, r.variance, r.n_params, r.batch_size, r.batches) for r in noise]}; "
+                  f"collection {timed['collect']:.2f} s, per-timestep gradients "
+                  f"{timed['gradients']:.3f} s, all with its perf games {secs:.2f} s; card: {card}",
+                  flush=True)
+            values = np.stack([noise.mean_sq, noise.sq_mean, noise.variance])
+            if sorted(noise.kind) != ["joint", "policy", "value"] or not np.isfinite(values).all() \
+                    or (noise.n_params != FLAGSHIP_PARAMS).any() or (noise.batches != 16).any():
+                fail("noise scales: not three finite rows over 1,176,150 parameters")
+            n_trials = len(sql.query("select * from trials"))
+            c, _ = run_path("noisescales.evaluate again", {},
+                            lambda: noisescales.evaluate(run, idx, nodes=64, c_puct=1 / 16,
+                                                         perf=True, n_envs=1024, chunk_len=16))
+            if len(sql.query("select * from noise_scales")) != 3 \
+                    or len(sql.query("select * from trials")) != n_trials:
+                fail("noise scales: a second call added rows")
+
+            # e. perfect play and the MoHex calibration against the stub engine
+            t0 = lap("phase 11d, noise scales", t0)
+            solver = perfect.Solver(3)
+            winners = mohex_calibration.play_out(
+                hex.Hex.initial(8, 3, device=DEV),
+                [perfect.PerfectAgent(solver), perfect.PerfectAgent(solver, 1)])
+            print(f"play_out of PerfectAgent against itself on 3x3: winners {winners.tolist()}",
+                  flush=True)
+            if (winners != 0).any():
+                fail("play_out: black does not win every perfect 3x3 game")
+            run3 = [r for r in runs.list_runs() if runs.info(r)["params"].get("boardsize") == 3][-1]
+            latest = storage.load_latest(run3)
+            storage.save_snapshot(run3, {"agent": latest["agent"]}, n_samples=latest["n_samples"],
+                                  n_flops=latest["n_flops"])
+            sql.refresh()
+            idx3 = max(storage.snapshots(run3))
+            aid3 = int(sql.query("select agents.id from agents join snaps on agents.snap == "
+                                 "snaps.id where snaps.run == ? and snaps.idx == ?", run3,
+                                 idx3).id[0])
+            binary = mohex.BINARY
+            mohex.BINARY = f"{sys.executable} {os.path.join(os.path.dirname(__file__), 'tests', 'gtp_stub.py')}"
+            try:
+                c, results = counted_path("mohex_calibration.calibrate (3x3, 16 envs)", ("walk",),
+                                          lambda: mohex_calibration.calibrate(aid3, n_envs=16))
+            finally:
+                mohex.BINARY = binary
+            slice_launches["calibrate"] = c
+            mrows = sql.mohex_trial_query()
+            cal = mohex_calibration.calibrations(3)
+            print(f"calibrate against the stub engine: {results}; mohex_trials "
+                  f"{[(r.black_agent, r.white_agent, r.black_wins, r.white_wins) for r in mrows]}; "
+                  f"calibrations {list(zip(cal.agent_id.tolist(), cal.winrate.tolist(), cal.games.tolist()))}, "
+                  f"best agent {mohex_calibration.best_agent(3)}", flush=True)
+            if len(mrows) != 2 or cal.agent_id.tolist() != [aid3] or cal.games[0] != 16 \
+                    or mohex_calibration.best_agent(3) != aid3:
+                fail("calibrate: its mohex_trials rows or calibrations are wrong")
+            lap("phase 11e, perfect play and calibrate", t0)
+        finally:
+            if old_db is None:
+                os.environ.pop("BOARDLAW_DB", None)
+            else:
+                os.environ["BOARDLAW_DB"] = old_db
+    torch.cuda.empty_cache()
+
+
+# phase 11's process: the seconds it may take (about 170 on the card)
+RESULTS_DEADLINE_S = 600
+
+
+def results_database_child(seed, run, out):
+    """Phase 11 in a spawned process, in the parent's run root (the
+    inherited `BOARDLAW_RUN_ROOT`): the kernels loaded from the parent's
+    build, then `check_results_database`; its launches go to the JSON file
+    `out`."""
+    from boardlaw_tpu_torch.mcts import kernels
+
+    kernels.build()
+    launches = {}
+    check_results_database(argparse.Namespace(seed=seed), card_line(), run, launches)
+    with open(out, "w") as f:
+        json.dump(launches, f)
+
+
+def check_results_database_spawned(args, run, slice_launches):
+    """Phase 11 in a process of its own: phase 10d's `torch.profiler` trace
+    leaves the card's tracing callbacks on in this process, which slows
+    every later launch of the host-bound searches. The child's launches go
+    to `slice_launches`; a child that fails or outlives
+    `RESULTS_DEADLINE_S` fails the phase."""
+    import multiprocessing as mp
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-phase11-") as tmp:
+        out = os.path.join(tmp, "launches.json")
+        child = mp.get_context("spawn").Process(target=results_database_child,
+                                                args=(args.seed, run, out))
+        child.start()
+        child.join(RESULTS_DEADLINE_S)
+        if child.is_alive():
+            child.terminate()
+            child.join(30)
+            fail(f"phase 11's process outlived its {RESULTS_DEADLINE_S} s")
+        if child.exitcode != 0:
+            fail(f"phase 11's process exited with code {child.exitcode}")
+        with open(out) as f:
+            slice_launches.update(json.load(f))
+
+
 # the eight kernels: route, source, the Pallas kernel each replaces
 BASE_KERNELS = {
     "walk": ("cuda", "boardlaw_tpu_torch/csrc/walk.cu", "boardlaw_tpu/mcts/pallas_kernels.py:530"),
@@ -2789,11 +3113,15 @@ def main(argv=None):
             del single
             torch.cuda.empty_cache()
 
+        # 11. the results database and the scaling study, on phase 7's run
+        with Phase("the results database and the scaling study"):
+            check_results_database_spawned(args, run, slice_launches)
+
     unlaunched = [k for k in kernels.launches if not launches.get(k)]
     if unlaunched:
         fail(f"no path launched {unlaunched}")
 
-    # 11. the records
+    # 12. the records
     def figures(r):
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / F32_FLOPS * 1e3

@@ -1,4 +1,5 @@
-"""The port (`parallel/` and `utils/` among it) and chip_smoke.py import
+"""The port (`parallel/`, `utils/`, `sql`, `scaling/` and the analysis
+modules among it), chip_smoke.py and scripts/torch_scaling_study.py import
 with JAX, flax, optax and the JAX package blocked, and with the packages
 the card's machine lacks blocked too (pandas, portalocker, cloudpickle,
 msgpack, matplotlib): they import torch, numpy, scipy and the standard
@@ -31,6 +32,7 @@ def test_port_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        from scripts import torch_scaling_study
         assert "boardlaw_tpu_torch.mcts.kernels" in names
         assert not any(k.split(".")[0] in blocked for k, v in sys.modules.items()
                        if v is not None)
@@ -44,7 +46,14 @@ def test_port_imports_without_jax():
                      "boardlaw_tpu_torch.parallel.mesh", "boardlaw_tpu_torch.parallel.distributed",
                      "boardlaw_tpu_torch.utils.parallel", "boardlaw_tpu_torch.utils.memory",
                      "boardlaw_tpu_torch.utils.profiling", "boardlaw_tpu_torch.utils.recording",
-                     "boardlaw_tpu_torch.utils.trees"):
+                     "boardlaw_tpu_torch.utils.trees", "boardlaw_tpu_torch.sql",
+                     "boardlaw_tpu_torch.noisescales", "boardlaw_tpu_torch.analysis",
+                     "boardlaw_tpu_torch.scaling", "boardlaw_tpu_torch.scaling.data",
+                     "boardlaw_tpu_torch.scaling.inflation",
+                     "boardlaw_tpu_torch.scaling.transitive", "boardlaw_tpu_torch.scaling.paper",
+                     "boardlaw_tpu_torch.arena.best", "boardlaw_tpu_torch.arena.mohex_calibration",
+                     "boardlaw_tpu_torch.arena.analysis", "boardlaw_tpu_torch.activelo.examples",
+                     "boardlaw_tpu_torch.activelo.plot"):
             assert name in sys.modules
         print("ok", len(names))
     """ % ROOT)
@@ -134,3 +143,57 @@ def test_evaluation_runs_without_pandas(tmp_path):
                          cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_results_database_runs_without_pandas(tmp_path):
+    """The card's path through the results database without pandas or
+    matplotlib: `sql` rows, the study's train/evaluate stages' league,
+    `best`, the noise-scale rows and the fit's core; `Rows.frame()` and the
+    DataFrame functions raise a clear ImportError."""
+    code = textwrap.dedent("""
+        import argparse, os, sys
+        for name in ("pandas", "matplotlib", "jax", "boardlaw_tpu"):
+            sys.modules[name] = None
+        sys.path.insert(0, %r)
+        os.environ["BOARDLAW_DB"] = os.path.join(%r, "db.sql")
+        import numpy as np
+        from boardlaw_tpu_torch import noisescales, sql, train
+        from boardlaw_tpu_torch.arena import best
+        from boardlaw_tpu_torch.pavlov import storage
+        from boardlaw_tpu_torch.pavlov.tests import mock_dir
+        from boardlaw_tpu_torch.scaling import data
+        from scripts import torch_scaling_study as study
+        with mock_dir(%r):
+            run = train.run(3, 4, 1, desc=study.DESC, n_envs=8, nodes=4, mix_steps=4,
+                            buffer_len=4, max_steps=1, device="cpu")
+            sd = storage.load_latest(run)
+            for i in range(2):
+                storage.save_snapshot(run, {"agent": sd["agent"]}, n_samples=8.0 * (i + 1),
+                                      n_flops=1e9 * 4 ** i)
+            args = argparse.Namespace(boardsize=3, envs_per=2, league_envs=4, test_k=1,
+                                      device="cpu")
+            assert len(study.evaluate(args)) == 2
+            ags = sql.agent_query()
+            assert len(ags) == 2 and len(sql.trial_query(3)) == 2
+            assert best.top_agent(3, device="cpu") in ags.index
+            assert len(best.std_available(3, device="cpu")) == 1
+            aid = noisescales.evaluate(run, 0, nodes=4, c_puct=1 / 16, perf=False, n_envs=8,
+                                       chunk_len=4, device="cpu")
+            assert len(sql.query("select * from noise_scales where agent_id == ?", aid)) == 3
+            for read in (ags.frame, data.load, noisescales.load):
+                try:
+                    read()
+                except ImportError as e:
+                    assert "pandas is needed" in str(e), e
+                else:
+                    raise AssertionError("a DataFrame without pandas")
+        fit = data.fit_model(argparse.Namespace(train_flops=np.logspace(9, 12, 8),
+                                                boardsize=np.full(8, 3.0),
+                                                elo=np.linspace(-2, 0, 8)), device="cpu")
+        assert sorted(fit) == ["incline", "plateau"]
+        print("ok")
+    """ % (ROOT, str(tmp_path), str(tmp_path / "runs")))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1] == "ok"

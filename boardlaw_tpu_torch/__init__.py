@@ -25,5 +25,8 @@ Evaluation (`arena/`, `elos`, `activelo/`) rates a run's agents; the
 results database (`sql`, in the JAX package's SQLite schema) holds runs,
 snapshots, agents and trials for the scaling study (`scaling/`,
 scripts/torch_scaling_study.py), the top-agent games (`arena.best`), the
-MoHex calibration and the gradient noise scales (`noisescales`).
+MoHex calibration and the gradient noise scales (`noisescales`). The
+fleet (`fleet/`) runs sweeps of `train.run` as jobs on machines' cards,
+`backup` mirrors the run store, and `pavlov`'s archive, monitoring and
+dashboard keep a run's source and show its stats without pandas.
 """

@@ -1,10 +1,10 @@
 """Build and locate the bundled `gtphex` GTP engine. Counterpart of
 boardlaw_tpu/gtp_engine.py.
 
-The engine's source is the JAX package's C++ file
-(boardlaw_tpu/cpp/gtphex.cpp), read by path and compiled unedited with g++
-into a content-hashed file under the port's ignored `_build/` directory
-(or `GTPHEX_CACHE`). It picks immediate wins and otherwise maximises the
+The engine's source is the port's own copy of the JAX package's C++ file,
+`boardlaw_tpu_torch/cpp/gtphex.cpp` (kept byte for byte equal to it),
+compiled with g++ into a content-hashed file under the port's ignored
+`_build/` directory (or `GTPHEX_CACHE`). It picks immediate wins and otherwise maximises the
 win rate of uniform playouts; `mohex.MoHexAgent(command=command())` plays
 it through the full load-SGF / reg_genmove round trip, the stand-in for
 MoHex where no MoHex binary exists.
@@ -15,7 +15,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent.parent / "boardlaw_tpu" / "cpp" / "gtphex.cpp"
+SOURCE = Path(__file__).resolve().parent / "cpp" / "gtphex.cpp"
 CACHE = Path(os.environ.get("GTPHEX_CACHE", Path(__file__).resolve().parent / "_build"))
 
 

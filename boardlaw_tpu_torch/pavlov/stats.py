@@ -10,7 +10,8 @@ reader resamples:
 Writers are no-ops unless inside a `to_run(run)` context; `defer()` batches
 writes so the hot loop is not punctuated by file I/O. Rows are appended to
 per-channel npr files `stats.<channel>.{n}.npr`; the kind travels in the
-file registry. The writers and `channels`/`kind_of`/`rows` use numpy only;
+file registry. The writers and `channels`/`kind_of`/`rows` use numpy only,
+as does `resampled_arrays`, the numpy resampler equal to `resampled`;
 `pandas`, `resampled`, `dataframe` and `review` need pandas.
 
 A value may be a Python or numpy scalar or a torch tensor. Turning a CUDA
@@ -19,6 +20,8 @@ scalars to the host in one transfer first (as `train.run` does).
 """
 from __future__ import annotations
 
+import math
+import re
 from contextlib import contextmanager
 
 import numpy as np
@@ -121,6 +124,10 @@ class Kind:
     def resample(self, df, rule):
         raise NotImplementedError
 
+    def arrays(self, b):
+        """`resample` in numpy, on the rows' bins `b` (a `Bins`)."""
+        raise NotImplementedError
+
 
 class Last(Kind):
     name = "last"
@@ -131,6 +138,9 @@ class Last(Kind):
     def resample(self, df, rule):
         return df.x.resample(rule).last()
 
+    def arrays(self, b):
+        return b.last("x")
+
 
 class Max(Kind):
     name = "max"
@@ -140,6 +150,9 @@ class Max(Kind):
 
     def resample(self, df, rule):
         return df.x.resample(rule).max()
+
+    def arrays(self, b):
+        return b.max("x")
 
 
 class Mean(Kind):
@@ -152,6 +165,9 @@ class Mean(Kind):
         r = df.resample(rule).sum()
         return r.total / r["count"]
 
+    def arrays(self, b):
+        return _div(b.sum("total"), b.sum("count"))
+
 
 class StdMean(Kind):
     name = "mean_std"
@@ -163,6 +179,9 @@ class StdMean(Kind):
         r = df.resample(rule).mean()
         return runs.require_pandas().DataFrame({"mu": r.mu, "sigma": r.sigma})
 
+    def arrays(self, b):
+        return {"mu": b.mean("mu"), "sigma": b.mean("sigma")}
+
 
 class Cumsum(Kind):
     name = "cumsum"
@@ -172,6 +191,9 @@ class Cumsum(Kind):
 
     def resample(self, df, rule):
         return df.total.resample(rule).sum().cumsum()
+
+    def arrays(self, b):
+        return _cumsum(b.sum("total"))
 
 
 class Rate(Kind):
@@ -184,6 +206,9 @@ class Rate(Kind):
         secs = runs.require_pandas().Timedelta(rule).total_seconds()
         return df["count"].resample(rule).sum() / secs
 
+    def arrays(self, b):
+        return _div(b.sum("count"), b.seconds)
+
 
 class TimeAverage(Kind):
     name = "timeaverage"
@@ -193,6 +218,9 @@ class TimeAverage(Kind):
 
     def resample(self, df, rule):
         return df.x.resample(rule).mean()
+
+    def arrays(self, b):
+        return b.mean("x")
 
 
 class Duty(Kind):
@@ -205,6 +233,9 @@ class Duty(Kind):
         secs = runs.require_pandas().Timedelta(rule).total_seconds()
         return df.duration.resample(rule).sum() / secs
 
+    def arrays(self, b):
+        return _div(b.sum("duration"), b.seconds)
+
 
 class Silent(Kind):
     name = "silent"
@@ -214,6 +245,9 @@ class Silent(Kind):
 
     def resample(self, df, rule):
         return df.resample(rule).mean()
+
+    def arrays(self, b):
+        return {c: b.mean(c) for c in b.columns}
 
 
 class Std(Kind):
@@ -227,6 +261,9 @@ class Std(Kind):
 
     def resample(self, df, rule):
         return df.x.resample(rule).std()
+
+    def arrays(self, b):
+        return b.std("x")
 
 
 class Period(Kind):
@@ -242,6 +279,9 @@ class Period(Kind):
         secs = runs.require_pandas().Timedelta(rule).total_seconds()
         return secs / df["count"].resample(rule).sum()
 
+    def arrays(self, b):
+        return _div(b.seconds, b.sum("count"))
+
 
 class MaxPercent(Kind):
     """Max of a [0,1] fraction, displayed as a percentage (reference
@@ -255,6 +295,9 @@ class MaxPercent(Kind):
 
     def resample(self, df, rule):
         return df.x.resample(rule).max()
+
+    def arrays(self, b):
+        return b.max("x")
 
 
 class MeanPercent(Kind):
@@ -271,6 +314,9 @@ class MeanPercent(Kind):
         r = df.resample(rule).sum()
         return r.total / r["count"]
 
+    def arrays(self, b):
+        return _div(b.sum("total"), b.sum("count"))
+
 
 class Quantiles(Kind):
     """A vector of quantile values per write; each quantile is resampled by
@@ -285,6 +331,9 @@ class Quantiles(Kind):
     def resample(self, df, rule):
         return df.resample(rule).mean()
 
+    def arrays(self, b):
+        return {c: b.mean(c) for c in b.columns}
+
 
 class Line(Kind):
     """Raw line-plot channel: values pass through untouched within each
@@ -297,6 +346,9 @@ class Line(Kind):
 
     def resample(self, df, rule):
         return df.x.resample(rule).mean()
+
+    def arrays(self, b):
+        return b.mean("x")
 
 
 KINDS = {k.name: k for k in [
@@ -376,6 +428,148 @@ def resampled(run, channel, rule="60s"):
     if df.empty:
         return pd.Series(dtype=float)
     return KINDS[kind_of(run, channel)].resample(df, rule)
+
+
+# -- the numpy resampler: `resampled` without pandas -------------------------
+
+_UNIT_US = {"us": 1, "ms": 10 ** 3, "s": 10 ** 6, "min": 60 * 10 ** 6, "h": 3600 * 10 ** 6}
+_DAY_US = 86400 * 10 ** 6
+
+
+def rule_us(rule):
+    """The width of a fixed resampling rule ("60s", "5min", "1h", ...) in
+    microseconds; ValueError for any other rule."""
+    m = re.fullmatch(r"(\d*)(us|ms|s|min|h)", rule)
+    if m is None:
+        raise ValueError(f"not a fixed rule of us, ms, s, min or h: {rule!r}")
+    return int(m.group(1) or 1) * _UNIT_US[m.group(2)]
+
+
+class Bins:
+    """A channel's rows (time-ordered, as `rows` returns them) in the bins of
+    pandas' `resample(rule)` with its defaults: closed on the left, labelled
+    by the left edge, the first edge on the rule's grid from midnight of the
+    first row's day (`origin="start_day"`), empty bins included. The
+    reductions are pandas' groupby ones, in its order of operations, so the
+    results are equal to pandas', not only close: compensated sums and
+    means, Welford's variance, and NaN values skipped."""
+
+    def __init__(self, arr, rule):
+        width = rule_us(rule)
+        t = arr["_time"].astype(np.int64)
+        first, last = int(t[0]), int(t[-1])
+        start = first - first % _DAY_US % width
+        n = (last - start) // width + 1
+        self.times = start + width * np.arange(n, dtype=np.int64)
+        self.seconds = width / 1e6
+        self.columns = [c for c in arr.dtype.names if c != "_time"]
+        self._which = ((t - start) // width).tolist()
+        self._arr = arr
+
+    def _pairs(self, col):
+        return zip(self._which, self._arr[col].astype(np.float64).tolist())
+
+    def _out(self, values):
+        return np.array(values, dtype=np.float64)
+
+    def sum(self, col):
+        """Kahan sums, as pandas' `group_sum` (0 for an empty bin); a sum that
+        overflows stays infinite."""
+        return self._out(self._kahan(col, math.isfinite)[0])
+
+    def mean(self, col):
+        """Kahan sums over the counts, as pandas' `group_mean`."""
+        total, nobs = self._kahan(col, lambda c: c == c)
+        return self._out([t / k if k else np.nan for t, k in zip(total, nobs)])
+
+    def _kahan(self, col, keep):
+        """Per-bin compensated sums and counts of the non-NaN values; a
+        compensation that `keep` refuses is reset to 0, as pandas resets
+        it (NaN ones in means, every non-finite one in sums)."""
+        n = len(self.times)
+        total, comp, nobs = [0.0] * n, [0.0] * n, [0] * n
+        for b, v in self._pairs(col):
+            if v != v:
+                continue
+            nobs[b] += 1
+            y = v - comp[b]
+            t = total[b] + y
+            c = t - total[b] - y
+            comp[b] = c if keep(c) else 0.0
+            total[b] = t
+        return total, nobs
+
+    def last(self, col):
+        out = [np.nan] * len(self.times)
+        for b, v in self._pairs(col):
+            if v == v:
+                out[b] = v
+        return self._out(out)
+
+    def max(self, col):
+        out, seen = [-np.inf] * len(self.times), [False] * len(self.times)
+        for b, v in self._pairs(col):
+            if v == v:
+                seen[b] = True
+                if v > out[b]:
+                    out[b] = v
+        return self._out([m if k else np.nan for m, k in zip(out, seen)])
+
+    def std(self, col):
+        """Welford's update, as pandas' `group_var`; ddof 1."""
+        n = len(self.times)
+        mean, m2, nobs = [0.0] * n, [0.0] * n, [0] * n
+        for b, v in self._pairs(col):
+            if v != v:
+                continue
+            nobs[b] += 1
+            old = mean[b]
+            mean[b] += (v - old) / nobs[b]
+            m2[b] += (v - mean[b]) * (v - old)
+        var = self._out([m / (k - 1) if k > 1 else np.nan for m, k in zip(m2, nobs)])
+        with np.errstate(invalid="ignore"):  # a negative one (from infinities) is NaN
+            return np.sqrt(var)
+
+
+def _div(a, b):
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        return np.true_divide(a, b)
+
+
+def _cumsum(x):
+    """pandas' `cumsum`: NaN entries stay NaN and add nothing."""
+    nan = np.isnan(x)
+    out = np.cumsum(np.where(nan, 0.0, x))
+    out[nan] = np.nan
+    return out
+
+
+def resample_rows(kind, arr, rule="60s"):
+    """Rows (`rows`' structured array) of a channel of `kind`, resampled by
+    the kind's rule in numpy: `(times, values)`, the bins' left edges in
+    microseconds since the epoch and the values, one array or (for the
+    kinds that give pandas a DataFrame) a dict of arrays by column."""
+    if arr is None or not len(arr):
+        return np.zeros(0, np.int64), np.zeros(0)
+    b = Bins(arr, rule)
+    return b.times, KINDS[kind].arrays(b)
+
+
+def resampled_arrays(run, channel, rule="60s"):
+    """`resampled` in numpy, equal to it, for machines without pandas:
+    `resample_rows` of the channel's rows."""
+    run = runs.resolve(run)
+    return resample_rows(kind_of(run, channel), rows(run, channel), rule)
+
+
+def dropna(times, values):
+    """`resampled_arrays`' result without the bins where any column is NaN,
+    as pandas' `dropna` (infinities stay)."""
+    cols = values.values() if isinstance(values, dict) else [values]
+    keep = ~np.any([np.isnan(c) for c in cols], axis=0)
+    if isinstance(values, dict):
+        return times[keep], {k: v[keep] for k, v in values.items()}
+    return times[keep], values[keep]
 
 
 def dataframe(run, rule="60s", channels_=None):

@@ -182,14 +182,33 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      gradients' seconds; e. `mohex_calibration.play_out` of `PerfectAgent`
      against itself on 3x3 (black wins every game) and `calibrate` of phase
      9's 3x3 run against tests/gtp_stub.py as the MoHex binary;
-  12. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
+  12. the fleet, run backup and the run tools (`check_fleet`), the users'
+     path for a sweep: `sweep.launch_grid(9, [64], [1, 2], n_envs=4096,
+     max_steps=2)` in a temporary FLEET_ROOT, on one local machine of the
+     one card, jobs launched without BOARDLAW_RUN_ROOT (each writes in its
+     own directory), `manage.refresh` every second until both are dead
+     (`FLEET_DEADLINE_S`): never two jobs active at once, the second
+     launched when the first is dead; each job's log names the card, has no
+     traceback, and its `kernels.launches` line the launches of its
+     `train.run` (8 of `walk` and `node_actions_multi` an actor step, the
+     warmup's included); the archive carries the parent's built kernels, so
+     no job runs nvcc; `manage.fetch`: two runs of `max_steps` rows of
+     `time.step` and a checkpoint each; `backup.backup` and `backup.fetch`
+     into a fresh run root equal file for file; `archive.archive` of the
+     repo (its listing has `mcts/kernels.py`, equal to the file);
+     `monitoring.tree_view` (the `loss` and `time` groups finite),
+     `dashboard.render` (a chart for every channel) and one GET of
+     `dashboard.serve`, all without pandas; each job's seconds from launch
+     to dead, `time.setup.init` and s/step;
+  13. a JSON line of kernel numbers (`walk`'s entry at the last grow pass's
      shape, with its figures at the first grow pass, the 6x6 K=1 tree, the
      chains and the wide trees beside, and each design's times; every
      instantiation (the keys of `kernels.launches`: `.bf16` logits, `.mixed`
      and `.wide` trees) as an entry of its own, with its launches from the
      path that runs it (phase 5 or 8) and bounds counting its storage
      types; each kernel's launches on the paths of phases 6a, 6b, 7, 8, 9,
-     10a (both ranks) and 11b-11e under `slice_launches`), and the last line
+     10a (both ranks), 11b-11e and 12 (both jobs, under `fleet`) under
+     `slice_launches`), and the last line
      {"ok": true, "device": {...}}.
 
 Each row kernel's f32 operation bound counts the solver steps its inputs
@@ -2872,6 +2891,249 @@ def check_results_database_spawned(args, run, slice_launches):
             slice_launches.update(json.load(f))
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the fleet, run backup and the run tools
+# --------------------------------------------------------------------------
+
+# phase 12's sweep, `sweep.launch_grid`'s arguments: two jobs of one card
+FLEET_GRID = dict(boardsize=9, widths=[64], depths=[1, 2], desc="smoke", n_envs=4096,
+                  max_steps=2)
+# the seconds both jobs may take, from the first launch to the second's end
+# (about 60 on the card)
+FLEET_DEADLINE_S = 240
+
+
+def same_tree(a, b):
+    """The paths under `a` and `b` that are not in both or differ in bytes."""
+    import filecmp
+
+    cmp = filecmp.dircmp(a, b)
+    bad = [os.path.join(a, f) for f in cmp.left_only + cmp.right_only + cmp.funny_files]
+    _, mismatch, errors = filecmp.cmpfiles(a, b, cmp.common_files, shallow=False)
+    bad += [os.path.join(a, f) for f in mismatch + errors]
+    for sub in cmp.common_dirs:
+        bad += same_tree(os.path.join(a, sub), os.path.join(b, sub))
+    return bad
+
+
+# `train.run`'s arguments that are not `make_config`'s
+RUN_ONLY = ("desc", "storer", "max_steps", "resume", "arena", "arena_ladder", "n_devices",
+            "device")
+
+
+def fleet_expected(params):
+    """A fleet job's kernel launches: its `train.run`'s warmup and steps,
+    one search an actor step."""
+    from boardlaw_tpu_torch import train
+
+    cfg = train.make_config(**{k: v for k, v in params.items() if k not in RUN_ONLY})
+    n_actor = cfg.buffer_len + params["max_steps"]
+    return {k: v * n_actor for k, v in search_launches(cfg.mcts_config()).items()}
+
+
+def job_log_launches(name, log, device_label, expected):
+    """A job's `fleet-out.log`: it names the device (for a card, its name
+    and UUID, so a job on another card fails), has no traceback, and ends in
+    the worker's `kernels.launches` line, whose counts are `expected` (every
+    other instantiation 0). Returns the counts."""
+    if f"fleet worker: training on {device_label}" not in log or "Traceback" in log:
+        fail(f"job {name}'s log does not name {device_label} or has a traceback:\n{log}")
+    try:
+        counts = json.loads(log.strip().splitlines()[-1])["kernels.launches"]
+    except (IndexError, ValueError, KeyError):
+        fail(f"job {name}'s log does not end in its kernels.launches line:\n{log}")
+    want = {k: expected.get(k, 0) for k in counts}
+    if counts != want or not (counts["walk"] > 0 and counts["node_actions_multi"] > 0):
+        fail(f"job {name} launched {counts}, expected {want}")
+    return counts
+
+
+def check_fleet(card):
+    """Phase 12: a sweep of two `train.run` jobs on the card through the fleet
+    (`sweep.launch_grid`, `manage.refresh`, a local machine of the one card),
+    their runs fetched, backed up and restored, a source snapshot, the
+    monitor's tree, the dashboard and its server. The jobs run `python -m
+    boardlaw_tpu_torch.fleet.worker`, with `python` this interpreter, from an
+    archive of a temporary copy of the package (its `_build/` included) in
+    a temporary FLEET_ROOT; each must train on this process's card 0, by
+    UUID; every job still running when the phase ends is killed. Returns
+    the jobs' kernel launches, summed."""
+    import html
+    import math
+    import re
+    import shutil
+    import signal
+    import tarfile
+    import tempfile
+    import urllib.request
+    from pathlib import Path
+
+    import torch
+    from boardlaw_tpu_torch import backup
+    from boardlaw_tpu_torch.fleet import jobs, machines, manage, sweep, worker
+    from boardlaw_tpu_torch.mcts import kernels
+    from boardlaw_tpu_torch.pavlov import archive, dashboard, monitoring, runs, stats, storage
+    from boardlaw_tpu_torch.pavlov.tests import mock_dir
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    device_label = worker.device_label(torch.device(DEV, 0) if DEV == "cuda" else DEV)
+    saved = {k: os.environ.get(k) for k in ("FLEET_ROOT", "BOARDLAW_RUN_ROOT", "PATH")}
+    cwd = os.getcwd()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as tmp:
+        tmp = Path(tmp)
+        (tmp / "bin").mkdir()
+        (tmp / "bin" / "python").write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        (tmp / "bin" / "python").chmod(0o755)
+        os.environ["FLEET_ROOT"] = str(tmp / "fleet")
+        os.environ.pop("BOARDLAW_RUN_ROOT", None)  # each job writes in its own directory
+        os.environ["PATH"] = f"{tmp / 'bin'}:{saved['PATH']}"
+        js = {}
+        try:
+            t0 = time.time()
+            so = Path(kernels.build()._name)  # built before the copy, so the jobs load it
+            # `launch_grid` archives the working directory: a copy of the package
+            shutil.copytree(os.path.join(repo, "boardlaw_tpu_torch"),
+                            tmp / "code" / "boardlaw_tpu_torch",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            os.chdir(tmp / "code")
+            machines.add("card", "local", resources={"devices": [0]}, workdir=str(tmp / "work"))
+            names = sweep.launch_grid(**FLEET_GRID)
+            if len(names) != 2 or sweep.launch_grid(**FLEET_GRID) != []:
+                fail(f"launch_grid submitted {names}, then more on a second call")
+            with tarfile.open(jobs.jobs()[names[0]].archive) as tar:
+                carried = f"./boardlaw_tpu_torch/_build/{so.name}" in tar.getnames()
+            t0 = lap("phase 12, launch_grid (two archives of the package)", t0)
+
+            launched, ended, first = {}, {}, None
+            deadline = time.time() + FLEET_DEADLINE_S
+            while True:
+                js = manage.refresh()
+                now = time.time()
+                for n, j in js.items():
+                    if j.status != "fresh":
+                        launched.setdefault(n, now)
+                    if j.status == "dead":
+                        ended.setdefault(n, now)
+                if first is None:
+                    first = sorted(j.status for j in js.values())
+                if sum(j.status == "active" for j in js.values()) > 1:
+                    fail(f"two jobs active on the one card: {js}")
+                if all(j.status == "dead" for j in js.values()):
+                    break
+                if now > deadline:
+                    fail(f"the jobs did not end within {FLEET_DEADLINE_S} s: {js}")
+                time.sleep(1.0)
+            order = sorted(names, key=launched.get)
+            if first != ["active", "fresh"] or launched[order[1]] < ended[order[0]]:
+                fail(f"the second job did not wait for the first: first pass {first}, "
+                     f"launched {launched}, dead {ended}")
+            t0 = lap("phase 12, both jobs to their end", t0)
+
+            tails = manage.tails(n=100_000)
+            for n in names:
+                counts = job_log_launches(n, tails[n], device_label, fleet_expected(js[n].params))
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+                built = tmp / "work" / n / "boardlaw_tpu_torch" / "_build" / so.name
+                kept = built.exists() and int(built.stat().st_mtime) == int(so.stat().st_mtime)
+                print(f"job {n} ({js[n].params['width']}x{js[n].params['depth']}): the archive "
+                      f"carries {so.name}: {carried}; the job's copy unchanged (nvcc did not "
+                      f"run): {kept}", flush=True)
+
+            target = tmp / "fetched"
+            manage.fetch(str(target))
+            store = target / "pavlov"
+            with mock_dir(str(store)):
+                found = runs.list_runs()
+                if len(found) != 2:
+                    fail(f"the fetched store holds {found}, not the two jobs' runs")
+                steps = FLEET_GRID["max_steps"]
+                for run in found:
+                    rows = stats.rows(run, "time.step")
+                    payload = storage.load_latest(run)
+                    if rows is None or len(rows) != steps or payload["agent"]["step"] != steps:
+                        fail(f"run {run}: time.step rows {rows}, checkpoint step "
+                             f"{payload['agent']['step']}, expected {steps}")
+                    name = next(n for n in names
+                                if js[n].params["width"] == runs.info(run)["params"]["width"]
+                                and js[n].params["depth"] == runs.info(run)["params"]["depth"])
+                    b, w, d = (js[name].params[k] for k in ("boardsize", "width", "depth"))
+                    print(f"fleet job {name} ({b}x{b}, {w}x{d}, {FLEET_GRID['n_envs']} envs): "
+                          f"launch to dead {ended[name] - launched[name]:.2f} s (1 s polls); "
+                          f"time.setup.init {stats.rows(run, 'time.setup.init')['x'].tolist()} s; "
+                          f"s/step {[round(float(x), 4) for x in rows['total']]}; card: {card}",
+                          flush=True)
+                backup.backup(tmp / "mirror")
+            with mock_dir(str(tmp / "restored")):
+                backup.fetch(tmp / "mirror")
+                if not all(runs.exists(r) for r in found):
+                    fail("the restored store lacks the runs")
+            differ = same_tree(str(store), str(tmp / "restored"))
+            if differ:
+                fail(f"backup and fetch changed {differ}")
+            t0 = lap("phase 12, fetch, backup and restore", t0)
+
+            with mock_dir(str(store)):
+                run = found[0]
+                archive.archive(run, dir=repo)
+                path = "boardlaw_tpu_torch/mcts/kernels.py"
+                with open(os.path.join(repo, path)) as f:
+                    if path not in archive.listing(run) or archive.source(run, path) != f.read():
+                        fail(f"the source snapshot lacks {path} or differs from it")
+
+                view = monitoring.tree_view(run)
+                groups, head = {}, None
+                for line in view.splitlines():
+                    if not line.startswith("  "):
+                        head = line
+                        continue
+                    values = [float(tok.rsplit("=", 1)[-1]) for tok in line.split()[1:]]
+                    groups.setdefault(head, []).extend(values)
+                for head in ("loss", "time"):
+                    if not groups.get(head) or not all(map(math.isfinite, groups[head])):
+                        fail(f"the monitor's tree has no finite {head} values:\n{view}")
+
+                page = dashboard.render(run)
+                charted = {html.unescape(m) for m in re.findall(
+                    r'<div class="card"><div class="name" title="([^"]*)">[^<]*</div>'
+                    r'<div class="val">[^<]*</div><svg[^>]*>.*?<polyline', page)}
+                uncharted = [c for c in stats.channels(run)
+                             if c not in charted and not any(x.startswith(f"{c} (") for x in charted)]
+                if uncharted:
+                    fail(f"the dashboard has no chart of {uncharted}")
+                server = dashboard.serve(run)
+                try:
+                    url = f"http://127.0.0.1:{server.server_address[1]}/"
+                    with urllib.request.urlopen(url, timeout=30) as r:
+                        status, body = r.status, r.read().decode()
+                finally:
+                    server.shutdown()
+                    server.server_close()
+                if status != 200 or body != dashboard.render(run):
+                    fail(f"the dashboard's server answered {status} with another page")
+                print(f"monitoring and dashboard: {len(stats.channels(run))} channels, "
+                      f"{page.count('<polyline')} charts, the page {len(page)} bytes, served "
+                      f"with status {status}; pandas "
+                      f"{'absent' if 'pandas' not in sys.modules else 'imported, unused'}",
+                      flush=True)
+            lap("phase 12, archive, monitoring and dashboard", t0)
+        finally:
+            for j in js.values():
+                if j.status == "active":
+                    try:
+                        os.killpg(j.pid, signal.SIGTERM)
+                    except ProcessLookupError:
+                        pass
+            os.chdir(cwd)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return launches
+
+
 # the eight kernels: route, source, the Pallas kernel each replaces
 BASE_KERNELS = {
     "walk": ("cuda", "boardlaw_tpu_torch/csrc/walk.cu", "boardlaw_tpu/mcts/pallas_kernels.py:530"),
@@ -3117,11 +3379,15 @@ def main(argv=None):
         with Phase("the results database and the scaling study"):
             check_results_database_spawned(args, run, slice_launches)
 
+    # 12. the fleet, run backup and the run tools
+    with Phase("the fleet, backup and the run tools"):
+        slice_launches["fleet"] = check_fleet(card)
+
     unlaunched = [k for k in kernels.launches if not launches.get(k)]
     if unlaunched:
         fail(f"no path launched {unlaunched}")
 
-    # 12. the records
+    # 13. the records
     def figures(r):
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / F32_FLOPS * 1e3

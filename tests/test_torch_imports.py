@@ -1,12 +1,15 @@
-"""The port (`parallel/`, `utils/`, `sql`, `scaling/` and the analysis
-modules among it), chip_smoke.py and scripts/torch_scaling_study.py import
-with JAX, flax, optax and the JAX package blocked, and with the packages
-the card's machine lacks blocked too (pandas, portalocker, cloudpickle,
-msgpack, matplotlib): they import torch, numpy, scipy and the standard
-library only. Without pandas, the dataframe
+"""The port (`parallel/`, `utils/`, `sql`, `scaling/`, the analysis
+modules, `fleet/`, `backup` and the dashboard among it), chip_smoke.py and
+scripts/torch_scaling_study.py import with JAX, flax, optax and the JAX
+package blocked, and with the packages the card's machine lacks blocked too
+(pandas, portalocker, cloudpickle, msgpack, matplotlib, psutil): they
+import torch, numpy, scipy and the standard library only, and name no path
+inside the JAX package. Without pandas, the dataframe
 readers of `pavlov` raise a clear ImportError and the numpy readers still
 work, and the evaluation path (a league, the Elo solvers, the live arena's
 round) runs on numpy arrays with names."""
+import ast
+import glob
 import os
 import re
 import subprocess
@@ -20,7 +23,7 @@ def test_port_imports_without_jax():
     code = textwrap.dedent("""
         import sys
         blocked = ("jax", "jaxlib", "flax", "optax", "boardlaw_tpu", "pandas", "portalocker",
-                   "cloudpickle", "msgpack", "matplotlib")
+                   "cloudpickle", "msgpack", "matplotlib", "psutil")
         for k in [k for k in sys.modules if k.split(".")[0] in blocked]:
             del sys.modules[k]
         for name in blocked:
@@ -53,7 +56,13 @@ def test_port_imports_without_jax():
                      "boardlaw_tpu_torch.scaling.transitive", "boardlaw_tpu_torch.scaling.paper",
                      "boardlaw_tpu_torch.arena.best", "boardlaw_tpu_torch.arena.mohex_calibration",
                      "boardlaw_tpu_torch.arena.analysis", "boardlaw_tpu_torch.activelo.examples",
-                     "boardlaw_tpu_torch.activelo.plot"):
+                     "boardlaw_tpu_torch.activelo.plot", "boardlaw_tpu_torch.pavlov.archive",
+                     "boardlaw_tpu_torch.pavlov.monitoring", "boardlaw_tpu_torch.pavlov.dashboard",
+                     "boardlaw_tpu_torch.backup", "boardlaw_tpu_torch.fleet",
+                     "boardlaw_tpu_torch.fleet.jobs", "boardlaw_tpu_torch.fleet.machines",
+                     "boardlaw_tpu_torch.fleet.local", "boardlaw_tpu_torch.fleet.ssh",
+                     "boardlaw_tpu_torch.fleet.manage", "boardlaw_tpu_torch.fleet.sweep",
+                     "boardlaw_tpu_torch.fleet.worker"):
             assert name in sys.modules
         print("ok", len(names))
     """ % ROOT)
@@ -63,15 +72,56 @@ def test_port_imports_without_jax():
     assert out.stdout.startswith("ok")
 
 
+# a path component "boardlaw_tpu" inside a string; a "file.py:line" citation
+# of a JAX kernel (chip_smoke.py's `replaces`) names no path that is read
+JAX_PATH = re.compile(r"(^|[/\\])boardlaw_tpu([/\\]|$)")
+CITATION = re.compile(r"boardlaw_tpu/[\w/]+\.py:\d+")
+
+
+def jax_paths(source):
+    """The string literals of a Python source, its docstrings left out (prose
+    may name the JAX counterpart), that name a path inside the JAX package."""
+    tree = ast.parse(source)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs and JAX_PATH.search(node.value)
+            and not CITATION.fullmatch(node.value)]
+
+
 def test_no_jax_in_port_sources():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|boardlaw_tpu)\b", re.M)
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_workers.py")]
+    paths += glob.glob(os.path.join(ROOT, "scripts", "torch_*.py"))
     for dirpath, _, files in os.walk(os.path.join(ROOT, "boardlaw_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     assert len(paths) > 10
     for path in paths:
         with open(path) as f:
-            assert not banned.search(f.read()), path
+            source = f.read()
+        assert not banned.search(source), path
+        assert not jax_paths(source), (path, jax_paths(source))
+    # the check sees the path the engine's source was once read from, and
+    # passes prose and citations
+    assert jax_paths('SOURCE = Path(__file__).parent.parent / "boardlaw_tpu" / "cpp"')
+    assert jax_paths('open("../boardlaw_tpu/cpp/gtphex.cpp")')
+    assert not jax_paths('"""Counterpart of boardlaw_tpu/fleet/jobs.py."""\n'
+                         'REPLACES = "boardlaw_tpu/mcts/pallas_kernels.py:530"')
+
+
+def test_engine_source_is_the_ports_copy():
+    """`gtp_engine.SOURCE` lies inside the port, and its bytes equal the JAX
+    package's file (the drift check: the binary's cache tag is the source's
+    hash, so an equal copy keeps every cached build)."""
+    from boardlaw_tpu_torch import gtp_engine
+
+    port = os.path.join(ROOT, "boardlaw_tpu_torch")
+    assert os.path.commonpath([str(gtp_engine.SOURCE.resolve()), port]) == port
+    with open(os.path.join(ROOT, "boardlaw_tpu", "cpp", "gtphex.cpp"), "rb") as f:
+        assert gtp_engine.SOURCE.read_bytes() == f.read()
 
 
 def test_pandas_readers_raise_clearly_without_pandas(tmp_path):

@@ -1,0 +1,88 @@
+"""The readings a cell's limits are set from, at the cell's own size:
+
+    python benchmark/control.py --workload <name> --seeds 1 2 3 [--seconds 5]
+
+For each seed, in one process: the program's outputs against the plain
+reference (the lower reading), the control (the reference computed with
+TF32 on, in the program's place; bfloat16 on a CPU) against the same
+reference (the upper reading), and for a training cell the faults the
+reference can carry: the root policy altered where it is produced
+("answer") and the loss over half the batch ("half"). A state left
+unchanged reads 1 on `grad` and `change` and needs no run. One JSON line
+a seed. The benchmark's own runs do not run this.
+"""
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def control_precision(device):
+    return "tf32" if device.type == "cuda" else "bfloat16"
+
+
+def selfplay(cell, seed, device):
+    import torch
+
+    from benchmark.kinds import selfplay as sp
+
+    state, _, _, rec = sp.set_up(cell, seed, device)
+    del state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ref = sp.reference_outputs(cell, seed, device, rec)
+    out = {"program": sp.compare(sp.program_outputs(cell, seed, rec), ref)}
+    out["control"] = sp.compare(
+        sp.reference_outputs(cell, seed, device, rec, control_precision(device)), ref)
+    for fault in ("answer", "half"):
+        out[fault] = sp.compare(sp.reference_outputs(cell, seed, device, rec, fault=fault), ref)
+    return out
+
+
+def league(cell, seed, device, seconds):
+    from benchmark.kinds import league as lg
+
+    ev, plies = lg.set_up(cell, seed, device)
+    start = time.perf_counter()
+    while time.perf_counter() - start < seconds:
+        lg.play_ply(ev, plies)
+    matchups = ev.tracker.matchups
+    del ev
+    chosen = plies.kept
+    sound = [lg.reference_ply(cell, seed, device, p, matchups) for p in chosen]
+    out = {"program": lg.compare(cell, seed, device, chosen, matchups)}
+    out["control"] = lg.compare(cell, seed, device, chosen, matchups,
+                                prec=control_precision(device), against=sound)
+    out["answer"] = lg.compare(cell, seed, device, chosen, matchups, fault="answer",
+                               against=sound)
+    return out
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seeds", type=int, nargs="+", required=True)
+    p.add_argument("--seconds", type=float, default=5.0)
+    args = p.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from benchmark import spec
+
+    cell = spec.cell(args.workload)
+    device = torch.device("cuda")
+    for seed in args.seeds:
+        start = time.perf_counter()
+        if cell.traffic["kind"] == "selfplay":
+            out = selfplay(cell, seed, device)
+        else:
+            out = league(cell, seed, device, args.seconds)
+        out.update(workload=args.workload, seed=seed, seconds=time.perf_counter() - start)
+        print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

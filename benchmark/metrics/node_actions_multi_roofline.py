@@ -1,0 +1,13 @@
+"""`node_actions_multi`'s share of its roofline: the least time the bytes
+of every grow pass of the search need (`work.search_bytes`) over the
+kernel's device time in the trace. Nothing to read where the search does
+not run that kernel."""
+from benchmark import work
+
+
+def read(ctx):
+    cfg = ctx["cell"].config
+    t = ctx["trace"].kernel_s(("node_actions_multi_kernel",))
+    if cfg["leaves_per_pass"] == 1 or t == 0:
+        return None
+    return 100 * work.search_bytes(cfg, ctx["n_envs"]) * ctx["profiled"] / work.HBM_BYTES_PER_S / t

@@ -25,8 +25,19 @@ from ..draws import Draws
 from ..envs import hex
 from ..mcts.search import MCTSConfig, tree_dtypes, tree_size
 from ..utils import resolve_device
+from ..utils.profiling import count, span
 
 log = getLogger(__name__)
+
+# spans and counters (utils.profiling): a league ply and its parts
+STEP = "league.step"
+TRACKER = "league.tracker"
+SEARCH = "league.search"
+ENV = "league.env"
+SYNC = "league.sync"
+SYNC_SEATS = "sync.league.seats"
+SYNC_RESULTS = "sync.league.results"
+SYNC_MASK = "sync.league.mask"
 
 COLUMNS = ("black_agent", "white_agent", "black_wins", "white_wins")
 
@@ -136,28 +147,46 @@ class ChunkEvaluator:
         self.games = 0
         self.start = time.time()
 
+    @span(STEP)
     def step(self):
         """One acting step; returns the list of completed-matchup records
         ((black, white), black_win, white_win)."""
         dev = self.device
-        fresh = self.tracker.refill()
+        with span(TRACKER):
+            fresh = self.tracker.refill()
         if len(fresh):
             mask = np.zeros(self.tracker.n_envs, bool)
             mask[fresh] = True
-            initial = hex.Hex.initial(self.tracker.n_envs, self.world.boardsize, device=dev)
-            self.world = hex._where(torch.as_tensor(mask, device=dev), initial, self.world)
+            with span(SYNC):
+                count(SYNC_MASK)
+                fresh_mask = torch.as_tensor(mask, device=dev)
+            with span(ENV):
+                initial = hex.Hex.initial(self.tracker.n_envs, self.world.boardsize, device=dev)
+                self.world = hex._where(fresh_mask, initial, self.world)
             self.wins[fresh] = 0
 
-        name, mask = self.tracker.suggest(self.world.seats.cpu().numpy())
+        with span(SYNC):
+            count(SYNC_SEATS)
+            seats = self.world.seats.cpu().numpy()
+        with span(TRACKER):
+            name, mask = self.tracker.suggest(seats)
         if name is None:
             return []
 
-        decisions = self.agents[name](self.world, self.draws.split(), eval=True)
-        stepped, transition = self.world.step(decisions["actions"])
-        self.world = hex._where(torch.as_tensor(mask, device=dev), stepped, self.world)
+        with span(SEARCH):
+            decisions = self.agents[name](self.world, self.draws.split(), eval=True)
+        with span(ENV):
+            stepped, transition = self.world.step(decisions["actions"])
+        with span(SYNC):
+            count(SYNC_MASK)
+            acting = torch.as_tensor(mask, device=dev)
+        with span(ENV):
+            self.world = hex._where(acting, stepped, self.world)
 
-        terminal = transition.terminal.cpu().numpy() & mask
-        rewards = transition.rewards.cpu().numpy()
+        with span(SYNC):
+            count(SYNC_RESULTS, 2)
+            terminal = transition.terminal.cpu().numpy() & mask
+            rewards = transition.rewards.cpu().numpy()
         self.moves += int(mask.sum())
 
         results = []
@@ -170,7 +199,8 @@ class ChunkEvaluator:
                 if i < 0:
                     continue
                 pairs.append((self.tracker.matchups[i], winners[k]))
-            self.tracker.finish(idxs)
+            with span(TRACKER):
+                self.tracker.finish(idxs)
             for (black, white), win in pairs:
                 results.append(((black, white), float(win[0]), float(win[1])))
                 self.games += 1

@@ -25,6 +25,13 @@ import torch
 
 from .base import Masked, Tensor, Transition
 from ..utils import resolve_device
+from ..utils.profiling import count, span
+
+# spans and counters (utils.profiling)
+STEP = "hex.step"
+FLOOD = "hex.flood"
+SYNC_FLOOD = "sync.hex.flood"
+SYNC_OBS = "sync.hex.obs"
 
 EMPTY, BLACK, WHITE, TOP, BOT, LEFT, RIGHT = range(7)
 
@@ -81,20 +88,24 @@ def _dilate(frontier):
     return out
 
 
+@span(FLOOD)
 def _flood(board, pos, stone, new_val):
     """Relabel the same-coloured group containing the one-hot cell `pos` with
     `new_val` wherever `new_val` is an edge label (>= TOP).
 
     The JAX package runs this as a `lax.while_loop` on a global "grew" flag;
-    here the flag is checked on the host, once per 4 dilations as there."""
+    here the flag is checked on the host, once per 4 dilations as there:
+    each check is a wait for the device (`SYNC_FLOOD`)."""
     own = board == stone[:, None, None]
     active = (new_val >= TOP)[:, None, None]
     frontier = pos & active
+    count(SYNC_FLOOD)
     if bool(frontier.any()):
         while True:
             nxt = frontier
             for _ in range(4):
                 nxt = _dilate(nxt) & own
+            count(SYNC_FLOOD)
             grew = bool((nxt != frontier).any())
             frontier = nxt
             if not grew:
@@ -142,7 +153,10 @@ def _step_boards(board, seats, actions):
 
 def _observe(board, seats):
     """(B,S,S,2) f32 one-hot planes in the current player's frame: plane 0
-    own stones, plane 1 the opponent's. White sees the transposed board."""
+    own stones, plane 1 the opponent's. White sees the transposed board.
+    The colour map is copied from pageable host memory, which on a card
+    waits for the device (`SYNC_OBS`)."""
+    count(SYNC_OBS)
     cmap = torch.tensor(_COLORMAP, dtype=torch.uint8, device=board.device)
     colors = cmap[board.long()]
     flip = (seats == 1)[:, None, None]
@@ -203,6 +217,7 @@ class Hex:
         sel = torch.where(flip, empty.transpose(-1, -2), empty)
         return sel.reshape(self.n_envs, -1)
 
+    @span(STEP)
     def step(self, actions, reset=True):
         """Step every env with a flat action in the acting player's frame,
         or with (n_envs, 2) row/col pairs, flattened to row * S + col.

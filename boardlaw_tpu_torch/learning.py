@@ -4,7 +4,12 @@ from __future__ import annotations
 
 import torch
 
+from .utils.profiling import span
 
+MIX = "train.mix"  # span (utils.profiling)
+
+
+@span(MIX)
 def mix(world, draws, T=2500):
     """Decorrelate envs by random-walking them T steps: each step plays a
     uniform valid action per env, drawn as argmax(logits + Gumbel) from

@@ -48,6 +48,18 @@ import torch.nn.functional as F
 
 from . import kernels
 from ..draws import Draws
+from ..utils.profiling import span
+
+# spans (utils.profiling): the root, a K>1 pass or a K=1 simulation, and
+# the parts of each
+ROOT = "search.root"
+PASS = "search.pass"
+SIM = "search.sim"
+SOLVE = "search.solve"
+WALK = "search.walk"
+EXPAND = "search.expand"
+EVAL = "search.eval"
+BACKUP = "search.backup"
 
 
 @dataclass(frozen=True)
@@ -797,43 +809,51 @@ def simulate(tree, eval_fn, rands, cfg: MCTSConfig):
     the `backup` / `backup_dense` kernel, each one launch that updates n, w,
     n_edge and w_edge along the path in place, bit-equal to `backup`."""
     B, T, A = tree.children.shape
-    b = torch.arange(B, device=rands.device)
     path = acts = None
     if cfg.descend_kernel:
-        parents, actions = kernels.descend(tree, rands)
-        existing = tree.children[b, parents.long(), actions.long()].to(torch.int32)
+        with span(SOLVE):
+            parents, actions = kernels.descend(tree, rands)
     else:
-        acts, nxt = _node_actions_any(tree, rands)
-        parents, actions, existing, path = _walk_any(tree, acts, nxt)
-    leaves = torch.where(existing == -1, tree.sim, existing)
+        with span(SOLVE):
+            acts, nxt = _node_actions_any(tree, rands)
+        with span(WALK):
+            parents, actions, existing, path = _walk_any(tree, acts, nxt)
 
-    pl, al, ll = parents.long(), actions.long(), leaves.long()
-    tree.children[b, pl, al] = leaves.to(tree.children.dtype)
-    old = _map_world(tree.worlds, lambda x: x[b, pl])
-    world, transition = old.step(actions)
-    decisions = eval_fn(world)
+    with span(EXPAND):
+        b = torch.arange(B, device=rands.device)
+        if cfg.descend_kernel:
+            existing = tree.children[b, parents.long(), actions.long()].to(torch.int32)
+        leaves = torch.where(existing == -1, tree.sim, existing)
 
-    def set_row(full, new):
-        full[b, ll] = new.to(full.dtype)
+        pl, al, ll = parents.long(), actions.long(), leaves.long()
+        tree.children[b, pl, al] = leaves.to(tree.children.dtype)
+        old = _map_world(tree.worlds, lambda x: x[b, pl])
+        world, transition = old.step(actions)
+        with span(EVAL):
+            decisions = eval_fn(world)
 
-    set_row(tree.parents, parents)
-    set_row(tree.relation, actions)
-    for f in fields(world):
-        set_row(getattr(tree.worlds, f.name), getattr(world, f.name))
-    set_row(tree.seats, world.seats)
-    set_row(tree.terminal, transition.terminal)
-    set_row(tree.rewards, transition.rewards)
-    set_row(tree.logits, _clamp_logits(decisions["logits"]))
-    set_row(tree.v, decisions["v"])
-    tree.sim += 1
+        def set_row(full, new):
+            full[b, ll] = new.to(full.dtype)
+
+        set_row(tree.parents, parents)
+        set_row(tree.relation, actions)
+        for f in fields(world):
+            set_row(getattr(tree.worlds, f.name), getattr(world, f.name))
+        set_row(tree.seats, world.seats)
+        set_row(tree.terminal, transition.terminal)
+        set_row(tree.rewards, transition.rewards)
+        set_row(tree.logits, _clamp_logits(decisions["logits"]))
+        set_row(tree.v, decisions["v"])
+        tree.sim += 1
 
     n_per_visit = tree.w.shape[-1] if cfg.backup_n == "seats" else 1
-    if cfg.descend_kernel and cfg.backup_kernel != "ops":
-        fn = kernels.backup_dense if cfg.backup_kernel == "dense" else kernels.backup
-        return fn(tree, leaves, n_per_visit)
-    if path is not None:
-        return backup_path(tree, path, acts, leaves, n_per_visit)
-    return backup(tree, leaves, n_per_visit)
+    with span(BACKUP):
+        if cfg.descend_kernel and cfg.backup_kernel != "ops":
+            fn = kernels.backup_dense if cfg.backup_kernel == "dense" else kernels.backup
+            return fn(tree, leaves, n_per_visit)
+        if path is not None:
+            return backup_path(tree, path, acts, leaves, n_per_visit)
+        return backup(tree, leaves, n_per_visit)
 
 
 def pass_shape(cfg: MCTSConfig, p):
@@ -890,77 +910,86 @@ def simulate_multi(tree, eval_fn, rands, cfg: MCTSConfig, rows, max_levels):
     R = rows
     dev = tree.children.device
 
-    acts, nxts = _solve_and_sample(tree, rands, cfg, R)  # (K,B,R)
+    with span(SOLVE):
+        acts, nxts = _solve_and_sample(tree, rands, cfg, R)  # (K,B,R)
 
     L = min(R, max_levels)
     # the (K,B,R) views go to the kernel as they are: no copy to rows
-    p_f, a_f, h_f, path_f = kernels.walk(tree.terminal[:, :R], acts, nxts, max_levels=L)
+    with span(WALK):
+        p_f, a_f, h_f, path_f = kernels.walk(tree.terminal[:, :R], acts, nxts, max_levels=L)
     parents = p_f.view(K, B)
     actions = a_f.view(K, B)
     halt_child = h_f.view(K, B)
     paths = path_f.view(K, B, L)
 
-    # dedup: a walk whose edge an earlier walk of its env already took
-    # redirects its leaf to that walk's slot and writes nothing of its own
-    kk = torch.arange(K, device=dev)
-    keys = parents * A + actions  # (K,B) edge ids
-    slots = (tree.sim + kk).to(torch.int32)
-    leaves0 = torch.where(halt_child == -1, slots[:, None], halt_child)
-    same = (keys[:, None, :] == keys[None, :, :]) & (kk[None, :] < kk[:, None])[:, :, None]
-    dup = same.any(1)  # same[k, j] for j < k
-    src = torch.where(dup, torch.argmax(same.to(torch.int32), 1), kk[:, None])  # (K,B)
-    leaves = torch.gather(leaves0, 0, src)
+    with span(EXPAND):
+        # dedup: a walk whose edge an earlier walk of its env already took
+        # redirects its leaf to that walk's slot and writes nothing of its own
+        kk = torch.arange(K, device=dev)
+        keys = parents * A + actions  # (K,B) edge ids
+        slots = (tree.sim + kk).to(torch.int32)
+        leaves0 = torch.where(halt_child == -1, slots[:, None], halt_child)
+        same = (keys[:, None, :] == keys[None, :, :]) & (kk[None, :] < kk[:, None])[:, :, None]
+        dup = same.any(1)  # same[k, j] for j < k
+        src = torch.where(dup, torch.argmax(same.to(torch.int32), 1), kk[:, None])  # (K,B)
+        leaves = torch.gather(leaves0, 0, src)
 
-    b_k = torch.arange(B, device=dev)[None, :].expand(K, B)
-    pl, al, ll = parents.long(), actions.long(), leaves.long()
+        b_k = torch.arange(B, device=dev)[None, :].expand(K, B)
+        pl, al, ll = parents.long(), actions.long(), leaves.long()
 
-    # duplicates write the same leaf, so the scatter has no conflicts
-    tree.children[b_k, pl, al] = leaves.to(tree.children.dtype)
+        # duplicates write the same leaf, so the scatter has no conflicts
+        tree.children[b_k, pl, al] = leaves.to(tree.children.dtype)
 
-    old = _map_world(tree.worlds, lambda x: x[b_k, pl].reshape((K * B,) + x.shape[2:]))
-    world_flat, transition = old.step(actions.reshape(K * B))
-    decisions = eval_fn(world_flat)
+        old = _map_world(tree.worlds, lambda x: x[b_k, pl].reshape((K * B,) + x.shape[2:]))
+        world_flat, transition = old.step(actions.reshape(K * B))
+        with span(EVAL):
+            decisions = eval_fn(world_flat)
 
-    def set_rows(full, new_kb):
-        # duplicate walks carry the first walk's values: one value per row
-        full[b_k, ll] = new_kb[src, b_k].to(full.dtype)
+        def set_rows(full, new_kb):
+            # duplicate walks carry the first walk's values: one value per row
+            full[b_k, ll] = new_kb[src, b_k].to(full.dtype)
 
-    def unflat(x):
-        return x.reshape((K, B) + x.shape[1:])
+        def unflat(x):
+            return x.reshape((K, B) + x.shape[1:])
 
-    if tree.prew is not None:
-        set_rows(tree.prew, tree.prew[b_k, pl] + unflat(transition.rewards))
-    set_rows(tree.parents, parents)
-    set_rows(tree.relation, actions)
-    for f in fields(world_flat):
-        set_rows(getattr(tree.worlds, f.name), unflat(getattr(world_flat, f.name)))
-    set_rows(tree.seats, unflat(world_flat.seats))
-    set_rows(tree.terminal, unflat(transition.terminal))
-    set_rows(tree.rewards, unflat(transition.rewards))
-    set_rows(tree.logits, unflat(_clamp_logits(decisions["logits"])))
-    set_rows(tree.v, unflat(decisions["v"]))
-    tree.sim += K
+        if tree.prew is not None:
+            set_rows(tree.prew, tree.prew[b_k, pl] + unflat(transition.rewards))
+        set_rows(tree.parents, parents)
+        set_rows(tree.relation, actions)
+        for f in fields(world_flat):
+            set_rows(getattr(tree.worlds, f.name), unflat(getattr(world_flat, f.name)))
+        set_rows(tree.seats, unflat(world_flat.seats))
+        set_rows(tree.terminal, unflat(transition.terminal))
+        set_rows(tree.rewards, unflat(transition.rewards))
+        set_rows(tree.logits, unflat(_clamp_logits(decisions["logits"])))
+        set_rows(tree.v, unflat(decisions["v"]))
+        tree.sim += K
 
     n_per_visit = tree.w.shape[-1] if cfg.backup_n == "seats" else 1
     backup = backup_paths if cfg.backup_mode == "einsum" else backup_paths_prefix
-    return backup(tree, paths, acts, leaves, n_per_visit)
+    with span(BACKUP):
+        return backup(tree, paths, acts, leaves, n_per_visit)
 
 
 def mcts(world, eval_fn, draws: Draws, cfg: MCTSConfig):
     """Full search: seed the root, then n_nodes-1 sequential sims (K=1), or
     ceil((n_nodes-1)/K) K-leaf passes, each over the rows `pass_shape`
     gives (grow or scan passes)."""
-    tree = build(world, cfg)
-    tree = initialize(tree, eval_fn(world), draws, cfg, world.valid)
+    with span(ROOT):
+        tree = build(world, cfg)
+        tree = initialize(tree, eval_fn(world), draws, cfg, world.valid)
     K = cfg.leaves_per_pass
     B, T = tree.parents.shape
     if K == 1:
         for i in range(cfg.n_nodes - 1):
-            simulate(tree, eval_fn, draws.sim_rands(i, (B, T)), cfg)
+            with span(SIM, index=i):
+                simulate(tree, eval_fn, draws.sim_rands(i, (B, T)), cfg)
         return tree
     for p in range(cfg.n_passes):
         R, L = pass_shape(cfg, p)
-        simulate_multi(tree, eval_fn, draws.pass_rands(p, (K, B, R)), cfg, rows=R, max_levels=L)
+        with span(PASS, index=p):
+            simulate_multi(tree, eval_fn, draws.pass_rands(p, (K, B, R)), cfg, rows=R,
+                           max_levels=L)
     return tree
 
 

@@ -21,6 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import count
+
+SYNC_NINF = "sync.heads.ninf"  # counter (utils.profiling)
+
 
 def lecun_normal_(weight, generator=None):
     """flax's default Dense kernel init: truncated normal, variance 1/fan_in."""
@@ -124,13 +128,15 @@ class DiscreteOutput(nn.Module):
 
 class MaskedOutput(nn.Module):
     """Policy head: logits with -inf at invalid actions, then a log-softmax
-    over the valid entries, in float32."""
+    over the valid entries, in float32. The -inf is copied from pageable
+    host memory, which on a card waits for the device (`SYNC_NINF`)."""
 
     def __init__(self, space, width, dtype=torch.float32, generator=None):
         super().__init__()
         self.dense = Dense(width, _size(space), dtype, generator=generator)
 
     def forward(self, x, valid):
+        count(SYNC_NINF)
         ninf = torch.tensor(-torch.inf, dtype=torch.float32, device=x.device)
         y = torch.where(valid, self.dense(x).float(), ninf)
         ymax = y.max(-1, keepdim=True).values

@@ -49,8 +49,17 @@ from .models import convert
 from .models.networks import FCModel, make_eval_fn
 from .pavlov import device as pdevice, logs, runs, stats, storage as pstorage
 from .utils import resolve_device
+from .utils.profiling import count, span
 
 log = getLogger(__name__)
+
+# spans (utils.profiling)
+STEP = "train.step"
+ACTOR = "train.actor"
+ACT = "train.act"
+LEARNER = "train.learner"
+SYNC_AUX = "sync.train.aux"
+SYNC_ORDERED = "sync.train.ordered"
 
 # Best-known hyperparameters per boardsize (reference main.py:17-25):
 # boardsize -> (width, depth, nodes, c_puct)
@@ -180,6 +189,7 @@ def init_worlds(cfg: TrainConfig, draws: Draws, mesh=None):
     return learning.mix(worlds, draws, cfg.mix_steps)
 
 
+@span(ACTOR)
 @torch.no_grad()
 def actor_record(cfg: TrainConfig, model, worlds, draws: Draws, return_tree=False, mesh=None):
     """One self-play step for every env (of a mesh's rank: its block,
@@ -187,9 +197,10 @@ def actor_record(cfg: TrainConfig, model, worlds, draws: Draws, return_tree=Fals
     worlds and the replay record of the pre-step state (and the search tree
     with `return_tree`)."""
     tree = run_mcts(worlds, make_eval_fn(model), draws, cfg.mcts_config(mesh))
-    r = mcts_root(tree)
-    actions = torch.argmax(r["logits"] + draws.gumbel(r["logits"].shape), -1)
-    new_worlds, transition = worlds.step(actions)
+    with span(ACT):
+        r = mcts_root(tree)
+        actions = torch.argmax(r["logits"] + draws.gumbel(r["logits"].shape), -1)
+        new_worlds, transition = worlds.step(actions)
     bdt = getattr(torch, cfg.buffer_dtype)
     record = {
         "worlds": worlds,
@@ -268,9 +279,12 @@ def push(buffer, ptr, record):
 
 def ordered(tree, ptr):
     """Time-ordered copies, oldest to newest (slot ptr is the oldest), of a
-    dict of buffer tensors. Only applied to the small leaves."""
+    dict of buffer tensors. Only applied to the small leaves. The order is
+    made on the host and copied to each leaf's device, which on a card
+    waits for the device (`SYNC_ORDERED`, once a leaf)."""
     T = next(iter(tree.values())).shape[0]
     idx = (ptr + torch.arange(T)) % T
+    count(SYNC_ORDERED, len(tree))
     return {k: x.index_select(0, idx.to(x.device)) for k, x in tree.items()}
 
 
@@ -403,10 +417,21 @@ def train_step(cfg: TrainConfig, state: TrainState, draws: Draws):
     searched, pushed and sampled, its gradient all-reduced (one flat
     buffer, averaged) before the Adam step, and the aux made the whole
     batch's (`_global_aux`)."""
+    _check_draws(draws, state.mesh)
+    with span(STEP, step=state.step):
+        worlds, record = actor_record(cfg, state.model, state.worlds, draws, mesh=state.mesh)
+        with span(LEARNER):
+            aux = _learn(cfg, state, draws, record)
+    state.worlds = worlds
+    state.step += 1
+    return state, aux
+
+
+def _learn(cfg: TrainConfig, state: TrainState, draws: Draws, record):
+    """`train_step`'s learner: push `record`, sample the batch, one Adam
+    step; advances `state.ptr` and returns the aux."""
     mesh = state.mesh
-    _check_draws(draws, mesh)
     B, T = state.worlds.n_envs, cfg.buffer_len
-    worlds, record = actor_record(cfg, state.model, state.worlds, draws, mesh=mesh)
     push(state.buffer, state.ptr, record)
     ptr = (state.ptr + 1) % T
 
@@ -459,10 +484,8 @@ def train_step(cfg: TrainConfig, state: TrainState, draws: Draws):
             mesh, aux, {"v.target.std": batch["reward_to_go"], "v.outputs.std": v_out},
             {"corr.terminal": (osmall["v"], osmall["rewards"], tb),
              "corr.penultimate": (osmall["v"][:-1], osmall["rewards"][1:], tb[1:])})
-    state.worlds = worlds
     state.ptr = ptr
-    state.step += 1
-    return state, aux
+    return aux
 
 
 def make_train(cfg: TrainConfig, device=None, mesh=None):
@@ -539,6 +562,7 @@ def _host_scalars(aux):
     transfer: the loop's one wait for the device a step."""
     keys = list(aux)
     values = torch.stack([aux[k].detach().reshape(()).to(torch.float64) for k in keys])
+    count(SYNC_AUX)
     return dict(zip(keys, values.cpu().tolist()))
 
 

@@ -50,6 +50,7 @@ def test_device_executor_pins_cards(monkeypatch):
 
 
 def test_nvtx_gate(monkeypatch):
+    """BOARDLAW_PROFILE=1 turns the ranges on; the function runs either way."""
     calls = []
 
     @profiling.nvtx
@@ -57,30 +58,49 @@ def test_nvtx_gate(monkeypatch):
         calls.append(x)
         return x + 1
 
-    monkeypatch.delenv("BOARDLAW_PROFILE", raising=False)
-    assert not profiling.enabled() and fn(1) == 2
-    monkeypatch.setenv("BOARDLAW_PROFILE", "1")
-    assert profiling.enabled() and fn(2) == 3
-    assert calls == [1, 2]
+    try:
+        monkeypatch.delenv("BOARDLAW_PROFILE", raising=False)
+        profiling.from_env()
+        profiling.reset()
+        assert not profiling.enabled() and fn(1) == 2 and profiling.totals() == {}
+        monkeypatch.setenv("BOARDLAW_PROFILE", "1")
+        profiling.from_env()
+        assert profiling.enabled() and fn(2) == 3
+        assert profiling.totals()[fn.__qualname__][0] == 1
+        assert calls == [1, 2]
+    finally:
+        profiling.enable(False)
+        profiling.reset()
 
 
-def test_trace_and_profilable(tmp_path, monkeypatch):
-    monkeypatch.setenv("BOARDLAW_PROFILE", "1")
-
+def test_trace_and_profilable(tmp_path):
+    """`trace` writes a chrome trace in which the spans of a traced run
+    (`span`, and `nvtx` on a function) appear beside the ops they hold."""
     @profiling.nvtx
     def step(x):
         return torch.mm(x, x)
 
-    with profiling.trace(tmp_path / "t") as prof:
-        step(torch.ones(8, 8))
-    names = {e.get("name") for e in json.loads(prof.path.read_text())["traceEvents"]}
-    assert "aten::mm" in names and step.__qualname__ in names
+    profiling.enable()
+    try:
+        with profiling.trace(tmp_path / "t") as prof:
+            with profiling.span("test.step"):
+                step(torch.ones(8, 8))
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    events = json.loads(prof.path.read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    spans = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    assert "aten::mm" in names and {"test.step", step.__qualname__} <= set(spans)
+    mm = next(e for e in events if e.get("name") == "aten::mm")
+    outer = spans["test.step"]
+    assert outer["ts"] <= mm["ts"] <= outer["ts"] + outer["dur"]
 
-    monkeypatch.setenv("BOARDLAW_PROFILE_DIR", str(tmp_path / "p"))
-    assert profiling.profilable(lambda: 7)() == 7
-    assert len(list((tmp_path / "p").glob("trace-*.json"))) == 1
-    monkeypatch.delenv("BOARDLAW_PROFILE_DIR")
-    assert profiling.profilable(lambda: 8)() == 8
+    with profiling.trace(tmp_path / "off") as prof:
+        with profiling.span("test.step"):
+            step(torch.ones(8, 8))
+    assert not [e for e in json.loads(prof.path.read_text())["traceEvents"]
+                if e.get("cat") == "user_annotation"]
 
 
 def test_memory_stats(caplog):

@@ -4,7 +4,13 @@ The board stores edge-connectivity labels: cells are one of EMPTY, BLACK,
 WHITE, TOP, BOT, LEFT, RIGHT, where TOP/BOT mark black groups connected to the
 top/bottom edge and LEFT/RIGHT white groups connected to the left/right edge.
 A move inspects its six neighbours to detect a win and relabels the
-just-placed group with a batched masked dilation (the flood).
+just-placed group with a masked dilation (the flood).
+
+`Hex.step` takes one of two routes by the board's device: on the card, the
+`hex_step` CUDA kernel (`mcts/kernels.py`, `csrc/hex_step.cu`) steps each
+board in one launch, its flood run to its fixpoint on the device; on the
+CPU, `step_reference`, the kernel's twin and specification, runs plain
+PyTorch ops and the batched flood `_flood`.
 
 Boards are uint8 (B,S,S); observations are channels-last (B,S,S,2), as in
 the JAX package. White plays and observes in the transposed frame.
@@ -91,11 +97,14 @@ def _dilate(frontier):
 @span(FLOOD)
 def _flood(board, pos, stone, new_val):
     """Relabel the same-coloured group containing the one-hot cell `pos` with
-    `new_val` wherever `new_val` is an edge label (>= TOP).
+    `new_val` wherever `new_val` is an edge label (>= TOP). The group is
+    the cells holding exactly `stone`: labelled cells block the flood.
 
     The JAX package runs this as a `lax.while_loop` on a global "grew" flag;
     here the flag is checked on the host, once per 4 dilations as there:
-    each check is a wait for the device (`SYNC_FLOOD`)."""
+    each check is a wait for the device (`SYNC_FLOOD`). Only the twin's
+    route, on the CPU, runs it: on the card the `hex_step` kernel floods
+    each board to its fixpoint on the device and `SYNC_FLOOD` stays 0."""
     own = board == stone[:, None, None]
     active = (new_val >= TOP)[:, None, None]
     frontier = pos & active
@@ -149,6 +158,21 @@ def _step_boards(board, seats, actions):
     board = torch.where(pos, stone[:, None, None], board)
     board = _flood(board, pos, stone, new_val)
     return board, rewards
+
+
+def step_reference(board, seats, actions, reset=True):
+    """`Hex.step` on tensors, the `hex_step` kernel's plain twin: flat
+    actions in the acting player's frame -> (board, seats, rewards (B,2)
+    f32, terminal (B,) bool); with `reset`, won boards are cleared and give
+    black the move."""
+    new_board, rewards = _step_boards(board, seats, actions)
+    if reset:
+        terminal = (rewards > 0).any(-1)
+    else:
+        terminal = torch.zeros((board.shape[0],), dtype=torch.bool, device=board.device)
+    new_board = torch.where(terminal[:, None, None], EMPTY, new_board).to(torch.uint8)
+    new_seats = torch.where(terminal, 0, 1 - seats).to(seats.dtype)
+    return new_board, new_seats, rewards, terminal
 
 
 def _observe(board, seats):
@@ -222,17 +246,19 @@ class Hex:
         """Step every env with a flat action in the acting player's frame,
         or with (n_envs, 2) row/col pairs, flattened to row * S + col.
         Terminal envs are auto-reset: board cleared, black to move, flagged
-        in the returned Transition."""
+        in the returned Transition. A board on the card takes the `hex_step`
+        kernel, one on the CPU its twin `step_reference`."""
         if actions.dim() == 2:
             actions = actions[:, 0] * self.boardsize + actions[:, 1]
-        new_board, rewards = _step_boards(self.board, self.seats, actions)
-        if reset:
-            terminal = (rewards > 0).any(-1)
+        if self.board.is_cuda:
+            from ..mcts import kernels  # at call time: envs/ loads no search at import
+
+            board, seats, rewards, terminal = kernels.hex_step(
+                self.board.contiguous(), self.seats.contiguous(), actions.contiguous(), reset)
         else:
-            terminal = torch.zeros((self.n_envs,), dtype=torch.bool, device=self.device)
-        new_board = torch.where(terminal[:, None, None], EMPTY, new_board).to(torch.uint8)
-        new_seats = torch.where(terminal, 0, 1 - self.seats).to(self.seats.dtype)
-        return replace(self, board=new_board, seats=new_seats), Transition(terminal, rewards)
+            board, seats, rewards, terminal = step_reference(self.board, self.seats, actions,
+                                                             reset)
+        return replace(self, board=board, seats=seats), Transition(terminal, rewards)
 
     def render(self, e=0):
         """ASCII board: '.' empty, 'b/w' stones, 'T/B/L/R' edge-labelled."""

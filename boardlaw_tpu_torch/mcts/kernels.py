@@ -31,6 +31,14 @@ PyTorch twins and their launch counts.
   `sample_children_multi`: the log-shift prefix sum and K draws with their
   child lookups from precomputed probs. Twin: `sample_children_multi_ref`,
   which is `search._sample_children_multi` in the 'shift' order.
+* `hex_step` (csrc/hex_step.cu) replaces no Pallas kernel: it is a whole
+  `envs.hex.Hex.step` for every board in one launch (the stone, the win
+  test, the edge flood run to its fixpoint on the device, the auto-reset),
+  where the JAX package runs plain XLA ops and a `lax.while_loop` flood, and
+  the twin, `envs.hex.step_reference`, some sixty launches and a flood that
+  waits for the host once every four dilations. Bit-equal to the twin.
+  `Hex.step` calls it for a board on the card and the twin for one on the
+  CPU; the wrapper itself takes CUDA tensors only.
 
 The five row kernels share one device solve, prefix sum and draw
 (csrc/row_solve.cuh) and one lane layout (`row_layout`): the split pair
@@ -55,8 +63,8 @@ children in registers, the int32 one loads a draw's child after the draw.
 A CUDA tensor of another type raises; there is no conversion and no
 fallback.
 
-A wrapper given CPU tensors runs the twin; given CUDA tensors it launches the
-kernel or raises, with no fallback. Each launch adds one to its
+A wrapper given CPU tensors runs the twin (`hex_step` excepted, above); given
+CUDA tensors it launches the kernel or raises, with no fallback. Each launch adds one to its
 instantiation's entry of `launches` and nowhere else, keyed by `instance`'s
 name: the kernel's own name for f32 logits on the compact tree, `.bf16`
 after it for bf16 logits, `.wide` for int32 children with f32 counts (or
@@ -84,7 +92,7 @@ from . import search
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = ("walk.cu", "node_actions_multi.cu", "node_actions.cu", "descend.cu", "backup.cu",
-            "backup_dense.cu", "solve_probs.cu", "sample_children_multi.cu")
+            "backup_dense.cu", "solve_probs.cu", "sample_children_multi.cu", "hex_step.cu")
 _HEADERS = ("row_solve.cuh", "backup_walk.cuh")
 _BUILD_DIR = _PKG / "_build"
 # -fmad=false: no fused multiply-adds, so each element's float arithmetic
@@ -164,6 +172,8 @@ def build(verbose=False):
     lib.solve_probs_launch.restype = i
     lib.sample_children_multi_launch.argtypes = [p, i, p, i, i, i, i, i, i, p, p, p, i, i, p]
     lib.sample_children_multi_launch.restype = i
+    lib.hex_step_launch.argtypes = [p, p, p, i, q, i, i, p, p, p, p, p]
+    lib.hex_step_launch.restype = i
     _lib = lib
     return lib
 
@@ -254,6 +264,7 @@ def instance(name, logits=None, children=None, counts=None):
 # "node_actions.bf16", "descend.wide", "node_actions_multi.mixed.bf16", ...
 launches = dict.fromkeys((instance(name, logits, children, counts) for name in READS
                           for logits in LOGITS_DTYPES for children, counts in TREE_DTYPES), 0)
+launches["hex_step"] = 0
 
 
 def _launched(name, logits=None, children=None, n_edge=None):
@@ -736,3 +747,61 @@ def sample_children_multi(probs, children, rands):
     _raise_on(err, "sample_children_multi")
     _launched("sample_children_multi", children=children)
     return actions, childs
+
+
+# --------------------------------------------------------------------------
+# hex_step
+# --------------------------------------------------------------------------
+
+HEX_MAX_SIZE = 11  # csrc/hex_step.cu kMaxSize: the largest board the kernel takes
+
+
+def _check_hex_step(board, seats, actions):
+    """`hex_step`'s inputs: storage type and shape first, then the device,
+    so the refusals are testable on the CPU. The messages are built only on
+    failure: every `Hex.step` on the card calls this. Returns (B, S)."""
+    if board.dtype != torch.uint8:
+        raise ValueError(f"board must be uint8, got {board.dtype}")
+    if board.dim() != 3 or board.shape[1] != board.shape[2] or not board.is_contiguous():
+        raise ValueError(f"board must be a contiguous (B,S,S) tensor, got {tuple(board.shape)}")
+    B, S = board.shape[0], board.shape[1]
+    if not 1 <= S <= HEX_MAX_SIZE:
+        raise ValueError(f"the hex_step kernel takes boards of 1 to {HEX_MAX_SIZE} cells a side, "
+                         f"got {S}")
+    _check_stored(seats, "seats", torch.int32, (B,))
+    if actions.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"actions must be int32 or int64, got {actions.dtype}")
+    if actions.shape != (B,) or not actions.is_contiguous():
+        raise ValueError(f"actions must be contiguous {(B,)}, got {tuple(actions.shape)}")
+    for name, x in (("board", board), ("seats", seats), ("actions", actions)):
+        if not x.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+    if seats.device != board.device or actions.device != board.device:
+        raise ValueError("board, seats and actions must be on one card")
+    return B, S
+
+
+def hex_step(board, seats, actions, reset=True):
+    """A whole `Hex.step` of every board on the card, in one launch: the
+    stone, the win test, the edge flood to its fixpoint and, with `reset`,
+    the auto-reset of won boards, with no wait for the host.
+
+    board (B,S,S) uint8 with 1 <= S <= HEX_MAX_SIZE, seats (B,) int32,
+    actions (B,) int32 or int64 flat in the mover's frame, all contiguous
+    CUDA tensors. -> (board (B,S,S) uint8, seats (B,) int32, rewards (B,2)
+    f32, terminal (B,) bool), bit-equal to `envs.hex.step_reference`, its
+    twin. CUDA tensors only: `Hex.step` takes the twin for a board on the
+    CPU."""
+    B, S = _check_hex_step(board, seats, actions)
+    dev = board.device
+    new_board = torch.empty_like(board)
+    new_seats = torch.empty_like(seats)
+    rewards = torch.empty((B, 2), dtype=torch.float32, device=dev)
+    terminal = torch.empty((B,), dtype=torch.bool, device=dev)
+    err = build().hex_step_launch(
+        board.data_ptr(), seats.data_ptr(), actions.data_ptr(), int(actions.dtype == torch.int64),
+        B, S, int(reset), new_board.data_ptr(), new_seats.data_ptr(), rewards.data_ptr(),
+        terminal.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "hex_step")
+    launches["hex_step"] += 1
+    return new_board, new_seats, rewards, terminal

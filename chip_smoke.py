@@ -5,7 +5,7 @@
 
 Phases, each a hard failure with a non-zero exit, each printing its seconds:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-  2. build the eight CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a),
+  2. build the nine CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a),
      in every instantiation: four of them (`node_actions_multi`,
      `node_actions`, `descend`, `solve_probs`) also for bf16 logits, and
      the seven that read children or edge counts also for the wide tree;
@@ -53,6 +53,10 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      shapes, every env a chain of depth T-1, also bit-equal); `walk` by
      every design on the tree's (B,T) rows and on depth-63 chains, bit-equal
      to the twin and timed; a small 6x6 search on the card against the CPU;
+  4b. `hex_step` (csrc/hex_step.cu) at the paths' shapes, on mixed worlds:
+     the 9x9 grow pass's 8 x `--envs` boards and the 6x6 K=1 sim's `--envs`,
+     int32 actions, bit-equal to its twin `envs.hex.step_reference` on the
+     card, timed beside the twin, with the byte counts of `hex_step_bytes`;
   5. the paths, each driven with every launch count set to 0 just before and
      read just after, failing unless each of its kernels ran the expected
      number of times:
@@ -434,21 +438,75 @@ def search_launches(mcfg):
     return out
 
 
+def search_counts(counts):
+    """`counts` less `hex_step`, which launches for every Hex world a path
+    steps (the mix, the actor, each expansion), not by its search route."""
+    return {k: v for k, v in counts.items() if k != "hex_step"}
+
+
 def run_path(name, expected, fn):
     """Drive one path with every count at 0 before; fail unless each kernel
-    launched exactly `expected[name]` times (0 for kernels not listed)."""
+    launched exactly `expected[name]` times (0 for kernels not listed,
+    `hex_step` excepted)."""
     reset_counts()
     sync()
     out = fn()
     sync()
     counts = read_counts()
-    want = {k: expected.get(k, 0) for k in counts}
+    want = {k: expected.get(k, 0) for k in (counts if "hex_step" in expected
+                                             else search_counts(counts))}
     nonzero = {k: v for k, v in counts.items() if v}
     print(f"launches on {name}: {nonzero} (expected {expected}; every other instantiation 0)",
           flush=True)
-    if counts != want:
+    if {k: counts[k] for k in want} != want:
         fail(f"{name}: kernel launches {counts}, expected {want}")
     return counts, out
+
+
+def hex_step_bytes(B, S, action_bytes=4):
+    """The bytes `hex_step` must move for B boards of S x S: each board read
+    and written, each seat read and written, the action read, the two f32
+    rewards and the terminal flag written."""
+    return B * (2 * S * S + 2 * 4 + action_bytes + 2 * 4 + 1)
+
+
+def check_hex_step(seed, n_envs, report):
+    """`hex_step` against its twin on the card at the 9x9 grow pass's K*B =
+    8 * n_envs boards and the 6x6 K=1 sim's n_envs, from worlds mixed 40
+    steps, with the search's int32 actions: every output bit-equal (the
+    rewards' bit patterns too), then timed beside the twin; fills
+    report["hex_step"] (9x9) and its "6x6"."""
+    import torch
+    from boardlaw_tpu_torch.draws import Draws
+    from boardlaw_tpu_torch.envs import hex
+    from boardlaw_tpu_torch.mcts import kernels
+
+    draws = Draws(seed, DEV)
+    figures = {}
+    for S, B in ((9, 8 * n_envs), (6, n_envs)):
+        worlds = mix_worlds(S, n_envs, draws, 40)
+        board = worlds.board.repeat(B // n_envs, 1, 1)
+        seats = worlds.seats.repeat(B // n_envs)
+        valid = hex.Hex(board=board, seats=seats).valid
+        noise = draws.gumbel(valid.shape)
+        actions = torch.argmax(torch.where(valid, noise, -torch.inf), -1).to(torch.int32)
+        got = kernels.hex_step(board, seats, actions)
+        want = hex.step_reference(board, seats, actions)
+        got, want = ([x.view(torch.int32) if x.dtype == torch.float32 else x for x in out]
+                     for out in (got, want))
+        mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+        dev_ms, ms = both_ms(lambda: kernels.hex_step(board, seats, actions), 50)
+        plain_ms = time_ms(lambda: hex.step_reference(board, seats, actions), 5)
+        nbytes = hex_step_bytes(B, S)
+        print(f"hex_step {S}x{S}, {B} boards: {mism} outputs differ from the twin; {ms:.4f} ms "
+              f"({dev_ms:.4f} on the card), the twin {plain_ms:.4f} ms, {nbytes} bytes "
+              f"(bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+              f"{int(got[3].sum())} terminal", flush=True)
+        if mism:
+            fail(f"hex_step at {S}x{S}: {mism} outputs differ from the twin")
+        figures[S] = {"max_abs_err": mism, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "bytes": nbytes, "ops": 0, "shape": [B, S, S]}
+    report["hex_step"] = {**figures[9], "6x6": figures[6]}
 
 
 def mix_worlds(boardsize, n_envs, draws, steps):
@@ -2441,7 +2499,7 @@ def check_data_parallel(args, card, cfg, ref):
     want = {k: v * (cfg.buffer_len + steps) for k, v in search_launches(cfg.mcts_config()).items()}
     total = {}
     for r, out in enumerate(ranks):
-        nonzero = {k: v for k, v in out["counts"].items() if v}
+        nonzero = {k: v for k, v in search_counts(out["counts"]).items() if v}
         print(f"launches on rank {r} of 2 (init, {cfg.buffer_len} warmup and {steps} train "
               f"steps): {nonzero} (expected {want})", flush=True)
         if DEV == "cuda" and nonzero != want:
@@ -2628,7 +2686,7 @@ def per_search(label, counts, searches):
     k8 = sum(1 for k in searches if k == 8)
     k1 = sum(1 for k in searches if k == 1)
     want = {"walk": 8 * k8 + 63 * k1, "node_actions_multi": 8 * k8, "node_actions": 63 * k1}
-    got = {k: v for k, v in counts.items() if v}
+    got = {k: v for k, v in search_counts(counts).items() if v}
     print(f"{label}: {k8} K=8 grow searches, {k1} K=1 searches; launches {got}", flush=True)
     if len(searches) != k8 + k1 or got != {k: v for k, v in want.items() if v}:
         fail(f"{label}: launches {got}, expected {want} for {k8} K=8 and {k1} K=1 searches")
@@ -2939,7 +2997,7 @@ def job_log_launches(name, log, device_label, expected):
     if f"fleet worker: training on {device_label}" not in log or "Traceback" in log:
         fail(f"job {name}'s log does not name {device_label} or has a traceback:\n{log}")
     try:
-        counts = json.loads(log.strip().splitlines()[-1])["kernels.launches"]
+        counts = search_counts(json.loads(log.strip().splitlines()[-1])["kernels.launches"])
     except (IndexError, ValueError, KeyError):
         fail(f"job {name}'s log does not end in its kernels.launches line:\n{log}")
     want = {k: expected.get(k, 0) for k in counts}
@@ -3134,7 +3192,8 @@ def check_fleet(card):
     return launches
 
 
-# the eight kernels: route, source, the Pallas kernel each replaces
+# the kernels: route, source, the Pallas kernel each replaces (`hex_step`
+# replaces none: the JAX package steps Hex in plain XLA)
 BASE_KERNELS = {
     "walk": ("cuda", "boardlaw_tpu_torch/csrc/walk.cu", "boardlaw_tpu/mcts/pallas_kernels.py:530"),
     "node_actions_multi": ("cuda", "boardlaw_tpu_torch/csrc/node_actions_multi.cu",
@@ -3151,6 +3210,7 @@ BASE_KERNELS = {
                     "boardlaw_tpu/mcts/pallas_kernels.py:75"),
     "sample_children_multi": ("cuda", "boardlaw_tpu_torch/csrc/sample_children_multi.cu",
                               "boardlaw_tpu/mcts/pallas_kernels.py:457"),
+    "hex_step": ("cuda", "boardlaw_tpu_torch/csrc/hex_step.cu", None),
 }
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3234,6 +3294,11 @@ def main(argv=None):
         check_search_cpu_vs_gpu(cfg6, model6)
         torch.cuda.empty_cache()
 
+    # 4b. the Hex step kernel at the paths' shapes
+    with Phase("hex_step against its twin"):
+        check_hex_step(args.seed + 9, args.envs, report)
+        torch.cuda.empty_cache()
+
     launches = {}
     # 5a. the 9x9 actor path
     with Phase("9x9 actor steps (K=8)"):
@@ -3242,10 +3307,12 @@ def main(argv=None):
         worlds = train.init_worlds(cfg9, draws)
         c, (_, step_s) = run_path(
             f"{args.steps} 9x9 actor steps",
-            {k: v * args.steps for k, v in search_launches(mcfg9).items()},
+            {k: v * args.steps for k, v in search_launches(mcfg9).items()}
+            | {"hex_step": (mcfg9.n_passes + 1) * args.steps},
             lambda: actor_steps(cfg9, model9, worlds, draws, args.steps,
                                 2 * mcfg9.leaves_per_pass * mcfg9.n_passes))
-        launches.update(walk=c["walk"], node_actions_multi=c["node_actions_multi"])
+        launches.update(walk=c["walk"], node_actions_multi=c["node_actions_multi"],
+                        hex_step=c["hex_step"])
         sims = cfg9.n_envs * mcfg9.n_passes * mcfg9.leaves_per_pass / steady(step_s)
         f32_figures = {"actor": (steady(step_s), torch.cuda.max_memory_allocated() / 1e9)}
         print(f"actor step (9x9, 512x4, {cfg9.n_envs} envs, 64 nodes, K=8): steps {step_s} s, "
@@ -3264,7 +3331,8 @@ def main(argv=None):
         steps6 = max(2, args.steps)
         torch.cuda.reset_peak_memory_stats()
         c, (_, step_s) = run_path(
-            f"{steps6} 6x6 K=1 actor steps", {"node_actions": steps6 * sims, "walk": steps6 * sims},
+            f"{steps6} 6x6 K=1 actor steps",
+            {"node_actions": steps6 * sims, "walk": steps6 * sims, "hex_step": steps6 * (sims + 1)},
             lambda: actor_steps(cfg6, model6, worlds, draws, steps6, 2 * sims))
         launches["node_actions"] = c["node_actions"]
         report["walk"]["k1"]["launches"] = c["walk"]
@@ -3413,6 +3481,8 @@ def main(argv=None):
                               "designs": r[shape]["designs"]}
             row["k1"]["launches"] = r["k1"]["launches"]
             row["designs"] = r["designs"]
+        if name == "hex_step":  # the 6x6 K=1 sim's call
+            row["6x6"] = {**figures(r["6x6"]), "shape": r["6x6"]["shape"]}
         rows.append(row)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -131,6 +131,83 @@ def test_flood_and_reset_cases():
     assert int(world.board.sum()) == 0 and int(world.seats[0]) == 0
 
 
+def test_flood_stops_at_labelled_cells():
+    # the flood crosses plain stones only: black's move at (0,2) takes TOP
+    # and relabels its plain chain down to (2,2); the BOT cells below stop
+    # it, and the plain stone at (3,3) behind them keeps its label. The
+    # `hex_step` kernel keeps this rule; the JAX package has it too.
+    B, T, L = thex.BLACK, thex.TOP, thex.BOT
+    rows = [[0, 0, 0, 0, 0], [0, 0, B, 0, 0], [0, 0, B, 0, 0], [0, 0, L, B, 0], [0, 0, L, 0, 0]]
+    board = np.array([rows], np.uint8)
+    seats = np.zeros((1,), np.int32)
+    tw = thex.Hex(board=torch.from_numpy(board), seats=torch.from_numpy(seats))
+    jw = jhex.Hex(board=jnp.asarray(board), seats=jnp.asarray(seats))
+    jw, tw, ttr = _step_both(jw, tw, np.array([[0, 2]], np.int32))
+    assert tw.board[0].tolist() == [[0, 0, T, 0, 0], [0, 0, T, 0, 0], [0, 0, T, 0, 0],
+                                    [0, 0, L, B, 0], [0, 0, L, 0, 0]]
+    assert not bool(ttr.terminal[0])
+
+
+def test_cpu_board_takes_the_twin(monkeypatch):
+    # Hex.step on CPU tensors runs step_reference and never the kernel's
+    # wrapper, for Hex and for the Solitaire worlds that step through it
+    from boardlaw_tpu_torch.mcts import kernels
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU board reached the hex_step kernel")
+
+    monkeypatch.setattr(kernels, "hex_step", refuse)
+    n0 = kernels.launches["hex_step"]
+    rng = np.random.default_rng(9)
+    world = thex.Hex.initial(n_envs=8, boardsize=5, device="cpu")
+    for _ in range(30):
+        actions = torch.tensor([rng.choice(np.flatnonzero(v)) for v in world.valid.numpy()])
+        want = thex.step_reference(world.board, world.seats, actions)
+        world, tr = world.step(actions)
+        got = (world.board, world.seats, tr.rewards, tr.terminal)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    solitaire = thex.Random.initial(n_envs=8, boardsize=5, device="cpu")
+    solitaire.step(torch.zeros(8, dtype=torch.int64), draws=Draws(0, "cpu"))
+    assert kernels.launches["hex_step"] == n0
+
+
+def _hex_step_inputs(S=5, B=3):
+    return (torch.zeros((B, S, S), dtype=torch.uint8), torch.zeros((B,), dtype=torch.int32),
+            torch.zeros((B,), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("size", "1 to 11"),
+    ("board_dtype", "^board must be uint8"),
+    ("board_shape", "^board must be a contiguous"),
+    ("seats_shape", "^seats must be contiguous"),
+    ("seats_dtype", "^seats must be torch.int32"),
+    ("actions_shape", "^actions must be contiguous"),
+    ("actions_dtype", "^actions must be int32 or int64"),
+    ("cpu", "^board must be a CUDA tensor"),
+])
+def test_hex_step_wrapper_refuses_bad_inputs(case, match):
+    # the kernel's checks run before any launch, so they are testable
+    # without a card; a good board on the CPU is refused last
+    from boardlaw_tpu_torch.mcts import kernels
+
+    board, seats, actions = _hex_step_inputs()
+    bad = {
+        "size": lambda: _hex_step_inputs(S=kernels.HEX_MAX_SIZE + 1),
+        "board_dtype": lambda: (board.int(), seats, actions),
+        "board_shape": lambda: (board[:, :, :4], seats, actions),
+        "seats_shape": lambda: (board, seats[:2], actions),
+        "seats_dtype": lambda: (board, seats.long(), actions),
+        "actions_shape": lambda: (board, seats, actions[:, None]),
+        "actions_dtype": lambda: (board, seats, actions.to(torch.int16)),
+        "cpu": lambda: (board, seats, actions),
+    }[case]()
+    n0 = kernels.launches["hex_step"]
+    with pytest.raises(ValueError, match=match):
+        kernels.hex_step(*bad)
+    assert kernels.launches["hex_step"] == n0
+
+
 def test_initial_needs_a_device_choice():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present, so the default device is valid")

@@ -54,6 +54,8 @@ import numpy as np
 import pytest
 import torch
 
+from boardlaw_tpu_torch.draws import Draws
+from boardlaw_tpu_torch.envs import hex as thex
 from boardlaw_tpu_torch.mcts import kernels, search
 
 torch.set_num_threads(2)
@@ -770,3 +772,243 @@ def test_wide_wrappers_refuse_other_dtypes(cuda):
                                       g["children"].long(), rands)
     with pytest.raises(ValueError):
         kernels.solve_probs(**_solve_inputs({**g, "n_edge": g["n_edge"].double()}))
+
+
+# --------------------------------------------------------------------------
+# hex_step: bit-equal to its twin, envs.hex.step_reference
+# --------------------------------------------------------------------------
+
+HEX_SIZES = [3, 5, 6, 7, 9, 11]
+
+
+def _hex_step_matches(board, seats, actions, reset):
+    """One `kernels.hex_step` launch against the twin on the same card
+    tensors: boards, seats, rewards (bit patterns: signed zeros too) and
+    terminal flags equal. Returns the twin's outputs."""
+    n0 = kernels.launches["hex_step"]
+    got = kernels.hex_step(board, seats, actions, reset)
+    torch.cuda.synchronize()
+    assert kernels.launches["hex_step"] == n0 + 1
+    want = thex.step_reference(board, seats, actions, reset)
+    for name, g, w in zip(("board", "seats", "rewards", "terminal"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name == "rewards":
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), name
+    return want
+
+
+def _random_labels(S, B, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    board = torch.randint(0, 7, (B, S, S), generator=gen, dtype=torch.uint8)
+    seats = torch.randint(0, 2, (B,), generator=gen, dtype=torch.int32)
+    return board.to(device), seats.to(device), gen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("reset", [True, False])
+@pytest.mark.parametrize("S", HEX_SIZES)
+def test_hex_step_matches_twin_in_random_play(cuda, S, reset, dtype):
+    # random valid moves (an occupied cell once a board without reset is
+    # full) from the empty board, S*S plies, every ply held to the twin
+    B = 512
+    gen = torch.Generator().manual_seed(S)
+    board = torch.zeros((B, S, S), dtype=torch.uint8, device=cuda)
+    seats = torch.zeros((B,), dtype=torch.int32, device=cuda)
+    n_terminal = n_edge = 0
+    for _ in range(S * S + 2):
+        world = thex.Hex(board=board, seats=seats)
+        noise = torch.rand((B, S * S), generator=gen).to(cuda)
+        actions = torch.argmax(torch.where(world.valid, noise, -1.0), -1).to(dtype)
+        board, seats, _, terminal = _hex_step_matches(board, seats, actions, reset)
+        n_terminal += int(terminal.sum())
+        n_edge += int((board >= thex.TOP).sum())
+    assert n_edge > 0 and (n_terminal > 0) == reset
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reset", [True, False])
+@pytest.mark.parametrize("S", HEX_SIZES)
+def test_hex_step_matches_twin_on_random_labels(cuda, S, reset):
+    # every label anywhere, either seat, actions from -S to S*S+S (those
+    # outside the board place nothing), int32 and int64
+    B = 4096
+    board, seats, gen = _random_labels(S, B, 100 + S, cuda)
+    actions = torch.randint(-S, S * S + S, (B,), generator=gen, dtype=torch.int32).to(cuda)
+    for dtype in (torch.int32, torch.int64):
+        _hex_step_matches(board, seats, actions.to(dtype), reset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [3, 9, 11])
+def test_hex_step_at_every_edge_and_corner(cuda, S):
+    # each border cell, in either seat's frame, on random labels
+    border = [r * S + c for r in range(S) for c in range(S) if r in (0, S - 1) or c in (0, S - 1)]
+    B = 64 * len(border)
+    board, seats, _ = _random_labels(S, B, 200 + S, cuda)
+    actions = torch.tensor(border, dtype=torch.int64, device=cuda).repeat(64)
+    for reset in (True, False):
+        _hex_step_matches(board, seats, actions, reset)
+
+
+def _serpentine(S, seat):
+    """Boards whose plain stones of `seat` snake over every even row (for
+    white, column), joined at alternate ends, less the snake's first or its
+    last cell; and the moves that fill that cell, in the mover's frame."""
+    path = []
+    for r in range(0, S, 2):
+        cols = range(S) if r % 4 == 0 else range(S - 1, -1, -1)
+        path += [(r, c) for c in cols]
+        if r + 1 < S:
+            path.append((r + 1, path[-1][1]))
+    board = torch.zeros((S, S), dtype=torch.uint8)
+    for cell in path:
+        board[cell] = thex.BLACK
+    if seat == 1:  # white's snake is black's, transposed
+        board = torch.where(board == thex.BLACK, thex.WHITE, 0).to(torch.uint8).t().contiguous()
+    boards, actions = [], []
+    for r, c in (path[0], path[-1]):
+        b = board.clone()
+        b[(r, c) if seat == 0 else (c, r)] = thex.EMPTY
+        boards.append(b)
+        actions.append(r * S + c)  # white plays (a % S, a // S)
+    return torch.stack(boards), torch.tensor(actions, dtype=torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seat", [0, 1])
+@pytest.mark.parametrize("S", [5, 6, 9, 11])
+def test_hex_step_floods_serpentine_groups(cuda, S, seat):
+    # the completing stone touches an edge, and the whole snake takes its
+    # label: the flood crosses the board
+    boards, actions = _serpentine(S, seat)
+    seats = torch.full((len(boards),), seat, dtype=torch.int32)
+    stone = thex.BLACK if seat == 0 else thex.WHITE
+    for reset in (True, False):
+        board, _, _, terminal = _hex_step_matches(boards.to(cuda), seats.to(cuda),
+                                                  actions.to(cuda), reset)
+        assert not terminal.any()
+        n_stones = int((boards[0] == stone).sum()) + 1
+        assert ((board >= thex.TOP).flatten(1).sum(1) == n_stones).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 255, 257, 262144])
+def test_hex_step_batch_sizes(cuda, B):
+    # whole tiles, a ragged last tile and a single board; 262,144 is the
+    # 9x9 grow pass's K*B
+    board, seats, gen = _random_labels(9, B, B, cuda)
+    actions = torch.randint(0, 81, (B,), generator=gen).to(cuda)
+    for reset in (True, False):
+        _hex_step_matches(board, seats, actions, reset)
+        _hex_step_matches(board, seats, actions.int(), reset)
+
+
+class _NumpyGumbel(Draws):
+    """Gumbel noise from one numpy generator, on `device`: the card and the
+    CPU draw the same numbers."""
+
+    def __init__(self, seed, device):
+        self.device = torch.device(device)
+        self.rng = np.random.default_rng(seed)
+
+    def gumbel(self, shape):
+        return torch.from_numpy(self.rng.gumbel(size=tuple(shape)).astype(np.float32)).to(
+            self.device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,S", [("Lazy", 5), ("Random", 5), ("Random", 9)])
+def test_solitaire_game_on_the_card_matches_the_cpu(cuda, kind, S):
+    # 20 plies of one-player Hex, the opponent included: Solitaire steps
+    # through Hex.step, so the card's game takes the kernel, two launches a
+    # ply, and the CPU's the twin
+    B = 256
+    cls = getattr(thex, kind)
+    worlds = {d: cls.initial(B, S, device=d) for d in ("cpu", cuda)}
+    draws = {d: _NumpyGumbel(S, d) for d in worlds}
+    rng = np.random.default_rng(S)
+    for _ in range(20):
+        valid = worlds["cpu"].valid.numpy()
+        actions = torch.tensor([rng.choice(np.flatnonzero(v)) for v in valid])
+        n0 = kernels.launches["hex_step"]
+        out = {d: worlds[d].step(actions.to(d), draws=draws[d]) for d in worlds}
+        assert kernels.launches["hex_step"] == n0 + 2
+        (cw, ct), (gw, gt) = out["cpu"], out[cuda]
+        assert type(gw) is cls
+        assert torch.equal(gw.board.cpu(), cw.board) and torch.equal(gw.seats.cpu(), cw.seats)
+        assert torch.equal(gt.terminal.cpu(), ct.terminal)
+        assert torch.equal(gt.rewards.cpu(), ct.rewards)
+        worlds = {"cpu": cw, cuda: gw}
+
+
+@pytest.mark.gpu
+def test_hex_step_refuses_what_it_does_not_take(cuda):
+    board = torch.zeros((4, 12, 12), dtype=torch.uint8, device=cuda)
+    seats = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    actions = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1 to 11"):
+        kernels.hex_step(board, seats, actions)
+    with pytest.raises(ValueError, match="actions must be int32 or int64"):
+        kernels.hex_step(board[:, :9, :9].contiguous(), seats, actions.short())
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kernels.hex_step(board[:, :9, :9].contiguous(), seats, actions.cpu())
+
+
+def _launches_and_flood_syncs(fn):
+    """`hex_step` launches and `sync.hex.flood` waits of one call of `fn`,
+    with the port's tracing on; and the `hex.step` spans it opened."""
+    from boardlaw_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    n0 = kernels.launches["hex_step"]
+    profiling.enable()
+    profiling.reset()
+    try:
+        fn()
+        torch.cuda.synchronize()
+        counts, totals = profiling.counters(), profiling.totals()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    return (kernels.launches["hex_step"] - n0, counts.get(thex.SYNC_FLOOD, 0),
+            totals.get(thex.STEP, (0,))[0], thex.FLOOD in totals)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boardsize,expected", [(9, 9), (6, 64)])
+def test_hex_step_launches_a_train_step(cuda, boardsize, expected):
+    # 9x9: K=8 grow, 8 passes and the actor's step; 6x6: K=1, 63 sims and
+    # the actor's step. The flood's host waits are gone.
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.draws import Draws as TorchDraws
+
+    if boardsize == 9:
+        cfg = train.make_config(9, 32, 1, n_envs=64, buffer_len=3, mix_steps=5)
+    else:
+        cfg = train.best_config(6, n_envs=64, buffer_len=3, mix_steps=5)
+    _, _, init, warmup, step = train.make_train(cfg, device=cuda)
+    d = TorchDraws(0, cuda)
+    state = warmup(init(d), d)
+    launched, waits, spans, flooded = _launches_and_flood_syncs(lambda: step(state, d))
+    assert (launched, waits, spans, flooded) == (expected, 0, expected, False)
+
+
+@pytest.mark.gpu
+def test_hex_step_launches_a_league_ply(cuda):
+    # a ply: one K=8 grow search at 64 nodes (8 passes) and the world's step
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.arena import neural
+    from boardlaw_tpu_torch.mcts.search import MCTSAgent
+    from boardlaw_tpu_torch.models.networks import make_eval_fn
+
+    cfg = train.make_config(9, 32, 1)
+    agents = {name: MCTSAgent(make_eval_fn(train.build_model(cfg, device=cuda)), n_nodes=64,
+                              c_puct=1 / 16, leaves_per_pass=8, grow_passes=True)
+              for name in ("a", "b")}
+    ev = neural.ChunkEvaluator(9, 32, agents, neural.all_matchups(list(agents)), 10 ** 9,
+                               seed=0, device=cuda)
+    ev.step()
+    launched, waits, spans, flooded = _launches_and_flood_syncs(ev.step)
+    assert (launched, waits, spans, flooded) == (9, 0, 9, False)

@@ -3,13 +3,14 @@
     python benchmark/control.py --workload <name> --seeds 1 2 3 [--seconds 5]
 
 For each seed, in one process: the program's outputs against the plain
-reference (the lower reading), the control (the reference computed with
-TF32 on, in the program's place; bfloat16 on a CPU) against the same
-reference (the upper reading), and for a training cell the faults the
-reference can carry: the root policy altered where it is produced
-("answer") and the loss over half the batch ("half"). A state left
-unchanged reads 1 on `grad` and `change` and needs no run. One JSON line
-a seed. The benchmark's own runs do not run this.
+reference at the configuration's precision, the yardstick a run uses (the
+lower reading); the control, the reference one precision lower in the
+program's place (`control_precision`), against the same reference (the
+upper reading); and the faults the reference can carry, at the
+configuration's precision: the root policy altered where it is produced
+("answer") and, for a training cell, the loss over half the batch
+("half"). A state left unchanged reads 1 on `grad` and `change` and needs
+no run. One JSON line a seed. The benchmark's own runs do not run this.
 """
 import argparse
 import json
@@ -20,7 +21,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def control_precision(device):
+def control_precision(device, cfg):
+    """The precision next below the configuration's: float8 for bfloat16;
+    for float32 TF32 on a card, where it exists, and bfloat16 on a CPU."""
+    from benchmark.kinds.selfplay import precision
+
+    if precision(cfg) == "bfloat16":
+        return "float8"
     return "tf32" if device.type == "cuda" else "bfloat16"
 
 
@@ -33,12 +40,13 @@ def selfplay(cell, seed, device):
     del state
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref = sp.reference_outputs(cell, seed, device, rec)
+    prec = sp.precision(cell.config)
+    ref = sp.reference_outputs(cell, seed, device, rec, prec)
     out = {"program": sp.compare(sp.program_outputs(cell, seed, rec), ref)}
-    out["control"] = sp.compare(
-        sp.reference_outputs(cell, seed, device, rec, control_precision(device)), ref)
+    out["control"] = sp.compare(sp.reference_outputs(
+        cell, seed, device, rec, control_precision(device, cell.config)), ref)
     for fault in ("answer", "half"):
-        out[fault] = sp.compare(sp.reference_outputs(cell, seed, device, rec, fault=fault), ref)
+        out[fault] = sp.compare(sp.reference_outputs(cell, seed, device, rec, prec, fault), ref)
     return out
 
 
@@ -52,10 +60,11 @@ def league(cell, seed, device, seconds):
     matchups = ev.tracker.matchups
     del ev
     chosen = plies.kept
-    sound = [lg.reference_ply(cell, seed, device, p, matchups) for p in chosen]
+    prec = lg.precision(cell.config)
+    sound = [lg.reference_ply(cell, seed, device, p, matchups, prec) for p in chosen]
     out = {"program": lg.compare(cell, seed, device, chosen, matchups)}
     out["control"] = lg.compare(cell, seed, device, chosen, matchups,
-                                prec=control_precision(device), against=sound)
+                                prec=control_precision(device, cell.config), against=sound)
     out["answer"] = lg.compare(cell, seed, device, chosen, matchups, fault="answer",
                                against=sound)
     return out

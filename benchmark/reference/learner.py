@@ -35,7 +35,8 @@ def actor(cfg, params, board, seats, draws, prec="float32", fault=None):
     """-> (next board, next seats, record, actions)."""
     logits, prior, v, n_leaves = mcts.search(board, seats, evaluator(params, cfg["depth"], prec),
                                              draws, cfg["n_nodes"], cfg["leaves_per_pass"],
-                                             cfg["c_puct"], cfg["noise_eps"])
+                                             cfg["c_puct"], cfg["noise_eps"],
+                                             cfg.get("tree_dtype", "float32"))
     if fault == "answer":
         logits = logits.roll(1, -1)
     actions = torch.argmax(logits + draws.gumbel(logits.shape), -1)

@@ -12,7 +12,11 @@ counted once per seat. The root carries Dirichlet noise (fixed-round
 Marsaglia-Tsang gammas). The result is the root's solved policy.
 
 The tree is a dict of dense (B,T,...) tensors; counts are held in float32
-and int64, which hold the same integers as any narrower storage.
+and int64, which hold the same integers as any narrower storage. The
+logits are stored in the configuration's `tree_dtype` ("float32" or
+"bfloat16"): every write rounds into it, the -inf proxy included (-9984 in
+bf16), and every solve reads them widened to float32. The prior is the
+stored root row, so in bf16 it keeps -9984 at invalid actions.
 """
 from __future__ import annotations
 
@@ -162,7 +166,7 @@ def _expand(tree, b, parents, actions, leaves, first, evaluate):
     if "prew" in tree:
         rows["prew"] = tree["prew"][b, parents] + rewards
     for k, x in rows.items():
-        tree[k][b, leaves] = x[first]
+        tree[k][b, leaves] = x[first].to(tree[k].dtype)
 
 
 def _backup(tree, paths, acts, leaves):
@@ -224,10 +228,11 @@ def _backup_path(tree, path, acts, leaves):
     tree["w_edge"].index_put_(idx, edge_w, accumulate=True)
 
 
-def search(board, seats, evaluate, draws, n_nodes, K, c_puct, noise_eps=0.25):
+def search(board, seats, evaluate, draws, n_nodes, K, c_puct, noise_eps=0.25,
+           tree_dtype="float32"):
     """The search from every env's root. evaluate(board, seats) -> (logits,
-    v). -> (root log-policy (B,A), prior (B,A), root value (B,2),
-    n_leaves (B,))."""
+    v); `tree_dtype` names the logits' storage type. -> (root log-policy
+    (B,A), prior (B,A), root value (B,2), n_leaves (B,))."""
     B, S, _ = board.shape
     A, T = S * S, tree_size(n_nodes, K)
     dev = board.device
@@ -240,7 +245,7 @@ def search(board, seats, evaluate, draws, n_nodes, K, c_puct, noise_eps=0.25):
         "seats": seats[:, None].expand(B, T).clone(),
         "terminal": torch.zeros((B, T), dtype=torch.bool, device=dev),
         "rewards": torch.zeros((B, T, 2), dtype=f32, device=dev),
-        "logits": torch.zeros((B, T, A), dtype=f32, device=dev),
+        "logits": torch.zeros((B, T, A), dtype=getattr(torch, tree_dtype), device=dev),
         "v": torch.zeros((B, T, 2), dtype=f32, device=dev),
         "n": torch.zeros((B, T), dtype=torch.int64, device=dev),
         "w": torch.zeros((B, T, 2), dtype=f32, device=dev),
@@ -296,7 +301,7 @@ def search(board, seats, evaluate, draws, n_nodes, K, c_puct, noise_eps=0.25):
             _backup(tree, paths.view(K, B, -1), acts, leaves)
     probs = _solve(tree["logits"][:, :1], tree["n_edge"][:, :1], tree["w_edge"][:, :1], c,
                    _bounds(tree), 16, False)[:, 0]
-    prior = tree["logits"][:, 0]
+    prior = tree["logits"][:, 0].float()
     n_leaves = ((tree["children"] == -1).all(-1) & (tree["parents"] != -1)).sum(-1)
     return (torch.log(probs), torch.where(prior <= NEG_INF_PROXY, -torch.inf, prior),
             tree["v"][:, 0], n_leaves)

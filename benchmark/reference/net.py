@@ -5,9 +5,12 @@ other seat). The weights are a dict of tensors under the names the
 program's state dict uses.
 
 `precision` is what the products are computed in: "float32" (TF32 off),
-"tf32" (float32 with TF32 on) or "bfloat16" (inputs, weights and residual
-sums in bf16, the heads widened to float32). The last two are the checks'
-controls.
+"tf32" (float32 with TF32 on), "bfloat16" (inputs, weights and residual
+sums in bf16, the heads widened to float32) or "float8" (as "bfloat16",
+with every weight and every matmul input first rounded through
+float8_e4m3fn; the gradient passes the rounding unchanged). "tf32" is the
+float32 configurations' control on a card, "bfloat16" theirs on a CPU, and
+"float8" the bfloat16 configurations' control.
 """
 from __future__ import annotations
 
@@ -43,23 +46,39 @@ def precision(name):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
-def _dense(x, p, name, dt):
+class _Float8(torch.autograd.Function):
+    """x rounded through float8_e4m3fn and back to its dtype; the gradient
+    passes unchanged."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.float8_e4m3fn).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def _dense(x, p, name, prec):
     w, b = p[name + ".weight"], p[name + ".bias"]
-    if dt == torch.float32:
+    if prec in ("float32", "tf32"):
         return F.linear(x, w, b)
-    return F.linear(x.to(dt), w.to(dt)) + b.to(dt)
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    if prec == "float8":
+        x, w = _Float8.apply(x), _Float8.apply(w)
+    return F.linear(x, w) + b.to(torch.bfloat16)
 
 
 def forward(p, obs, valid, seats, depth, prec="float32"):
     """-> (logits (B,A) f32 log-probs, -inf at invalid actions; v (B,2) f32)."""
-    dt = torch.bfloat16 if prec == "bfloat16" else torch.float32
+    dt = torch.float32 if prec in ("float32", "tf32") else torch.bfloat16
     with precision(prec):
-        x = _dense(obs.reshape(obs.shape[0], -1), p, "intake.dense", dt)
+        x = _dense(obs.reshape(obs.shape[0], -1), p, "intake.dense", prec)
         for i in range(depth):
-            block = _dense(torch.relu(x), p, f"blocks.{i}.dense", dt)
+            block = _dense(torch.relu(x), p, f"blocks.{i}.dense", prec)
             x = x + p[f"blocks.{i}.alpha"].to(dt) * block
-        y = _dense(x, p, "policy.dense", dt).float()
-        v = torch.tanh(_dense(x, p, "value.dense", dt).float()[:, 0])
+        y = _dense(x, p, "policy.dense", prec).float()
+        v = torch.tanh(_dense(x, p, "value.dense", prec).float()[:, 0])
     ninf = torch.tensor(-torch.inf, device=y.device)
     y = torch.where(valid, y, ninf)
     z = torch.where(valid, y - y.max(-1, keepdim=True).values, ninf)

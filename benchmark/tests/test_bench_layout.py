@@ -50,8 +50,10 @@ def test_every_cell_resolves_to_its_files(name):
     assert cell.per_layer and all(callable(cell.reader(m["name"])) for m in cell.per_layer)
     e2e = [m["name"] for m in cell.end_to_end]
     assert "setup_s" in e2e and len(e2e) >= 2
-    # the configuration is the one the port's entry point trains with
-    assert program_config(cell.config) == train.best_config(cell.config["boardsize"])
+    # the configuration is the one the port's entry point trains with, in
+    # the precision it states
+    precision = {k: cell.config[k] for k in ("dtype", "tree_dtype")}
+    assert program_config(cell.config) == train.best_config(cell.config["boardsize"], **precision)
 
 
 def _imports(path):

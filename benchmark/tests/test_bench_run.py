@@ -1,7 +1,9 @@
 """Runs of every cell at a small size on the CPU, with the port's plain
 twins under its kernel wrappers: correct against the reference, the
-control (the reference in bfloat16 in the program's place; TF32 on a card)
-not correct, and a run with the timed path broken underneath not correct.
+control (the reference one precision below the configuration's in the
+program's place: bfloat16 for float32 on a CPU, TF32 on a card, float8 for
+bfloat16) not correct, and a run with the timed path broken underneath not
+correct.
 A run without a card exits non-zero and prints no result."""
 import json
 import subprocess
@@ -143,10 +145,14 @@ def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", WORKLOADS)
 def test_tf32_control_fails_on_the_card(name, card):
-    """The cell's widths and nodes, on fewer envs and a short mix."""
+    """The cell's control on the card (TF32; float8 for a bfloat16
+    configuration), at its widths, nodes and buffer on fewer envs and a
+    short mix. The buffer stays the cell's: its length sets the share of
+    the newest step in the learner's batch, and so how far a search that
+    the two sides' rounding split apart moves the weights' change."""
     cell = spec.cell(name)
     if cell.traffic["kind"] == "selfplay":
-        cell.config.update(n_envs=2048, buffer_len=4, mix_steps=20)
+        cell.config.update(n_envs=2048, mix_steps=20)
         cell.traffic.update(mix_sample=8)
         out = control.selfplay(cell, SEED, card)
     else:

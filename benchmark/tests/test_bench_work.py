@@ -38,14 +38,21 @@ def test_weights_are_the_ports_parameters_less_rezero(boardsize):
     assert work.weights(cfg) == sum(p.numel() for p in model.parameters()) - tcfg.depth
 
 
-def test_last_grow_pass_bytes_are_chip_smokes():
+@pytest.mark.parametrize("cell", ["hex9_512x4.selfplay", "hex9_512x4_bf16.selfplay"])
+def test_last_grow_pass_bytes_are_chip_smokes(cell):
     cs = _chip_smoke()
+    cfg = spec.cell(cell).config
     K, B, R, A = 8, 32768, 65, 81
-    tree = SimpleNamespace(logits=torch.zeros(1), n_edge=torch.zeros(1, dtype=torch.bfloat16),
+    tree = SimpleNamespace(logits=torch.zeros(1, dtype=getattr(torch, cfg["tree_dtype"])),
+                           n_edge=torch.zeros(1, dtype=torch.bfloat16),
                            children=torch.zeros((1, A), dtype=torch.int8))
     theirs = (B * R * (A * cs.row_bytes(tree) + cs.child_bytes(tree, K)) + B * K * R * 4 + B * 4
               + 8 + 2 * B * K * R * 4)
-    assert work.node_actions_bytes(B, R, A, K, T=65) == theirs
+    one = {"leaves_per_pass": K, "n_nodes": R, "boardsize": 9, "tree_dtype": cfg["tree_dtype"]}
+    last = work.search_bytes(one, B) - work.search_bytes(dict(one, n_nodes=R - K), B)
+    assert last == theirs
+    assert work.node_actions_bytes(B, R, A, K, T=65,
+                                   logit_bytes=tree.logits.element_size()) == theirs
     assert cs.HBM_BYTES_PER_S == work.HBM_BYTES_PER_S and cs.F32_FLOPS == work.PEAK_FLOPS["float32"]
 
 

@@ -16,8 +16,8 @@ import torch
 TRACES = Path(__file__).resolve().parent / "_traces"
 WINDOW = "bench.window"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# cuBLAS's kernels, by name
-GEMM = ("gemm", "gemv", "xmma", "nvjet")
+# cuBLAS's kernels, by name, with cuBLASLt's split-K reductions
+GEMM = ("gemm", "gemv", "xmma", "nvjet", "splitkreduce")
 
 
 @contextmanager

@@ -64,10 +64,12 @@ def search_calls(cfg):
 
 
 def search_bytes(cfg, B):
-    """Bytes of every solve-and-draw call of one search over B envs."""
+    """Bytes of every solve-and-draw call of one search over B envs, the
+    logits in the tree's storage type (`tree_dtype`)."""
     A = cfg["boardsize"] ** 2
     T = tree_size(cfg["n_nodes"], cfg["leaves_per_pass"])
-    return sum(node_actions_bytes(B, R, A, K, T) for R, K in search_calls(cfg))
+    logit = 2 if cfg.get("tree_dtype") == "bfloat16" else 4
+    return sum(node_actions_bytes(B, R, A, K, T, logit) for R, K in search_calls(cfg))
 
 
 def evaluations(cfg):

@@ -2,7 +2,8 @@
 
     python benchmark/control.py --workload <name> --seeds 1 2 3 [--seconds 5]
 
-For each seed, in one process: the program's outputs against the plain
+For each seed, in one process, the readings of the cell's loop
+(`kinds/<kind>.py`'s `control`): the program's outputs against the plain
 reference at the configuration's precision, the yardstick a run uses (the
 lower reading); the control, the reference one precision lower in the
 program's place (`control_precision`), against the same reference (the
@@ -10,7 +11,8 @@ upper reading); and the faults the reference can carry, at the
 configuration's precision: the root policy altered where it is produced
 ("answer") and, for a training cell, the loss over half the batch
 ("half"). A state left unchanged reads 1 on `grad` and `change` and needs
-no run. One JSON line a seed. The benchmark's own runs do not run this.
+no run. A league plays `--seconds` before its plies are read. One JSON
+line a seed. The benchmark's own runs do not run this.
 """
 import argparse
 import json
@@ -31,45 +33,6 @@ def control_precision(device, cfg):
     return "tf32" if device.type == "cuda" else "bfloat16"
 
 
-def selfplay(cell, seed, device):
-    import torch
-
-    from benchmark.kinds import selfplay as sp
-
-    state, _, _, rec = sp.set_up(cell, seed, device)
-    del state
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    prec = sp.precision(cell.config)
-    ref = sp.reference_outputs(cell, seed, device, rec, prec)
-    out = {"program": sp.compare(sp.program_outputs(cell, seed, rec), ref)}
-    out["control"] = sp.compare(sp.reference_outputs(
-        cell, seed, device, rec, control_precision(device, cell.config)), ref)
-    for fault in ("answer", "half"):
-        out[fault] = sp.compare(sp.reference_outputs(cell, seed, device, rec, prec, fault), ref)
-    return out
-
-
-def league(cell, seed, device, seconds):
-    from benchmark.kinds import league as lg
-
-    ev, plies = lg.set_up(cell, seed, device)
-    start = time.perf_counter()
-    while time.perf_counter() - start < seconds:
-        lg.play_ply(ev, plies)
-    matchups = ev.tracker.matchups
-    del ev
-    chosen = plies.kept
-    prec = lg.precision(cell.config)
-    sound = [lg.reference_ply(cell, seed, device, p, matchups, prec) for p in chosen]
-    out = {"program": lg.compare(cell, seed, device, chosen, matchups)}
-    out["control"] = lg.compare(cell, seed, device, chosen, matchups,
-                                prec=control_precision(device, cell.config), against=sound)
-    out["answer"] = lg.compare(cell, seed, device, chosen, matchups, fault="answer",
-                               against=sound)
-    return out
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", required=True)
@@ -85,10 +48,7 @@ def main(argv=None):
     device = torch.device("cuda")
     for seed in args.seeds:
         start = time.perf_counter()
-        if cell.traffic["kind"] == "selfplay":
-            out = selfplay(cell, seed, device)
-        else:
-            out = league(cell, seed, device, args.seconds)
+        out = cell.kind().control(cell, seed, device, args.seconds)
         out.update(workload=args.workload, seed=seed, seconds=time.perf_counter() - start)
         print(json.dumps(out), flush=True)
 

@@ -16,6 +16,7 @@ finished games from the program's actions.
 from __future__ import annotations
 
 import random
+import statistics
 import time
 from collections import Counter
 
@@ -25,7 +26,7 @@ import torch
 from .. import check, weights
 from ..draws import KeyedDraws
 from ..reference import hex as ref_hex, learner, mcts
-from .selfplay import note, peak, precision, program_config
+from .selfplay import answer_altered, note, peak, precision, program_config
 
 
 def _names(traffic):
@@ -175,7 +176,7 @@ def reference_ply(cell, seed, device, ply, matchups, prec="float32", fault=None)
     params = weights.make(cfg, seed + _names(cell.traffic).index(name), device)
     draws = KeyedDraws(seed, device, ply["n"])
     logits, _, _, _ = mcts.search(ply["board"], ply["seats"],
-                                  learner.evaluator(params, cfg["depth"], prec), draws,
+                                  learner.evaluator(params, cfg, prec), draws,
                                   search["n_nodes"], search.get("leaves_per_pass", 1),
                                   search["c_puct"], search["noise_eps"])
     if fault == "answer":
@@ -205,7 +206,14 @@ def compare(cell, seed, device, plies, matchups, prec=None, fault=None, against=
     """The numbers `correct` is decided on, over the chosen plies: root
     policies, actions and the env. With `against`, the reference at
     `prec`/`fault` stands in for the program and is held to `against`'s
-    (the sound reference's) root policies and actions."""
+    (the sound reference's) root policies and actions.
+
+    `policy` and `actions` are the worst ply's gaps; `policy_median` and
+    `actions_median` the median ply's, which a cell's limits take where one
+    sound ply in a few can part whole: the search's q-bounds are the
+    min and max over every env's tree, so where a rounding split in the one
+    env that holds a bound moves it, every env's search moves with it, on
+    both sides alike, and that ply reads as far apart as the control."""
     prec = prec or precision(cell.config)
     policy, actions, env = [], [], 0.0
     for j, ply in enumerate(plies):
@@ -218,4 +226,62 @@ def compare(cell, seed, device, plies, matchups, prec=None, fault=None, against=
                              / m.float().sum().clamp_min(1)))
         if against is None:
             env += env_mismatch(ply, ref["mask"], matchups)
-    return {"policy": max(policy), "actions": max(actions), "env": env}
+    return {"policy": max(policy), "actions": max(actions), "env": env,
+            "policy_median": statistics.median(policy), "actions_median": statistics.median(actions)}
+
+
+def control(cell, seed, device, seconds):
+    """The readings limits are set from (`control.py`): the program's plies
+    of a `seconds` window against the reference at the configuration's
+    precision, and the control (the reference one precision lower) and the
+    "answer" fault against the sound reference."""
+    from ..control import control_precision
+
+    ev, plies = set_up(cell, seed, device)
+    start = time.perf_counter()
+    while time.perf_counter() - start < seconds:
+        play_ply(ev, plies)
+    matchups = ev.tracker.matchups
+    del ev
+    chosen = plies.kept
+    prec = precision(cell.config)
+    sound = [reference_ply(cell, seed, device, p, matchups, prec) for p in chosen]
+    out = {"program": compare(cell, seed, device, chosen, matchups)}
+    out["control"] = compare(cell, seed, device, chosen, matchups,
+                             prec=control_precision(device, cell.config), against=sound)
+    out["answer"] = compare(cell, seed, device, chosen, matchups, fault="answer", against=sound)
+    return out
+
+
+def tiny(cell):
+    """The loop at a size a CPU test holds: 16 envs, a few plies, the
+    search's K as the configuration's and a wide search (over 127 nodes)
+    kept wide, at 129 nodes, so that the tree keeps its storage types."""
+    search = dict(cell.traffic["search"], leaves_per_pass=cell.config["leaves_per_pass"])
+    if "n_nodes" in search:
+        search["n_nodes"] = min(search["n_nodes"], 129)
+    cell.traffic.update(n_envs=16, check_plies=3, timed_plies=2, profiled_plies=3, search=search)
+
+
+def fewer_envs(cell):
+    """The cell at its widths and search on fewer envs and plies, for the
+    control's test on the card."""
+    cell.traffic.update(n_envs=256, check_plies=3)
+
+
+def half_the_envs(monkeypatch):
+    """A fault planted in the program: the tracker hands the acting agent
+    half of its envs."""
+    from boardlaw_tpu_torch.arena import neural
+
+    suggest = neural.Tracker.suggest
+
+    def half(self, seats):
+        name, mask = suggest(self, seats)
+        mask[len(mask) // 2:] = False
+        return name, mask
+
+    monkeypatch.setattr(neural.Tracker, "suggest", half)
+
+
+FAULTS = {f.__name__: f for f in (answer_altered, half_the_envs)}

@@ -6,7 +6,8 @@ does.
 The first `check_steps` steps run in set-up through the same call, and
 what they produce is what the reference is held to: the first step's loss
 terms, root policies and Hex step, the first gradient (read from Adam's
-first moment after one step) and the weights' change after the last. The
+first moment after one step), the weights' change after the last and,
+for a network with buffers, the buffers after the last. The
 reference follows those steps from the program's state at the first of
 them (its worlds and buffer), so the start and the stage before it are
 checked by themselves: the mix replayed on a sample of envs, and one
@@ -24,7 +25,7 @@ import torch
 
 from .. import check, weights, work
 from ..draws import KeyedDraws
-from ..reference import hex as ref_hex, learner
+from ..reference import hex as ref_hex, learner, nets
 
 BUFFER = ("logits", "prior", "v", "n_leaves", "terminal", "rewards")
 BETA1 = 0.9
@@ -120,6 +121,7 @@ def set_up(cell, seed, device):
             rec["grad"] = {n: _host(moments.get(p, {}).get("exp_avg", torch.zeros_like(p)))
                            / (1 - BETA1) for n, p in state.model.named_parameters()}
     rec["change"] = {n: _host(p - w0[n]) for n, p in state.model.named_parameters()}
+    rec["buffers"] = {n: _host(b) for n, b in state.model.named_buffers()}
     _sync(device)
     note("set-up: the state to the host and the checked steps", clock)
     return state, draws, step, rec
@@ -136,7 +138,7 @@ def program_outputs(cell, seed, rec):
     else:
         nxt = snap["board"], snap["seats"]
     return {"steps": rec["steps"], "grad": rec["grad"], "change": rec["change"],
-            "warm": _entry(*nxt, buf, t),
+            "buffers": rec["buffers"], "warm": _entry(*nxt, buf, t),
             "mix": {"board": buf["board"][0][sample], "seats": buf["seats"][0][sample]}}
 
 
@@ -183,10 +185,12 @@ def reference_outputs(cell, seed, device, rec, prec="float32", fault=None):
     clock = note("reference: a warmup step", clock)
 
     # the checked steps, from the program's state before them
+    layout = nets.module(cfg).layout(cfg)
+    trained = nets.trainable(layout)
     st = {"board": snap["board"].to(device), "seats": snap["seats"].to(device), "buffer": buf,
           "ptr": snap["ptr"], "params": dict(w0), "t": 0,
-          "m": {k: torch.zeros_like(x) for k, x in w0.items()},
-          "v": {k: torch.zeros_like(x) for k, x in w0.items()}}
+          "m": {k: torch.zeros_like(w0[k]) for k in trained},
+          "v": {k: torch.zeros_like(w0[k]) for k in trained}}
     draws = KeyedDraws(seed, device, rec["c_step"])
     out["steps"] = []
     for i in range(len(rec["steps"])):
@@ -196,7 +200,8 @@ def reference_outputs(cell, seed, device, rec, prec="float32", fault=None):
         out["steps"].append(entry)
         if i == 0:
             out["grad"] = {k: g.cpu() for k, g in o["grad"].items()}
-    out["change"] = {k: (st["params"][k] - w0[k]).cpu() for k in w0}
+    out["change"] = {k: (st["params"][k] - w0[k]).cpu() for k in trained}
+    out["buffers"] = {k: st["params"][k].cpu() for k in nets.buffers(layout)}
     note("reference: the checked steps", clock)
     return out
 
@@ -207,10 +212,11 @@ def compare(prog, ref):
     draw that flips there spreads to thousands of envs; so the root
     policies, the Hex steps and the loss terms are held at the warmup step
     and the first checked step, and the later steps reach the comparison
-    through the weights' change."""
+    through the weights' change. A network with buffers adds `buffers`,
+    their worst leaf after the checked steps."""
     acts = [(prog["warm"], ref["warm"]), (prog["steps"][0], ref["steps"][0])]
     world = ("board", "seats", "terminal", "rewards")
-    return {
+    out = {
         "loss": max(check.rel_gap(a, b) for a, b in zip(prog["steps"][0]["loss"],
                                                          ref["steps"][0]["loss"])),
         "grad": check.leaf_gap(prog["grad"], ref["grad"]),
@@ -221,6 +227,9 @@ def compare(prog, ref):
                                             (prog["mix"]["seats"], ref["mix"]["seats"]))
                       * len(ref["mix"]["seats"]))),
     }
+    if ref["buffers"]:
+        out["buffers"] = check.leaf_gap(prog["buffers"], ref["buffers"])
+    return out
 
 
 def run(cell, seed, seconds, trace_path, device, t0):
@@ -300,3 +309,99 @@ def traced(cell, state, draws, step, path, device):
            "actor_s": actor_s, "trace": got["trace"], "work": work, "n_envs": cell.config["n_envs"],
            "precision": precision(cell.config)}
     return state, ctx
+
+
+def control(cell, seed, device, seconds=None):
+    """The readings limits are set from (`control.py`): the program against
+    the reference at the configuration's precision, the control (the
+    reference one precision lower) and the reference's faults ("answer",
+    "half") against the same."""
+    from ..control import control_precision
+
+    state, _, _, rec = set_up(cell, seed, device)
+    del state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    prec = precision(cell.config)
+    ref = reference_outputs(cell, seed, device, rec, prec)
+    out = {"program": compare(program_outputs(cell, seed, rec), ref)}
+    out["control"] = compare(reference_outputs(
+        cell, seed, device, rec, control_precision(device, cell.config)), ref)
+    for fault in ("answer", "half"):
+        out[fault] = compare(reference_outputs(cell, seed, device, rec, prec, fault), ref)
+    return out
+
+
+def tiny(cell):
+    """The loop at a size a CPU test holds: a few envs, a short buffer and
+    mix, a few steps."""
+    cell.config.update(n_envs=32, buffer_len=4, mix_steps=20)
+    cell.traffic.update(mix_sample=8, timed_steps=2, profiled_steps=1)
+
+
+def fewer_envs(cell):
+    """The cell at its widths, nodes and buffer on fewer envs and a short
+    mix, for the control's test on the card. The buffer stays the cell's:
+    its length sets the share of the newest step in the learner's batch,
+    and so how far a search that the two sides' rounding split apart moves
+    the weights' change."""
+    cell.config.update(n_envs=2048, mix_steps=20)
+    cell.traffic.update(mix_sample=8)
+
+
+# Faults planted in the program, under its kernels' wrappers, for the test
+# that a run with its timed path broken is not correct; each takes pytest's
+# `monkeypatch`.
+
+class _Still(torch.optim.Adam):
+    """An optimizer whose step leaves the weights and its state as they are."""
+
+    def step(self, closure=None):
+        return None
+
+
+def unchanged(monkeypatch):
+    from boardlaw_tpu_torch import train
+
+    monkeypatch.setattr(train, "make_optimizer", lambda cfg, params: _Still(params, lr=cfg.lr))
+
+
+def half_batch(monkeypatch):
+    from dataclasses import replace
+
+    from boardlaw_tpu_torch import train
+
+    losses = train.losses
+
+    def half(model, batch):
+        n = batch["logits"].shape[0] // 2
+        cut = {k: v[:n] for k, v in batch.items() if k != "worlds"}
+        cut["worlds"] = replace(batch["worlds"], board=batch["worlds"].board[:n],
+                                seats=batch["worlds"].seats[:n])
+        return losses(model, cut)
+
+    monkeypatch.setattr(train, "losses", half)
+
+
+def answer_altered(monkeypatch):
+    from boardlaw_tpu_torch import train
+    from boardlaw_tpu_torch.mcts import search
+
+    root = search.root
+
+    def rolled(tree):
+        r = root(tree)
+        return dict(r, logits=r["logits"].roll(1, -1))
+
+    monkeypatch.setattr(train, "mcts_root", rolled)
+    monkeypatch.setattr(search, "root", rolled)
+
+
+def mix_cut_short(monkeypatch):
+    from boardlaw_tpu_torch import learning
+
+    mix = learning.mix
+    monkeypatch.setattr(learning, "mix", lambda world, draws, T=2500: mix(world, draws, T - 1))
+
+
+FAULTS = {f.__name__: f for f in (unchanged, half_batch, answer_altered, mix_cut_short)}

@@ -1,6 +1,6 @@
 """The whole train step's share of the card's peak in the configuration's
-precision: the model FLOPs a step needs (`work.train_step_flops`: 2 a
-weight for each evaluation of the search, 6 a weight for each learner
+precision: the model FLOPs a step needs (`work.train_step_flops`: 2 FLOPs
+a multiply-add for each evaluation of the search, 6 for each learner
 sample) over the step's time on the host clock, untraced."""
 from benchmark import work
 

@@ -6,8 +6,11 @@ cross-entropy against the stored root policy plus the value MSE, and one
 Adam step (lr, betas 0.9/0.999, eps 1e-8).
 
 State is a dict: board, seats (the worlds), buffer (dict of (T,B,...)
-tensors), ptr (next slot), params (dict of leaves), m, v (Adam moments),
-t (Adam steps).
+tensors), ptr (next slot), params (dict of the network's leaves, its
+buffers too), m, v (Adam moments of the trainable leaves), t (Adam steps).
+The network is the configuration's (`nets.module`): the searches run its
+forward, the loss its train-mode forward, which moves its buffers; Adam
+steps the trainable leaves alone.
 
 `fault` plants one fault for the control readings: "answer" rolls the
 root policy by one action where the actor produces it (and the mix's
@@ -18,14 +21,16 @@ from __future__ import annotations
 
 import torch
 
-from . import hex, mcts, net
+from . import hex, mcts, nets
 
 BETAS, EPS = (0.9, 0.999), 1e-8
 
 
-def evaluator(params, depth, prec):
+def evaluator(params, cfg, prec):
+    net = nets.module(cfg)
+
     def evaluate(board, seats):
-        return net.forward(params, hex.observe(board, seats), hex.valid(board, seats), seats, depth,
+        return net.forward(params, hex.observe(board, seats), hex.valid(board, seats), seats, cfg,
                            prec)
     return evaluate
 
@@ -33,7 +38,7 @@ def evaluator(params, depth, prec):
 @torch.no_grad()
 def actor(cfg, params, board, seats, draws, prec="float32", fault=None):
     """-> (next board, next seats, record, actions)."""
-    logits, prior, v, n_leaves = mcts.search(board, seats, evaluator(params, cfg["depth"], prec),
+    logits, prior, v, n_leaves = mcts.search(board, seats, evaluator(params, cfg, prec),
                                              draws, cfg["n_nodes"], cfg["leaves_per_pass"],
                                              cfg["c_puct"], cfg["noise_eps"],
                                              cfg.get("tree_dtype", "float32"))
@@ -59,8 +64,8 @@ def reward_to_go(reward, value, terminal):
 
 def losses(cfg, params, batch, prec):
     obs = hex.observe(batch["board"], batch["seats"])
-    logits, v = net.forward(params, obs, hex.valid(batch["board"], batch["seats"]), batch["seats"],
-                            cfg["depth"], prec)
+    logits, v = nets.module(cfg).forward(params, obs, hex.valid(batch["board"], batch["seats"]),
+                                         batch["seats"], cfg, prec, train=True)
     zeros = torch.zeros_like(logits)
     l = torch.where(logits > -torch.inf, logits, zeros)
     targets = batch["logits"].float()
@@ -73,7 +78,7 @@ def losses(cfg, params, batch, prec):
 def train_step(cfg, st, draws, prec="float32", fault=None):
     """One step, in place on `st`. -> dict of the step's outputs: next
     board/seats, the record, the loss terms (total, policy, value) and the
-    gradient."""
+    gradient of the trainable leaves."""
     buf, T = st["buffer"], cfg["buffer_len"]
     nb, ns, record, _ = actor(cfg, st["params"], st["board"], st["seats"], draws, prec, fault)
     for k, x in record.items():
@@ -92,11 +97,15 @@ def train_step(cfg, st, draws, prec="float32", fault=None):
     if fault == "half":
         batch = {k: x[:B // 2] for k, x in batch.items()}
 
-    params = {k: p.detach().requires_grad_(True) for k, p in st["params"].items()}
-    with net.precision(prec):
-        policy, value = losses(cfg, params, batch, prec)
+    trained = nets.trainable(nets.module(cfg).layout(cfg))
+    params = {k: st["params"][k].detach().requires_grad_(True) for k in trained}
+    leaves = dict(st["params"], **params)
+    with nets.precision(prec):
+        policy, value = losses(cfg, leaves, batch, prec)
         total = policy + value
         grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+    # the buffers as the train-mode forward left them
+    st["params"].update((k, x) for k, x in leaves.items() if k not in params)
 
     st["t"] += 1
     t = st["t"]

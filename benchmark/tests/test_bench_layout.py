@@ -4,6 +4,7 @@ package."""
 import ast
 import json
 import re
+from dataclasses import MISSING, fields
 from pathlib import Path
 
 import pytest
@@ -39,9 +40,43 @@ def test_benchmark_json_has_the_contracts_shape():
     assert len(json.dumps(b)) < 64 * 1024
 
 
+# keys of a configuration file that document it; every other key is a field
+# of the port's TrainConfig
+DOC_KEYS = {"source", "as_run_by", "precision", "assumed", "reduced"}
+# the search's and the replay's routes: a configuration runs the ones the
+# port's entry point picks
+ROUTES = ("buffer_dtype", "solve_iters", "solve_accel", "backup_mode", "warm_solve", "sample_cum",
+          "solve_kernel", "sample_kernel")
+CONFIGS = {c["name"]: c["file"] for c in spec.benchmark()["configs"]}
+
+
+def unread(cfg):
+    """Keys of a configuration that neither the port reads nor document it."""
+    from boardlaw_tpu_torch import train
+
+    return set(cfg) - {f.name for f in fields(train.TrainConfig)} - DOC_KEYS
+
+
+def entry_config(cfg):
+    """What the port's entry point trains for the configuration: a row of
+    the paper's table (`best_config`) for a network of that table at a
+    row's sizes, else `make_config` with the configuration's own sizes,
+    search and precision, on the entry point's routes."""
+    from boardlaw_tpu_torch import train
+
+    sizes = [f.name for f in fields(train.TrainConfig) if f.default is MISSING]
+    precision = {k: cfg[k] for k in ("dtype", "tree_dtype")}
+    if cfg.get("net", "fc") == "fc" and cfg["boardsize"] in train.BEST:
+        best = train.best_config(cfg["boardsize"], **precision)
+        if all(getattr(best, k) == cfg[k] for k in sizes):
+            return best
+    own = {k: v for k, v in cfg.items()
+           if k not in DOC_KEYS and k not in ROUTES and k not in sizes and k != "n_nodes"}
+    return train.make_config(*(cfg[k] for k in sizes), nodes=cfg["n_nodes"], **own)
+
+
 @pytest.mark.parametrize("name", WORKLOADS)
 def test_every_cell_resolves_to_its_files(name):
-    from boardlaw_tpu_torch import train
     from benchmark.kinds.selfplay import program_config
 
     cell = spec.cell(name)
@@ -52,8 +87,15 @@ def test_every_cell_resolves_to_its_files(name):
     assert "setup_s" in e2e and len(e2e) >= 2
     # the configuration is the one the port's entry point trains with, in
     # the precision it states
-    precision = {k: cell.config[k] for k in ("dtype", "tree_dtype")}
-    assert program_config(cell.config) == train.best_config(cell.config["boardsize"], **precision)
+    assert program_config(cell.config) == entry_config(cell.config)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_every_key_of_a_configuration_is_the_ports_or_documents_it(name):
+    cfg = json.loads((spec.ROOT / CONFIGS[name]).read_text())
+    assert not unread(cfg)
+    # a key the port lacks, which `program_config` would drop, fails
+    assert unread(dict(cfg, no_such_field=1)) == {"no_such_field"}
 
 
 def _imports(path):

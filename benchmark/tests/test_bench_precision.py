@@ -6,7 +6,8 @@ import torch
 
 from benchmark import check, control, spec, trace, work
 from benchmark.draws import KeyedDraws
-from benchmark.reference import hex as ref_hex, learner, mcts, net
+from benchmark.reference import hex as ref_hex, learner, mcts, nets
+from benchmark.reference.nets import fc
 from benchmark.tests.conftest import tiny
 from benchmark.weights import make
 
@@ -28,11 +29,11 @@ def _worlds(B, S, plies, seed):
 
 
 def _search(K, tree_dtype=None, prec="float32"):
-    cfg = dict(spec.cell("hex9_512x4.selfplay").config, width=16, boardsize=5)
+    cfg = fc.tiny(dict(spec.cell("hex9_512x4.selfplay").config, boardsize=5))
     params = make(cfg, SEED, "cpu")
     board, seats = _worlds(16, 5, 6, 1)
     extra = () if tree_dtype is None else (tree_dtype,)
-    return mcts.search(board, seats, learner.evaluator(params, cfg["depth"], prec),
+    return mcts.search(board, seats, learner.evaluator(params, cfg, prec),
                        KeyedDraws(SEED, "cpu"), 9, K, cfg["c_puct"], cfg["noise_eps"], *extra)
 
 
@@ -93,18 +94,18 @@ def test_float8_rounds_every_matmul_input_and_passes_the_gradient():
     cfg = {"boardsize": 3, "width": 16, "depth": 2}
     params = {k: v.requires_grad_(True) for k, v in make(cfg, SEED, "cpu").items()}
     board, seats = _worlds(8, 3, 2, 2)
-    args = (ref_hex.observe(board, seats), ref_hex.valid(board, seats), seats, cfg["depth"])
-    l8, v8 = net.forward(params, *args, prec="float8")
-    l16, v16 = net.forward(params, *args, prec="bfloat16")
+    args = (ref_hex.observe(board, seats), ref_hex.valid(board, seats), seats, cfg)
+    l8, v8 = fc.forward(params, *args, prec="float8")
+    l16, v16 = fc.forward(params, *args, prec="bfloat16")
     assert not torch.equal(l8, l16) and not torch.equal(v8, v16)
     # rounding a bf16 weight through float8 by hand gives the same forward
     rounded = {k: (v.detach().to(torch.bfloat16).to(torch.float8_e4m3fn).float()
                    if k.endswith("weight") else v.detach()) for k, v in params.items()}
     x = args[0].reshape(8, -1).to(torch.bfloat16).to(torch.float8_e4m3fn).to(torch.bfloat16)
     first = torch.nn.functional.linear(x, rounded["intake.dense.weight"].to(torch.bfloat16))
-    x8 = net._Float8.apply(args[0].reshape(8, -1).to(torch.bfloat16))
+    x8 = nets.Float8.apply(args[0].reshape(8, -1).to(torch.bfloat16))
     assert torch.equal(x8, x)
-    assert torch.equal(net._dense(args[0].reshape(8, -1), params, "intake.dense", "float8"),
+    assert torch.equal(fc._dense(args[0].reshape(8, -1), params, "intake.dense", "float8"),
                        first + params["intake.dense.bias"].detach().to(torch.bfloat16))
     # the gradient goes through the rounding unchanged: every leaf's norm
     # within the forward's rounding of the bfloat16 gradient's

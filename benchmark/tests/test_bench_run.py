@@ -9,12 +9,11 @@ import json
 import subprocess
 import sys
 import time
-from dataclasses import replace
 
 import pytest
 import torch
 
-from benchmark import check, control, harness, spec
+from benchmark import check, harness, spec
 from benchmark.tests.conftest import WORKLOADS, tiny
 
 SEED = 4_000_000_017  # more than 32 signed bits hold
@@ -53,11 +52,7 @@ def test_cell_runs_correct_on_the_cpu(name, traced):
 @pytest.mark.parametrize("name", WORKLOADS)
 def test_control_fails_and_the_program_passes(name):
     cell = tiny(name)
-    dev = torch.device("cpu")
-    if cell.traffic["kind"] == "selfplay":
-        out = control.selfplay(cell, SEED, dev)
-    else:
-        out = control.league(cell, SEED, dev, 1.0)
+    out = cell.kind().control(cell, SEED, torch.device("cpu"), 1.0)
     limits = check.limits(name)
     assert check.judge(out["program"], limits)[0], out["program"]
     for kind in ("control", "answer", "half"):
@@ -65,80 +60,14 @@ def test_control_fails_and_the_program_passes(name):
             assert not check.judge(out[kind], limits)[0], (kind, out[kind])
 
 
-class _Still(torch.optim.Adam):
-    """An optimizer whose step leaves the weights and its state as they are."""
-
-    def step(self, closure=None):
-        return None
+# every fault each cell's loop can have (`kinds/<kind>.py`'s FAULTS)
+BROKEN = [(name, fault) for name in WORKLOADS for fault in spec.cell(name).kind().FAULTS]
 
 
-def _unchanged(monkeypatch):
-    from boardlaw_tpu_torch import train
-
-    monkeypatch.setattr(train, "make_optimizer", lambda cfg, params: _Still(params, lr=cfg.lr))
-
-
-def _half_batch(monkeypatch):
-    from boardlaw_tpu_torch import train
-
-    losses = train.losses
-
-    def half(model, batch):
-        n = batch["logits"].shape[0] // 2
-        cut = {k: v[:n] for k, v in batch.items() if k != "worlds"}
-        cut["worlds"] = replace(batch["worlds"], board=batch["worlds"].board[:n],
-                                seats=batch["worlds"].seats[:n])
-        return losses(model, cut)
-
-    monkeypatch.setattr(train, "losses", half)
-
-
-def _answer_altered(monkeypatch):
-    from boardlaw_tpu_torch import train
-    from boardlaw_tpu_torch.mcts import search
-
-    root = search.root
-
-    def rolled(tree):
-        r = root(tree)
-        return dict(r, logits=r["logits"].roll(1, -1))
-
-    monkeypatch.setattr(train, "mcts_root", rolled)
-    monkeypatch.setattr(search, "root", rolled)
-
-
-def _mix_cut_short(monkeypatch):
-    from boardlaw_tpu_torch import learning
-
-    mix = learning.mix
-    monkeypatch.setattr(learning, "mix", lambda world, draws, T=2500: mix(world, draws, T - 1))
-
-
-def _half_the_envs(monkeypatch):
-    from boardlaw_tpu_torch.arena import neural
-
-    suggest = neural.Tracker.suggest
-
-    def half(self, seats):
-        name, mask = suggest(self, seats)
-        mask[len(mask) // 2:] = False
-        return name, mask
-
-    monkeypatch.setattr(neural.Tracker, "suggest", half)
-
-
-FAULTS = {"selfplay": [_unchanged, _half_batch, _answer_altered, _mix_cut_short],
-          "league": [_answer_altered, _half_the_envs]}
-
-
-@pytest.mark.parametrize("fault", [f for fs in FAULTS.values() for f in fs],
-                         ids=lambda f: f.__name__.strip("_"))
-@pytest.mark.parametrize("name", WORKLOADS)
+@pytest.mark.parametrize("name, fault", BROKEN, ids=[f"{n}-{f}" for n, f in BROKEN])
 def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
     cell = tiny(name)
-    if fault not in FAULTS[cell.traffic["kind"]]:
-        pytest.skip(f"{name} has no {fault.__name__.strip('_')} fault")
-    fault(monkeypatch)
+    cell.kind().FAULTS[fault](monkeypatch)
     assert not run(name, cell=cell)["correct"]
 
 
@@ -146,18 +75,11 @@ def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
 @pytest.mark.parametrize("name", WORKLOADS)
 def test_tf32_control_fails_on_the_card(name, card):
     """The cell's control on the card (TF32; float8 for a bfloat16
-    configuration), at its widths, nodes and buffer on fewer envs and a
-    short mix. The buffer stays the cell's: its length sets the share of
-    the newest step in the learner's batch, and so how far a search that
-    the two sides' rounding split apart moves the weights' change."""
+    configuration), at its widths and search on fewer envs (its loop's
+    `fewer_envs`)."""
     cell = spec.cell(name)
-    if cell.traffic["kind"] == "selfplay":
-        cell.config.update(n_envs=2048, mix_steps=20)
-        cell.traffic.update(mix_sample=8)
-        out = control.selfplay(cell, SEED, card)
-    else:
-        cell.traffic.update(n_envs=256, check_plies=3)
-        out = control.league(cell, SEED, card, 3.0)
+    cell.kind().fewer_envs(cell)
+    out = cell.kind().control(cell, SEED, card, 3.0)
     limits = check.limits(name)
     assert check.judge(out["program"], limits)[0], out["program"]
     assert not check.judge(out["control"], limits)[0], out["control"]

@@ -22,10 +22,10 @@ def test_weights_of_the_9x9_agent():
     from boardlaw_tpu_torch import train
 
     cfg = spec.cell("hex9_512x4.selfplay").config
-    assert work.weights(cfg) == 1_176_146
+    assert work.macs(cfg) == 1_176_146
     model = train.build_model(train.best_config(9), device="cpu")
     n = sum(p.numel() for p in model.parameters())
-    assert n == 1_176_150 and work.weights(cfg) == n - cfg["depth"]
+    assert n == 1_176_150 and work.macs(cfg) == n - cfg["depth"]
 
 
 @pytest.mark.parametrize("boardsize", [3, 5, 6, 7, 9])
@@ -35,7 +35,7 @@ def test_weights_are_the_ports_parameters_less_rezero(boardsize):
     tcfg = train.best_config(boardsize)
     model = train.build_model(tcfg, device="cpu")
     cfg = {"boardsize": boardsize, "width": tcfg.width, "depth": tcfg.depth}
-    assert work.weights(cfg) == sum(p.numel() for p in model.parameters()) - tcfg.depth
+    assert work.macs(cfg) == sum(p.numel() for p in model.parameters()) - tcfg.depth
 
 
 @pytest.mark.parametrize("cell", ["hex9_512x4.selfplay", "hex9_512x4_bf16.selfplay"])

@@ -10,6 +10,8 @@ byte for K = 1 against the card's 20), so the bound is the bytes'.
 """
 from __future__ import annotations
 
+from .reference import nets
+
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
@@ -36,12 +38,10 @@ def tree_types(T):
     return (1 if T <= 127 else 4), (2 if 2 * T <= 256 else 4)
 
 
-def weights(cfg):
-    """Entries of the network's matrices and biases, without the ReZero
-    scalars: the multiply-adds of one evaluation."""
-    S, W, D = cfg["boardsize"], cfg["width"], cfg["depth"]
-    obs, A = 2 * S * S, S * S
-    return (obs + 1) * W + D * (W + 1) * W + (W + 1) * A + (W + 1)
+def macs(cfg):
+    """The multiply-adds of one evaluation of the configuration's network,
+    as its module (`reference/nets/`) counts them."""
+    return nets.module(cfg).macs(cfg)
 
 
 def node_actions_bytes(B, R, A, K, T, logit_bytes=4):
@@ -80,10 +80,11 @@ def evaluations(cfg):
 
 
 def train_step_flops(cfg):
-    """Model FLOPs of one train step: 2 a weight for each evaluation the
-    search needs, 6 a weight for each learner sample."""
-    return weights(cfg) * cfg["n_envs"] * (2 * evaluations(cfg) + 6)
+    """Model FLOPs of one train step: 2 a multiply-add for each evaluation
+    the search needs, 6 a multiply-add for each learner sample (forward and
+    backward)."""
+    return macs(cfg) * cfg["n_envs"] * (2 * evaluations(cfg) + 6)
 
 
 def search_flops(cfg, B):
-    return 2 * weights(cfg) * B * evaluations(cfg)
+    return 2 * macs(cfg) * B * evaluations(cfg)

@@ -19,7 +19,8 @@ PyTorch twins and their launch counts.
 * `backup` (csrc/backup.cu) replaces the Pallas `backup`: the leaf->root
   chase updating n, w, n_edge and w_edge in place in one launch, the edges
   routed inside the kernel (the Pallas wrapper routes node deltas in XLA).
-  Twin: `search.backup`, bit for bit.
+  Twin: `search.backup`, bit for bit. The K=1 `search.simulate` launches it
+  once a simulation on a tree on the card.
 * `backup_dense` (csrc/backup_dense.cu) replaces the Pallas `backup_dense`:
   the same chase with the Pallas kernel's edge value (seat 0's where the
   parent's seat is 0, else seat S-1's). Twin: `search.backup(...,

@@ -5,9 +5,9 @@ tensors. Counterpart of boardlaw_tpu/mcts/search.py, for its two searches:
   default): each sim solves pi_bar(a) = lambda_N pi(a) / (alpha - q(a)) on
   every live node row and draws one action per node in the `node_actions`
   kernel, chases root->leaf in the `walk` kernel, expands one leaf and backs
-  up along the recorded path (`backup_path`). `descend_kernel=True` swaps
-  the first two for the `descend` kernel, and `backup_kernel` then picks the
-  torch-ops chase (`backup`) or the `backup` / `backup_dense` kernels.
+  up: on the card in the `backup` kernel, on the CPU along the recorded path
+  (`backup_path`). `descend_kernel=True` swaps the first two for the
+  `descend` kernel; `backup_kernel` picks the backup (`simulate`).
 * K > 1 (`simulate_multi`): each pass runs, over its R node rows, the
   all-node solve and K inverse-CDF draws per node, the K*B root->leaf chases
   in the `walk` kernel, dedup of walks that halt at one edge, the Hex step
@@ -99,10 +99,12 @@ class MCTSConfig:
 
     * `descend_kernel`: the `descend` kernel (solve, draw and chase in one)
       in place of `node_actions` + `walk`; the JAX `use_pallas=True`.
-    * `backup_kernel`, read only with `descend_kernel`: 'ops' backs up in
-      torch ops (`backup`; JAX `pallas_backup='xla'`), 'delta' through the
-      `backup` kernel, 'dense' through the `backup_dense` kernel (JAX
-      `pallas_backup='delta'` and `'dense'`).
+    * `backup_kernel`: 'delta' (the default) backs up through the `backup`
+      kernel, 'dense' through the `backup_dense` kernel (JAX
+      `pallas_backup='delta'` and `'dense'`), 'ops' in torch ops (JAX
+      `pallas_backup='xla'`): `backup_path` after `walk`, `backup` after
+      `descend`. After `walk` the kernels run on a tree on the card; on the
+      CPU `backup_path` backs up (`simulate`).
 
     Two pick the solve and sampler of the K>1 `simulate_multi`:
 
@@ -133,7 +135,7 @@ class MCTSConfig:
     grow_passes: bool = False
     backup_mode: str = "prefix"  # K>1: 'prefix', or its spec 'einsum'
     descend_kernel: bool = False
-    backup_kernel: str = "ops"
+    backup_kernel: str = "delta"
     solve_kernel: str = "fused"
     sample_kernel: bool = False
     tree_dtype: torch.dtype = torch.float32
@@ -803,11 +805,15 @@ def simulate(tree, eval_fn, rands, cfg: MCTSConfig):
     evaluate the leaf, back up (reference mcts/__init__.py:108-140).
     rands (B,T) are the per-node uniforms.
 
-    Routes, as `MCTSConfig` selects them: `node_actions` + `walk` +
-    `backup_path` (the default, the JAX package's chip route); with
-    `descend_kernel`, the `descend` kernel and then `backup` in torch ops or
-    the `backup` / `backup_dense` kernel, each one launch that updates n, w,
-    n_edge and w_edge along the path in place, bit-equal to `backup`."""
+    Routes, as `MCTSConfig` selects them: `node_actions` + `walk` (the
+    default, the JAX package's chip route), or the `descend` kernel with
+    `descend_kernel`. Then the `backup` / `backup_dense` kernel by
+    `backup_kernel`, one launch that updates n, w, n_edge and w_edge along
+    the path in place, bit-equal to `backup`. After `walk` it runs only on
+    a tree on the card; on the CPU, and with `backup_kernel='ops'`, the
+    walk's recorded path is backed up in torch ops (`backup_path`: the CPU's
+    fastest, where `backup` loops over the tree's levels). After `descend`,
+    'ops' backs up by `backup`."""
     B, T, A = tree.children.shape
     path = acts = None
     if cfg.descend_kernel:
@@ -848,7 +854,7 @@ def simulate(tree, eval_fn, rands, cfg: MCTSConfig):
 
     n_per_visit = tree.w.shape[-1] if cfg.backup_n == "seats" else 1
     with span(BACKUP):
-        if cfg.descend_kernel and cfg.backup_kernel != "ops":
+        if cfg.backup_kernel != "ops" and (cfg.descend_kernel or tree.n.is_cuda):
             fn = kernels.backup_dense if cfg.backup_kernel == "dense" else kernels.backup
             return fn(tree, leaves, n_per_visit)
         if path is not None:

@@ -63,7 +63,7 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      a. 9x9 actor steps (`make_config(9, 512, 4)`: K=8 grow passes), 8
         launches of `walk` and `node_actions_multi` per step, 128 root visits;
      b. `--steps` (at least 2) K=1 actor steps at 6x6, 63 launches of
-        `node_actions` and `walk` per step, 126 root visits;
+        `node_actions`, `walk` and `backup` per step, 126 root visits;
      c. one K=1 search per kernel variant (`descend_kernel` with
         `backup_kernel` 'ops', 'delta', 'dense') from the same worlds and
         draws, 63 launches of each of its kernels, trees held against the
@@ -91,7 +91,8 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         with 8 launches each of `node_actions_multi.bf16` and `walk` and 128
         root visits, then the learner (a full warmup and `--steps` train
         steps, aux finite, parameters moved); one `best_config(6)` K=1 actor
-        step with the same two fields (63 launches of `node_actions.bf16`),
+        step with the same two fields (63 launches of `node_actions.bf16`,
+        `walk` and `backup`),
         the K=1 kernel variants on its bf16 trees (`descend.bf16`), one 9x9
         scan actor step (8 of `solve_probs.bf16`); the step seconds and peak
         memory beside 5a's, 5b's, 5d's and 5g's float32 ones;
@@ -179,7 +180,7 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      rerun adds nothing), `elos.solve` on the trials and `data.fit_model`
      on the card, with games/s, the fit's seconds and RMSE; c.
      `best.std_available(9)` and `best.evaluate(9, n_envs=256, rounds=1)`
-     (K=1, 63 launches of `node_actions` and `walk` a search); d.
+     (K=1, 63 launches of `node_actions`, `walk` and `backup` a search); d.
      `noisescales.evaluate` on phase 7's latest snapshot (64 nodes, 1,024
      envs, 16 steps, its perf games): three finite rows over 1,176,150
      parameters, a second call adding nothing, the collection's and the
@@ -420,13 +421,12 @@ def search_launches(mcfg):
     """The kernel launches of one search under `mcfg`'s route."""
     if mcfg.leaves_per_pass == 1:
         sims = mcfg.n_nodes - 1
-        if mcfg.descend_kernel:
-            out = {instance("descend", mcfg): sims}
-            if mcfg.backup_kernel != "ops":
-                backup = "backup_dense" if mcfg.backup_kernel == "dense" else "backup"
-                out[instance(backup, mcfg)] = sims
-            return out
-        return {"walk": sims, instance("node_actions", mcfg): sims}
+        out = ({instance("descend", mcfg): sims} if mcfg.descend_kernel
+               else {"walk": sims, instance("node_actions", mcfg): sims})
+        if mcfg.backup_kernel != "ops":
+            backup = "backup_dense" if mcfg.backup_kernel == "dense" else "backup"
+            out[instance(backup, mcfg)] = sims
+        return out
     P = mcfg.n_passes
     if mcfg.solve_kernel == "fused":
         return {"walk": P, instance("node_actions_multi", mcfg): P}
@@ -2259,7 +2259,8 @@ def check_evaluation(args, card, run, figures):
                 for ag in (latest, first)]
 
     c, acts = run_path(f"the snapshots' agents (K=1, n_nodes=128, {E} envs)",
-                       {"node_actions.mixed": 2 * 127, "walk": 2 * 127}, both)
+                       {"node_actions.mixed": 2 * 127, "walk": 2 * 127, "backup": 2 * 127},
+                       both)
     add_counts(launches, c)
     for a in acts:
         if not world.valid[torch.arange(E, device=DEV), a.long()].all():
@@ -2682,10 +2683,12 @@ class Searches:
 def per_search(label, counts, searches):
     """Fails unless each search of `searches` launched its route's kernels
     once a pass: 8 of `walk` and `node_actions_multi` a K=8 grow search at
-    64 nodes, 63 of `node_actions` and `walk` a K=1 search, nothing else."""
+    64 nodes, 63 of `node_actions`, `walk` and `backup` a K=1 search, nothing
+    else."""
     k8 = sum(1 for k in searches if k == 8)
     k1 = sum(1 for k in searches if k == 1)
-    want = {"walk": 8 * k8 + 63 * k1, "node_actions_multi": 8 * k8, "node_actions": 63 * k1}
+    want = {"walk": 8 * k8 + 63 * k1, "node_actions_multi": 8 * k8, "node_actions": 63 * k1,
+            "backup": 63 * k1}
     got = {k: v for k, v in search_counts(counts).items() if v}
     print(f"{label}: {k8} K=8 grow searches, {k1} K=1 searches; launches {got}", flush=True)
     if len(searches) != k8 + k1 or got != {k: v for k, v in want.items() if v}:
@@ -3332,9 +3335,10 @@ def main(argv=None):
         torch.cuda.reset_peak_memory_stats()
         c, (_, step_s) = run_path(
             f"{steps6} 6x6 K=1 actor steps",
-            {"node_actions": steps6 * sims, "walk": steps6 * sims, "hex_step": steps6 * (sims + 1)},
+            {"node_actions": steps6 * sims, "walk": steps6 * sims, "backup": steps6 * sims,
+             "hex_step": steps6 * (sims + 1)},
             lambda: actor_steps(cfg6, model6, worlds, draws, steps6, 2 * sims))
-        launches["node_actions"] = c["node_actions"]
+        launches.update(node_actions=c["node_actions"], backup=c["backup"])
         report["walk"]["k1"]["launches"] = c["walk"]
         f32_figures["k1 actor"] = (steady(step_s), torch.cuda.max_memory_allocated() / 1e9)
         print(f"K=1 actor step (6x6, 128x1, {cfg6.n_envs} envs, 64 nodes): steps {step_s} s, "
@@ -3344,7 +3348,8 @@ def main(argv=None):
 
     # 5c. the K=1 kernel variants
     with Phase("6x6 K=1 kernel variants"):
-        launches.update(check_k1_variants(cfg6, model6, worlds, args.seed + 3))
+        variants = check_k1_variants(cfg6, model6, worlds, args.seed + 3)
+        launches.update(descend=variants["descend"], backup_dense=variants["backup_dense"])
         del worlds
         torch.cuda.empty_cache()
 

@@ -13,7 +13,7 @@ torch.profiler (CPU and CUDA activities):
    reward-to-go, one Adam step; the buffer is not warmed up, which changes
    its contents, not the work);
 3. a 6x6 K=1 actor step (`best_config(6)`: 128x1 model, 63 sequential sims
-   through the `node_actions` and `walk` kernels).
+   through the `node_actions`, `walk` and `backup` kernels).
 
 With --scan, steps 1 and 2 run the 9x9 scan-mode search instead (every pass
 over all 65 rows, `solve_kernel="probs"`, `sample_kernel=True`: the
@@ -22,9 +22,9 @@ left out.
 
 With --k1-search ROUTE [ROUTE ...], only 6x6 K=1 searches are profiled, one
 per route named, each from the same worlds: 'default' (`node_actions`,
-`walk`, `backup_path` in torch ops), or 'ops', 'delta', 'dense' (the
-`descend` kernel with that `backup_kernel`: the torch-ops chase, the
-`backup` kernel, the `backup_dense` kernel).
+`walk`, the `backup` kernel), or 'ops', 'delta', 'dense' (the `descend`
+kernel with that `backup_kernel`: the torch-ops chase, the `backup` kernel,
+the `backup_dense` kernel).
 
 --dtype and --tree-dtype set `TrainConfig.dtype` (the network's compute
 type) and `tree_dtype` (the tree's logits) of every step profiled; the JAX

@@ -10,9 +10,13 @@
   order; on these seeds no draw lies at a CDF boundary, so the draws agree.
 * Ports of tests/test_mcts.py's `test_descend_matches_reference_walk` and
   `test_backup_path_matches_backup`, and the three kernel variants
-  (`descend_kernel` with each `backup_kernel`) against the default route, all
-  through the wrappers' CPU twins.
+  (`descend_kernel` with each `backup_kernel`) against the default route
+  with `backup_kernel='ops'`, all through the wrappers' CPU twins.
+* The backup `simulate` calls on each route, for each `backup_kernel`, on a
+  tree on the card or the CPU; a tree on the card with more seats than the
+  backup kernels take is refused.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -25,6 +29,8 @@ from boardlaw_tpu.mcts import search as S
 from boardlaw_tpu_torch import train
 from boardlaw_tpu_torch.draws import Draws
 from boardlaw_tpu_torch.envs import hex as thex
+from boardlaw_tpu_torch.envs import validation as V
+from boardlaw_tpu_torch.mcts import kernels
 from boardlaw_tpu_torch.mcts import search as TS
 from test_torch_search import JaxDraws, _models, _t, _worlds
 
@@ -157,7 +163,72 @@ def test_kernel_variants_match_default_route(backup_kernel):
     tworld = thex.Hex(board=_t(world.board), seats=_t(world.seats))
     _, teval = _models(seed=3)
     cfg = TS.MCTSConfig(n_nodes=20)
-    ref = TS.mcts(tworld, teval, Draws(4, "cpu"), cfg)
+    ref = TS.mcts(tworld, teval, Draws(4, "cpu"), dataclasses.replace(cfg, backup_kernel="ops"))
     var = TS.mcts(tworld, teval, Draws(4, "cpu"),
                   dataclasses.replace(cfg, descend_kernel=True, backup_kernel=backup_kernel))
     _assert_same_tree(ref, var, backup_kernel)
+
+
+class _OnTheCard(torch.Tensor):
+    """A CPU tensor that says it is on the card; its ops give plain tensors."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _route_backup(descend_kernel, backup_kernel, card):
+    """The backup `simulate` calls: the kernels on every tree after
+    `descend`, after `walk` on a tree on the card; 'ops' in torch ops."""
+    if backup_kernel == "ops":
+        return "backup" if descend_kernel else "backup_path"
+    if descend_kernel or card:
+        return f"kernels.{'backup_dense' if backup_kernel == 'dense' else 'backup'}"
+    return "backup_path"
+
+
+def _launch_checks(tree, leaves, n_per_visit):
+    """The checks a backup launch makes on a tree on the card, with every
+    tensor of `tree` and `leaves` reporting the card."""
+    on_card = {f.name: getattr(tree, f.name).as_subclass(_OnTheCard)
+               for f in dataclasses.fields(tree) if isinstance(getattr(tree, f.name), torch.Tensor)}
+    kernels._check_backup(dataclasses.replace(tree, **on_card), leaves.as_subclass(_OnTheCard),
+                          n_per_visit)
+
+
+@pytest.mark.parametrize("seats", [2, 5])
+@pytest.mark.parametrize("card", [False, True])
+@pytest.mark.parametrize("backup_kernel", ["ops", "delta", "dense"])
+@pytest.mark.parametrize("descend_kernel", [False, True])
+def test_simulate_calls_the_routes_backup(monkeypatch, descend_kernel, backup_kernel, card,
+                                          seats):
+    # the route is chosen by the tree's device alone; a kernel refuses a tree
+    # on the card with more seats than it takes (4)
+    called = []
+
+    def stand_in(label):
+        def fn(tree, *args):
+            called.append(label)
+            if label.startswith("kernels.") and tree.n.is_cuda:
+                _launch_checks(tree, *args)
+        return fn
+
+    for module, name in ((kernels, "backup"), (kernels, "backup_dense"), (TS, "backup_path"),
+                         (TS, "backup")):
+        monkeypatch.setattr(module, name,
+                            stand_in(f"kernels.{name}" if module is kernels else name))
+    world = V.All.initial(4, n_seats=seats, length=2, device="cpu")
+    cfg = TS.MCTSConfig(n_nodes=4, descend_kernel=descend_kernel, backup_kernel=backup_kernel)
+    tree = TS.initialize(TS.build(world, cfg), V.ProxyAgent()(world), Draws(0, "cpu"), cfg,
+                         world.valid)
+    if card:
+        tree.n = tree.n.as_subclass(_OnTheCard)
+    assert tree.n.is_cuda == card and tree.w.shape[-1] == seats
+    want = _route_backup(descend_kernel, backup_kernel, card)
+    refused = card and seats > 4 and want.startswith("kernels.")
+    with (pytest.raises(ValueError, match="at most 4 seats") if refused
+          else contextlib.nullcontext()):
+        TS.simulate(tree, V.ProxyAgent(), torch.rand(tree.parents.shape), cfg)
+    assert called == [want]

@@ -15,7 +15,8 @@ PyTorch twins and their launch counts.
   `search.node_actions`.
 * `descend` (csrc/descend.cu) replaces the Pallas `descend`: each env's
   root->leaf walk, solving and sampling only the rows it visits. Twin:
-  `search.descend_reference`.
+  `search.descend_reference`. No search launches it: it is held against
+  its twin and against `node_actions` + `walk`.
 * `backup` (csrc/backup.cu) replaces the Pallas `backup`: the leaf->root
   chase updating n, w, n_edge and w_edge in place in one launch, the edges
   routed inside the kernel (the Pallas wrapper routes node deltas in XLA).
@@ -24,7 +25,8 @@ PyTorch twins and their launch counts.
 * `backup_dense` (csrc/backup_dense.cu) replaces the Pallas `backup_dense`:
   the same chase with the Pallas kernel's edge value (seat 0's where the
   parent's seat is 0, else seat S-1's). Twin: `search.backup(...,
-  edge="dense")`, bit for bit.
+  edge="dense")`, bit for bit. No search launches it: it is held against
+  its twin.
 * `solve_probs` (csrc/solve_probs.cu) replaces the Pallas `solve_probs`: the
   all-node solve alone, probs (B,R,A) or the roots alpha (B,R). Twin:
   `solve_probs_ref`, which is `search.node_probs`.

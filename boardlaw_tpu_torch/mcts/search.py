@@ -6,8 +6,7 @@ tensors. Counterpart of boardlaw_tpu/mcts/search.py, for its two searches:
   every live node row and draws one action per node in the `node_actions`
   kernel, chases root->leaf in the `walk` kernel, expands one leaf and backs
   up: on the card in the `backup` kernel, on the CPU along the recorded path
-  (`backup_path`). `descend_kernel=True` swaps the first two for the
-  `descend` kernel; `backup_kernel` picks the backup (`simulate`).
+  (`backup_path`). The tree's device alone picks the backup (`simulate`).
 * K > 1 (`simulate_multi`): each pass runs, over its R node rows, the
   all-node solve and K inverse-CDF draws per node, the K*B root->leaf chases
   in the `walk` kernel, dedup of walks that halt at one edge, the Hex step
@@ -94,18 +93,6 @@ class MCTSConfig:
     bf16 the -inf proxy -1e4 is stored as -9984, and `root()`'s prior holds
     -9984 at invalid actions where float32 gives -inf, as in JAX.
 
-    Two fields pick the kernel variants of the K=1 `simulate` and affect
-    nothing else:
-
-    * `descend_kernel`: the `descend` kernel (solve, draw and chase in one)
-      in place of `node_actions` + `walk`; the JAX `use_pallas=True`.
-    * `backup_kernel`: 'delta' (the default) backs up through the `backup`
-      kernel, 'dense' through the `backup_dense` kernel (JAX
-      `pallas_backup='delta'` and `'dense'`), 'ops' in torch ops (JAX
-      `pallas_backup='xla'`): `backup_path` after `walk`, `backup` after
-      `descend`. After `walk` the kernels run on a tree on the card; on the
-      CPU `backup_path` backs up (`simulate`).
-
     Two pick the solve and sampler of the K>1 `simulate_multi`:
 
     * `solve_kernel`: 'fused' solves and draws in the `node_actions_multi`
@@ -134,8 +121,6 @@ class MCTSConfig:
     sample_cum: str = "matmul"  # K>1 torch sampler: 'matmul' or 'shift'
     grow_passes: bool = False
     backup_mode: str = "prefix"  # K>1: 'prefix', or its spec 'einsum'
-    descend_kernel: bool = False
-    backup_kernel: str = "delta"
     solve_kernel: str = "fused"
     sample_kernel: bool = False
     tree_dtype: torch.dtype = torch.float32
@@ -157,9 +142,6 @@ class MCTSConfig:
                              f"got {self.tree_dtype}")
         if self.backup_n not in ("seats", "visits"):
             raise ValueError(f"backup_n must be 'seats' or 'visits', got {self.backup_n!r}")
-        if self.backup_kernel not in ("ops", "delta", "dense"):
-            raise ValueError(f"backup_kernel must be 'ops', 'delta' or 'dense', "
-                             f"got {self.backup_kernel!r}")
 
     @property
     def n_passes(self):
@@ -805,30 +787,21 @@ def simulate(tree, eval_fn, rands, cfg: MCTSConfig):
     evaluate the leaf, back up (reference mcts/__init__.py:108-140).
     rands (B,T) are the per-node uniforms.
 
-    Routes, as `MCTSConfig` selects them: `node_actions` + `walk` (the
-    default, the JAX package's chip route), or the `descend` kernel with
-    `descend_kernel`. Then the `backup` / `backup_dense` kernel by
-    `backup_kernel`, one launch that updates n, w, n_edge and w_edge along
-    the path in place, bit-equal to `backup`. After `walk` it runs only on
-    a tree on the card; on the CPU, and with `backup_kernel='ops'`, the
-    walk's recorded path is backed up in torch ops (`backup_path`: the CPU's
-    fastest, where `backup` loops over the tree's levels). After `descend`,
-    'ops' backs up by `backup`."""
+    The descent is the `node_actions` kernel's solve and draw on every live
+    row, then the `walk` kernel's chase (the JAX package's chip route). On a
+    tree on the card the `backup` kernel backs up, one launch that updates
+    n, w, n_edge and w_edge along the path in place, bit-equal to `backup`
+    (and so refusing more than 4 seats); on the CPU the walk's recorded path
+    is backed up in torch ops (`backup_path`: the CPU's fastest, where
+    `backup` loops over the tree's levels)."""
     B, T, A = tree.children.shape
-    path = acts = None
-    if cfg.descend_kernel:
-        with span(SOLVE):
-            parents, actions = kernels.descend(tree, rands)
-    else:
-        with span(SOLVE):
-            acts, nxt = _node_actions_any(tree, rands)
-        with span(WALK):
-            parents, actions, existing, path = _walk_any(tree, acts, nxt)
+    with span(SOLVE):
+        acts, nxt = _node_actions_any(tree, rands)
+    with span(WALK):
+        parents, actions, existing, path = _walk_any(tree, acts, nxt)
 
     with span(EXPAND):
         b = torch.arange(B, device=rands.device)
-        if cfg.descend_kernel:
-            existing = tree.children[b, parents.long(), actions.long()].to(torch.int32)
         leaves = torch.where(existing == -1, tree.sim, existing)
 
         pl, al, ll = parents.long(), actions.long(), leaves.long()
@@ -854,12 +827,9 @@ def simulate(tree, eval_fn, rands, cfg: MCTSConfig):
 
     n_per_visit = tree.w.shape[-1] if cfg.backup_n == "seats" else 1
     with span(BACKUP):
-        if cfg.backup_kernel != "ops" and (cfg.descend_kernel or tree.n.is_cuda):
-            fn = kernels.backup_dense if cfg.backup_kernel == "dense" else kernels.backup
-            return fn(tree, leaves, n_per_visit)
-        if path is not None:
-            return backup_path(tree, path, acts, leaves, n_per_visit)
-        return backup(tree, leaves, n_per_visit)
+        if tree.n.is_cuda:
+            return kernels.backup(tree, leaves, n_per_visit)
+        return backup_path(tree, path, acts, leaves, n_per_visit)
 
 
 def pass_shape(cfg: MCTSConfig, p):

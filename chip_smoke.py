@@ -64,11 +64,6 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         launches of `walk` and `node_actions_multi` per step, 128 root visits;
      b. `--steps` (at least 2) K=1 actor steps at 6x6, 63 launches of
         `node_actions`, `walk` and `backup` per step, 126 root visits;
-     c. one K=1 search per kernel variant (`descend_kernel` with
-        `backup_kernel` 'ops', 'delta', 'dense') from the same worlds and
-        draws, 63 launches of each of its kernels, trees held against the
-        default route's (equal on all but 0.1% of envs, w to atol 1e-4);
-        the four searches' seconds on one line;
      d. the 9x9 learner: `make_train`, `init`, a full warmup (64 actor steps)
         and `--steps` (at least 2) train steps, all aux finite, parameters
         moved; its first two steps and its state are kept for phase 10;
@@ -92,15 +87,13 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         root visits, then the learner (a full warmup and `--steps` train
         steps, aux finite, parameters moved); one `best_config(6)` K=1 actor
         step with the same two fields (63 launches of `node_actions.bf16`,
-        `walk` and `backup`),
-        the K=1 kernel variants on its bf16 trees (`descend.bf16`), one 9x9
-        scan actor step (8 of `solve_probs.bf16`); the step seconds and peak
-        memory beside 5a's, 5b's, 5d's and 5g's float32 ones;
+        `walk` and `backup`), one 9x9 scan actor step (8 of
+        `solve_probs.bf16`); the step seconds and peak memory beside 5a's,
+        5b's, 5d's and 5g's float32 ones;
   6a. the planted-value games of `envs/validation.py` (`Win` and
      `WinnerLoser` at 3 nodes, `All(length=3)` with one and two seats and
      `SequentialMatrix.dilemma` at 15) at `--envs` envs by every search
-     route (K=1; K=1 `descend_kernel` with `backup_kernel` 'ops', 'delta'
-     and 'dense'; K=8 grow; K=8 scan with `solve_probs` +
+     route (K=1; K=8 grow; K=8 scan with `solve_probs` +
      `sample_children_multi`), each with its launch counts: rows of 1 and 2
      actions, one seat, trees of 3 to 17 slots; the root value against the
      analytic one to 1e-5 and the root's visits; the same search on 64 envs
@@ -121,9 +114,8 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      bare `train_step`, the snapshot writes' ms and the peak memory;
   8. the wide tree (`n_nodes` > 127: int32 children, f32 edge counts above
      128 slots, int32 with bf16 at 128) at full width, the 9x9 512x4
-     FCModel: K=1 searches at 256 nodes (`--envs` envs) on the default
-     route and on `descend` with each backup kernel, at 128 nodes on the
-     default and 'delta' routes; one grow and one scan actor step of
+     FCModel: K=1 searches at 256 nodes (`--envs` envs) and at 128 nodes;
+     one grow and one scan actor step of
      `make_config(9, 512, 4, nodes=512)` (T = 513) at half the envs; at
      4,096 envs the bf16-logits searches on wide trees and a one-pass
      K = 127 search (T = 128); each with its launch counts, seconds and
@@ -210,7 +202,9 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      chains and the wide trees beside, and each design's times; every
      instantiation (the keys of `kernels.launches`: `.bf16` logits, `.mixed`
      and `.wide` trees) as an entry of its own, with its launches from the
-     path that runs it (phase 5 or 8) and bounds counting its storage
+     path that runs it (phase 5 or 8; those of `descend` and
+     `backup_dense`, which no search launches, from their checks against
+     their twins in phases 3c, 3d, 4 and 8) and bounds counting its storage
      types; each kernel's launches on the paths of phases 6a, 6b, 7, 8, 9,
      10a (both ranks), 11b-11e and 12 (both jobs, under `fleet`) under
      `slice_launches`), and the last line
@@ -417,16 +411,23 @@ def instance(name, mcfg):
     return kernels.instance(name, mcfg.tree_dtype, *search.tree_dtypes(mcfg))
 
 
+# the kernels no search launches: phases 3c, 3d, 4 and 8 hold them against
+# their twins, and the record counts their launches there
+HELD = ("descend", "backup_dense")
+
+
+def held_launches(before):
+    """The launches of `HELD`'s instantiations since the counts `before`."""
+    return {k: v - before[k] for k, v in read_counts().items()
+            if k.split(".")[0] in HELD and v > before[k]}
+
+
 def search_launches(mcfg):
     """The kernel launches of one search under `mcfg`'s route."""
     if mcfg.leaves_per_pass == 1:
         sims = mcfg.n_nodes - 1
-        out = ({instance("descend", mcfg): sims} if mcfg.descend_kernel
-               else {"walk": sims, instance("node_actions", mcfg): sims})
-        if mcfg.backup_kernel != "ops":
-            backup = "backup_dense" if mcfg.backup_kernel == "dense" else "backup"
-            out[instance(backup, mcfg)] = sims
-        return out
+        return {"walk": sims, instance("node_actions", mcfg): sims,
+                instance("backup", mcfg): sims}
     P = mcfg.n_passes
     if mcfg.solve_kernel == "fused":
         return {"walk": P, instance("node_actions_multi", mcfg): P}
@@ -899,7 +900,7 @@ def check_search_cpu_vs_gpu(cfg, model, n_envs=64):
 # --------------------------------------------------------------------------
 
 def k1_mid_search_tree(cfg, model, draws, sims):
-    """A real K=1 tree after `sims` sims of the default route."""
+    """A real K=1 tree after `sims` sims of the K=1 search."""
     from boardlaw_tpu_torch.mcts import search
     from boardlaw_tpu_torch.models.networks import make_eval_fn
 
@@ -1395,49 +1396,6 @@ def steady(times):
     return statistics.median(times[1:]) if len(times) > 1 else times[0]
 
 
-def check_k1_variants(cfg, model, worlds, seed):
-    """One K=1 search per kernel variant from the same worlds and draws, each
-    held against the default route's tree."""
-    import torch
-    from boardlaw_tpu_torch.draws import Draws
-    from boardlaw_tpu_torch.mcts import search
-    from boardlaw_tpu_torch.models.networks import make_eval_fn
-
-    mcfg = cfg.mcts_config()
-    sims = mcfg.n_nodes - 1
-    eval_fn = make_eval_fn(model)
-    sync()
-    t0 = time.time()
-    ref = search.mcts(worlds, eval_fn, Draws(seed, DEV), mcfg)
-    sync()
-    seconds = {"default route": time.time() - t0}
-    counts = {}
-    descend = instance("descend", mcfg)
-    for variant, kernels_run in (("ops", (descend,)), ("delta", (descend, "backup")),
-                                 ("dense", (descend, "backup_dense"))):
-        vcfg = replace(mcfg, descend_kernel=True, backup_kernel=variant)
-        t0 = time.time()
-        c, tree = run_path(f"the K=1 search, descend_kernel with backup_kernel={variant!r}",
-                           {k: sims for k in kernels_run},
-                           lambda: search.mcts(worlds, eval_fn, Draws(seed, DEV), vcfg))
-        secs = time.time() - t0
-        seconds[f"descend + {variant!r}"] = secs
-        for k in kernels_run:
-            counts[k] = counts.get(k, 0) + c[k]
-        same = ((tree.children == ref.children).flatten(1).all(1) & (tree.n == ref.n).all(1)
-                & (tree.n_edge == ref.n_edge).flatten(1).all(1))
-        n_diff = int((~same).sum())
-        w_err = float((tree.w - ref.w)[same].abs().max())
-        print(f"K=1 variant {variant!r} ({secs:.3f} s per search): {n_diff} of {same.numel()} "
-              f"envs differ from the default route in children/n/n_edge; max |w| difference on "
-              f"the others {w_err:.3g}", flush=True)
-        if n_diff > 0.001 * same.numel() or w_err > 1e-4:
-            fail(f"the K=1 variant {variant!r} disagrees with the default route")
-    print("K=1 search seconds, same worlds and draws: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items()), flush=True)
-    return counts
-
-
 def host_record(state, slot):
     """The buffer's slot `slot` (a pushed record) as numpy on the host:
     the record's leaves (bf16 ones widened) and the worlds' board and
@@ -1619,10 +1577,9 @@ def check_bf16_paths(args, worlds9, worlds6, f32_figures, card):
     logits) on its paths, each with its launch counts: `--steps` 9x9 actor
     steps (K=8 grow, `node_actions_multi.bf16`), the learner (a full warmup
     and `--steps` train steps, aux finite, parameters moved), one 6x6 K=1
-    actor step (`node_actions.bf16`), the K=1 kernel variants on bf16 trees
-    (`descend.bf16`), and one 9x9 scan actor step (`solve_probs.bf16`).
-    Prints the step seconds and peak memory beside the float32 ones.
-    Returns the launches of the four bf16 instantiations."""
+    actor step (`node_actions.bf16`), and one 9x9 scan actor step
+    (`solve_probs.bf16`). Prints the step seconds and peak memory beside the
+    float32 ones. Returns the launches of the three bf16 instantiations."""
     import torch
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.draws import Draws
@@ -1659,8 +1616,6 @@ def check_bf16_paths(args, worlds9, worlds6, f32_figures, card):
         lambda: actor_steps(cfg6, model6, worlds6, draws, 1, 2 * sims))
     launches["node_actions.bf16"] = c["node_actions.bf16"]
     figures["k1 actor"] = (step_s[0], torch.cuda.max_memory_allocated() / 1e9)
-    launches["descend.bf16"] = check_k1_variants(cfg6, model6, worlds6, args.seed + 3)[
-        "descend.bf16"]
 
     cfg9s = scan_config(cfg9)
     mcfg9s = cfg9s.mcts_config()
@@ -1686,9 +1641,6 @@ def check_bf16_paths(args, worlds9, worlds6, f32_figures, card):
 # the search routes of phase 6a: MCTSConfig fields over the game's own
 VALIDATION_ROUTES = {
     "K=1": {},
-    "K=1 descend + 'ops'": dict(descend_kernel=True, backup_kernel="ops"),
-    "K=1 descend + 'delta'": dict(descend_kernel=True, backup_kernel="delta"),
-    "K=1 descend + 'dense'": dict(descend_kernel=True, backup_kernel="dense"),
     "K=8 grow": dict(leaves_per_pass=8, grow_passes=True),
     "K=8 scan, split kernels": dict(leaves_per_pass=8, solve_kernel="probs", sample_kernel=True),
 }
@@ -1916,16 +1868,16 @@ def k1_config(cfg, n_nodes, **kw):
     return replace(cfg, n_nodes=n_nodes, leaves_per_pass=1, grow_passes=False, **kw)
 
 
-def timed_search(label, cfg, model, worlds, seed, card, **route):
-    """One search under `cfg`'s search (its `MCTSConfig` with the fields of
-    `route`) through `run_path`, with its launch counts
-    (`search_launches`); prints its seconds and peak memory."""
+def timed_search(label, cfg, model, worlds, seed, card):
+    """One search under `cfg`'s `MCTSConfig` through `run_path`, with its
+    launch counts (`search_launches`); prints its seconds and peak
+    memory."""
     import torch
     from boardlaw_tpu_torch.draws import Draws
     from boardlaw_tpu_torch.mcts import search
     from boardlaw_tpu_torch.models.networks import make_eval_fn
 
-    mcfg = replace(cfg.mcts_config(), **route)
+    mcfg = cfg.mcts_config()
     eval_fn = make_eval_fn(model)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1956,9 +1908,11 @@ def wide_k1_kernels(tree, cfg, draws, report, seed, tag):
     (the `.wide` instantiations where the counts are f32, the compact ones
     at T = 128), `node_actions_multi` at K = 8 on the same rows; then the
     bf16 instantiations on the tree's bf16 copy, bit-equal to the f32
-    kernels on its f32 copy and timed."""
+    kernels on its f32 copy and timed. Returns the launches of `HELD`'s
+    instantiations."""
     import torch
 
+    before = read_counts()
     B, T = tree.parents.shape
     rands = draws.uniform((B, T))
     acts, nxt = check_node_actions(tree, rands, report, key=f"node_actions{tag}", board="9x9")
@@ -1987,14 +1941,14 @@ def wide_k1_kernels(tree, cfg, draws, report, seed, tag):
     bf16_equals_f32(bf, ("node_actions", "descend", "node_actions_multi"),
                     f"9x9 K=1 tree, T={T}, bf16 logits", rands, rands_k,
                     dict(n_iters=6, accel=True))
+    return held_launches(before)
 
 
 def check_wide_tree(args, card, report):
     """Phase 8: the wide tree at full width, the 9x9 512x4 FCModel with
     random weights from `--seed`. The searches, each with its launch counts:
-    K=1 at n_nodes=256 (int32 children, f32 counts) at `--envs` envs on the
-    default route and on `descend` with each backup kernel; K=1 at
-    n_nodes=128 (int32, bf16); one `make_config(9, 512, 4, nodes=512)` grow
+    K=1 at n_nodes=256 (int32 children, f32 counts) at `--envs` envs; K=1
+    at n_nodes=128 (int32, bf16); one `make_config(9, 512, 4, nodes=512)` grow
     actor step (T = 513) and one scan actor step through `solve_probs` +
     `sample_children_multi`, at half the envs (the twins' temporaries at
     T = 513 do not fit beside a 32,768-env tree); then, at 4,096 envs, the
@@ -2002,8 +1956,9 @@ def check_wide_tree(args, card, report):
     (T = 128) of `node_actions_multi`'s mixed instantiations. The kernels
     against their twins on mid-search trees by the rules of phases 3, 3b
     and 4; the sampler's child pointers above 256 exact; 64 envs (16 at 256
-    nodes) on the card against the CPU's search. Returns the launches by
-    instantiation."""
+    nodes) on the card against the CPU's search. Returns the searches'
+    launches by instantiation, and those of the kernels no search launches
+    (`HELD`) in the checks against their twins."""
     import torch
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.draws import Draws
@@ -2015,17 +1970,15 @@ def check_wide_tree(args, card, report):
     draws = Draws(args.seed + 20, DEV)
     worlds = mix_worlds(9, B, draws, 40)
 
-    # K=1 at 256 nodes: the default route, descend with each backup kernel
+    # K=1 at 256 nodes
     t0 = time.time()
     cfg256 = k1_config(cfg, 256)
-    for variant in (None, "delta", "dense"):
-        route = {} if variant is None else dict(descend_kernel=True, backup_kernel=variant)
-        label = f"9x9 K=1 search, n_nodes=256, {variant or 'default'} route"
-        counts, tree = timed_search(label, cfg256, model, worlds, args.seed + 21, card, **route)
-        add_counts(launches, counts)
-        del tree
+    counts, tree = timed_search("9x9 K=1 search, n_nodes=256", cfg256, model, worlds,
+                                args.seed + 21, card)
+    add_counts(launches, counts)
+    del tree
     tree = k1_mid_search_tree(cfg256, model, draws, sims=120)
-    wide_k1_kernels(tree, cfg256, draws, report, args.seed + 22, ".wide")
+    held = wide_k1_kernels(tree, cfg256, draws, report, args.seed + 22, ".wide")
     del tree
     torch.cuda.empty_cache()
     # 16 envs: the CPU's twins take some 45 s over 64 envs of 256 nodes
@@ -2034,14 +1987,12 @@ def check_wide_tree(args, card, report):
     # K=1 at 128 nodes: int32 children, bf16 counts
     t0 = lap("phase 8, K=1 at 256 nodes", t0)
     cfg128 = k1_config(cfg, 128)
-    for variant in (None, "delta"):
-        route = {} if variant is None else dict(descend_kernel=True, backup_kernel=variant)
-        counts, tree = timed_search(f"9x9 K=1 search, n_nodes=128, {variant or 'default'} route",
-                                    cfg128, model, worlds, args.seed + 23, card, **route)
-        add_counts(launches, counts)
-        del tree
+    counts, tree = timed_search("9x9 K=1 search, n_nodes=128", cfg128, model, worlds,
+                                args.seed + 23, card)
+    add_counts(launches, counts)
+    del tree
     tree = k1_mid_search_tree(cfg128, model, draws, sims=80)
-    wide_k1_kernels(tree, cfg128, draws, report, args.seed + 24, ".mixed")
+    add_counts(held, wide_k1_kernels(tree, cfg128, draws, report, args.seed + 24, ".mixed"))
     del tree, worlds
     torch.cuda.empty_cache()
     check_search_cpu_vs_gpu(cfg128, model)
@@ -2116,26 +2067,23 @@ def check_wide_tree(args, card, report):
     draws = Draws(args.seed + 26, DEV)
     worlds = mix_worlds(9, B3, draws, 40)
     bf = dict(tree_dtype="bfloat16")
-    dense, delta = (dict(descend_kernel=True, backup_kernel=k) for k in ("dense", "delta"))
-    small = [("K=1, n_nodes=256, bf16 logits", k1_config(cfg, 256, **bf), {}),
-             ("K=1, n_nodes=256, bf16 logits, descend + dense", k1_config(cfg, 256, **bf), dense),
-             ("K=1, n_nodes=128, bf16 logits", k1_config(cfg, 128, **bf), {}),
-             ("K=1, n_nodes=128, bf16 logits, descend + delta", k1_config(cfg, 128, **bf), delta),
+    small = [("K=1, n_nodes=256, bf16 logits", k1_config(cfg, 256, **bf)),
+             ("K=1, n_nodes=128, bf16 logits", k1_config(cfg, 128, **bf)),
              ("K=127, n_nodes=128 (T=128, one pass)",
-              replace(cfg, n_nodes=128, leaves_per_pass=127), {}),
+              replace(cfg, n_nodes=128, leaves_per_pass=127)),
              ("K=127, n_nodes=128, bf16 logits",
-              replace(cfg, n_nodes=128, leaves_per_pass=127, **bf), {}),
-             ("grow, nodes=512, bf16 logits", replace(cfg512, **bf), {}),
-             ("scan, nodes=512, bf16 logits", replace(cfg512s, **bf), {})]
-    for label, c, route in small:
+              replace(cfg, n_nodes=128, leaves_per_pass=127, **bf)),
+             ("grow, nodes=512, bf16 logits", replace(cfg512, **bf)),
+             ("scan, nodes=512, bf16 logits", replace(cfg512s, **bf))]
+    for label, c in small:
         counts, tree = timed_search(f"9x9 search, {label}", replace(c, n_envs=B3), model, worlds,
-                                    args.seed + 27, card, **route)
+                                    args.seed + 27, card)
         add_counts(launches, counts)
         del tree
     del worlds
     torch.cuda.empty_cache()
     lap("phase 8, the bf16-logits and K=127 searches", t0)
-    return launches
+    return launches, held
 
 
 def search_levels(mcfg):
@@ -2360,7 +2308,7 @@ def check_evaluation(args, card, run, figures):
 # that env's search, and its game after, go their own way. An env agrees
 # where its integer leaves (n_leaves, terminal, board, seats) are equal,
 # its -inf are where they were, its f32 leaves (v, rewards) within
-# DP_RECORD_ATOL (phase 5c's rule) and its bf16 leaves (logits, prior)
+# DP_RECORD_ATOL (phase 5h's rule) and its bf16 leaves (logits, prior)
 # within one bf16 step (rtol 2^-7, atol 1e-5, tests/test_torch_train.py's).
 DP_DIVERGED_SHARE = 0.01
 DP_RECORD_ATOL = 1e-4
@@ -3274,6 +3222,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     # 3c. every lane layout of the row kernels, one small tree per board
+    before = read_counts()
     with Phase("row kernels at every board size"):
         check_board_layouts(args.seed + 6, args.layout_envs)
         torch.cuda.empty_cache()
@@ -3296,6 +3245,7 @@ def main(argv=None):
         del tree, acts, nxt, leaves
         check_search_cpu_vs_gpu(cfg6, model6)
         torch.cuda.empty_cache()
+    held = held_launches(before)
 
     # 4b. the Hex step kernel at the paths' shapes
     with Phase("hex_step against its twin"):
@@ -3338,7 +3288,7 @@ def main(argv=None):
             {"node_actions": steps6 * sims, "walk": steps6 * sims, "backup": steps6 * sims,
              "hex_step": steps6 * (sims + 1)},
             lambda: actor_steps(cfg6, model6, worlds, draws, steps6, 2 * sims))
-        launches.update(node_actions=c["node_actions"], backup=c["backup"])
+        launches.update(node_actions=c["node_actions"], backup=c["backup"], **held)
         report["walk"]["k1"]["launches"] = c["walk"]
         f32_figures["k1 actor"] = (steady(step_s), torch.cuda.max_memory_allocated() / 1e9)
         print(f"K=1 actor step (6x6, 128x1, {cfg6.n_envs} envs, 64 nodes): steps {step_s} s, "
@@ -3346,10 +3296,6 @@ def main(argv=None):
               f"{cfg6.n_envs * sims / steady(step_s):.0f} sims/s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {card}", flush=True)
 
-    # 5c. the K=1 kernel variants
-    with Phase("6x6 K=1 kernel variants"):
-        variants = check_k1_variants(cfg6, model6, worlds, args.seed + 3)
-        launches.update(descend=variants["descend"], backup_dense=variants["backup_dense"])
         del worlds
         torch.cuda.empty_cache()
 
@@ -3425,8 +3371,8 @@ def main(argv=None):
 
         # 8. the wide tree at full width
         with Phase("the wide tree (n_nodes > 127)"):
-            wide = check_wide_tree(args, card, report)
-            launches.update({k: v for k, v in wide.items() if k not in launches})
+            wide, wide_held = check_wide_tree(args, card, report)
+            launches.update({k: v for k, v in (wide | wide_held).items() if k not in launches})
             slice_launches["wide"] = wide
             torch.cuda.empty_cache()
 

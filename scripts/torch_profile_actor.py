@@ -1,8 +1,8 @@
 """Where the time of the PyTorch/CUDA port's steps goes, on one GPU.
 
     python3 scripts/torch_profile_actor.py [--envs 32768] [--mix 2500] [--scan]
-        [--k1-search ROUTE [ROUTE ...]] [--dtype float32|bfloat16]
-        [--tree-dtype float32|bfloat16] [--out output/profile_actor.txt]
+        [--dtype float32|bfloat16] [--tree-dtype float32|bfloat16]
+        [--out output/profile_actor.txt]
 
 Profiles three steps, each after two warm-up calls of the same step, under
 torch.profiler (CPU and CUDA activities):
@@ -20,12 +20,6 @@ over all 65 rows, `solve_kernel="probs"`, `sample_kernel=True`: the
 `solve_probs`, `sample_children_multi` and `walk` kernels), and step 3 is
 left out.
 
-With --k1-search ROUTE [ROUTE ...], only 6x6 K=1 searches are profiled, one
-per route named, each from the same worlds: 'default' (`node_actions`,
-`walk`, the `backup` kernel), or 'ops', 'delta', 'dense' (the `descend`
-kernel with that `backup_kernel`: the torch-ops chase, the `backup` kernel,
-the `backup_dense` kernel).
-
 --dtype and --tree-dtype set `TrainConfig.dtype` (the network's compute
 type) and `tree_dtype` (the tree's logits) of every step profiled; the JAX
 flagship runs both in bfloat16.
@@ -37,8 +31,8 @@ and three sums: the `walk` kernel's time and calls, those of every copy
 kernel (PyTorch's `direct_copy_kernel` and memcpy; on a tree whose
 `simulate_multi` copies the sampler's buffers to rows for `walk`, those
 copies are among them), and those of the network's matrix products (every
-cuBLAS kernel: names with gemm, gemv, xmma or nvjet); the full tables go to
---out. --package-root imports
+cuBLAS kernel and cuBLASLt's split-K reductions, by `benchmark/trace.py`'s
+`GEMM` names); the full tables go to --out. --package-root imports
 `boardlaw_tpu_torch` from another checkout (an unpacked `git archive` of an
 earlier commit), so that one call can profile two trees on one card.
 """
@@ -49,7 +43,6 @@ import os
 import subprocess
 import sys
 import time
-from dataclasses import replace
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -78,9 +71,10 @@ def profile_step(label, fn, out):
           f"{device_us / 1e6:.4f} s, device busy share {device_us / 1e6 / wall:.3f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"{e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
-    gemm = ("gemm", "gemv", "xmma", "nvjet")
+    from benchmark.trace import GEMM
+
     for name, match in (("walk", lambda k: "walk" in k), ("copy", lambda k: "copy" in k.lower()),
-                        ("GEMM", lambda k: any(g in k.lower() for g in gemm))):
+                        ("GEMM", lambda k: any(g in k.lower() for g in GEMM))):
         chosen = [e for e in events if match(e.key)]
         line = (f"{name} kernels: {sum(e.self_device_time_total for e in chosen) / 1e3:.3f} ms "
                 f"in {sum(e.count for e in chosen)} calls")
@@ -94,8 +88,6 @@ def main(argv=None):
     parser.add_argument("--mix", type=int, default=2500)
     parser.add_argument("--scan", action="store_true",
                         help="profile the 9x9 scan-mode actor and train steps only")
-    parser.add_argument("--k1-search", nargs="+", choices=("default", "ops", "delta", "dense"),
-                        help="profile one 6x6 K=1 search per route named, and nothing else")
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                         help="the network's compute dtype")
     parser.add_argument("--tree-dtype", default="float32", choices=("float32", "bfloat16"),
@@ -111,8 +103,6 @@ def main(argv=None):
 
     from boardlaw_tpu_torch import train
     from boardlaw_tpu_torch.draws import Draws
-    from boardlaw_tpu_torch.mcts import search
-    from boardlaw_tpu_torch.models.networks import make_eval_fn
 
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -125,20 +115,6 @@ def main(argv=None):
     with open(args.out, "w") as out:
         out.write(f"{card}; network {args.dtype}, tree logits {args.tree_dtype}\n")
         draws = Draws(0, "cuda")
-
-        if args.k1_search:
-            cfg6 = train.best_config(6, n_envs=args.envs, mix_steps=args.mix, **dtypes)
-            model6 = train.build_model(cfg6, device="cuda",
-                                       generator=torch.Generator().manual_seed(0))
-            worlds6 = train.init_worlds(cfg6, draws)
-            eval_fn = make_eval_fn(model6)
-            for route in args.k1_search:
-                mcfg = cfg6.mcts_config()
-                if route != "default":
-                    mcfg = replace(mcfg, descend_kernel=True, backup_kernel=route)
-                profile_step(f"6x6 K=1 search, route {route!r} ({args.envs} envs)",
-                             lambda: search.mcts(worlds6, eval_fn, draws, mcfg), out)
-            return 0
 
         scan = {}
         if args.scan:

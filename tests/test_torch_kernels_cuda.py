@@ -17,10 +17,10 @@ every lane layout of `kernels.row_layout` runs.
 make the twin's adds in the twin's order: n, w, n_edge and w_edge equal it
 bit for bit, at T = 12, 37, 64 and 65, on chains T-1 levels deep, from the
 root, at three seats (both) and at one seat (`backup_dense`, whose twin is
-`search.backup(..., edge="dense")`). The K=1 search's default route backs up in the
-`backup` kernel, one launch a simulation, and builds the tree that
-`backup_kernel='ops'` (`search.backup_path`) builds: counts equal, value
-sums to 1e-5. `solve_probs` runs the solve of `node_actions_multi`: its
+`search.backup(..., edge="dense")`). The K=1 search backs up in the
+`backup` kernel, one launch a simulation, and builds the tree that it
+builds with its twin `search.backup` in the kernel's place, bit for bit.
+`solve_probs` runs the solve of `node_actions_multi`: its
 probs agree with the twin's to rtol 1e-5 and its alpha is
 `node_actions_multi`'s, bit for bit; `sample_children_multi` adds in the
 twin's order and is bit-equal to it, and the split pair draws what
@@ -414,9 +414,9 @@ def test_backup_kernels_match_ref(cuda, variant, n_seats, T, npv):
 
 
 @pytest.mark.gpu
-def test_k1_search_backs_up_in_the_kernel(cuda):
+def test_k1_search_backs_up_in_the_kernel(cuda, monkeypatch):
     # one 6x6 64-node K=1 search on 1,024 envs from the same worlds and draws,
-    # by the default route and by backup_kernel='ops'
+    # as it runs and with the `backup` kernel's twin in the kernel's place
     from boardlaw_tpu_torch import learning, train
     from boardlaw_tpu_torch.models.networks import make_eval_fn
 
@@ -424,20 +424,18 @@ def test_k1_search_backs_up_in_the_kernel(cuda):
     model = train.build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
     worlds = learning.mix(thex.Hex.initial(1024, 6, device=cuda), Draws(1, cuda), 20)
     trees, launched = {}, {}
-    for route in ("delta", "ops"):
-        mcfg = replace(cfg.mcts_config(), backup_kernel=route)
-        n0 = kernels.launches["backup"]
-        trees[route] = search.mcts(worlds, make_eval_fn(model), Draws(2, cuda), mcfg)
-        torch.cuda.synchronize()
-        launched[route] = kernels.launches["backup"] - n0
-    assert cfg.mcts_config().backup_kernel == "delta"
-    assert launched == {"delta": 63, "ops": 0}
-    kernel, ops = trees["delta"], trees["ops"]
-    for name in ("children", "parents", "relation", "n", "n_edge"):
-        assert torch.equal(getattr(kernel, name), getattr(ops, name)), name
-    for name in ("w", "w_edge"):
-        torch.testing.assert_close(getattr(kernel, name), getattr(ops, name), rtol=0, atol=1e-5,
-                                   msg=name)
+    for backup in ("kernel", "twin"):
+        with monkeypatch.context() as m:
+            if backup == "twin":
+                m.setattr(search.kernels, "backup", search.backup)
+            n0 = kernels.launches["backup"]
+            trees[backup] = search.mcts(worlds, make_eval_fn(model), Draws(2, cuda),
+                                        cfg.mcts_config())
+            torch.cuda.synchronize()
+            launched[backup] = kernels.launches["backup"] - n0
+    assert launched == {"kernel": 63, "twin": 0}
+    for name in ("children", "parents", "relation", "n", "w", "n_edge", "w_edge"):
+        assert torch.equal(getattr(trees["kernel"], name), getattr(trees["twin"], name)), name
 
 
 def _solve_inputs(inp):

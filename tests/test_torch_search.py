@@ -136,8 +136,8 @@ def test_grow_search_matches_jax(seed, plies):
 
 
 def test_config_refuses_what_the_slice_does_not_carry():
-    for kwargs in ({"leaves_per_pass": 0}, {"backup_kernel": "xla"},
-                   {"backup_mode": "dense"}, {"sample_cum": "cumsum"}, {"solve_kernel": "xla"},
+    for kwargs in ({"leaves_per_pass": 0}, {"backup_mode": "dense"}, {"sample_cum": "cumsum"},
+                   {"solve_kernel": "xla"},
                    # the warm start is a torch solve: no kernel route takes it
                    {"warm_solve": True}, {"warm_solve": True, "solve_kernel": "probs"},
                    {"warm_solve": True, "solve_kernel": "alpha"}):

@@ -9,12 +9,13 @@
   JAX's XLA sampler sums with `jnp.cumsum` where the port uses the log-shift
   order; on these seeds no draw lies at a CDF boundary, so the draws agree.
 * Ports of tests/test_mcts.py's `test_descend_matches_reference_walk` and
-  `test_backup_path_matches_backup`, and the three kernel variants
-  (`descend_kernel` with each `backup_kernel`) against the default route
-  with `backup_kernel='ops'`, all through the wrappers' CPU twins.
-* The backup `simulate` calls on each route, for each `backup_kernel`, on a
-  tree on the card or the CPU; a tree on the card with more seats than the
-  backup kernels take is refused.
+  `test_backup_path_matches_backup`, the latter at one to four seats and
+  both `backup_n`; and at every simulation of one search, each K=1 kernel's
+  CPU twin (`descend`, `backup`, `backup_dense`) against what the search
+  does there.
+* The backup `simulate` calls, by the tree's device alone, at one to five
+  seats and both `backup_n`: the `backup` kernel on the card, which refuses
+  more seats than it takes, and `backup_path` on the CPU.
 """
 import contextlib
 import dataclasses
@@ -144,29 +145,73 @@ def _assert_same_tree(a, b, msg=""):
                                    msg=f"{msg} {name}")
 
 
-def test_backup_path_matches_backup(monkeypatch):
+def _backup_search(seats):
+    """Worlds and an agent for a search of `seats` seats: the 5x5 Hex net at
+    two, `V.All`'s planted values otherwise, its games short enough that
+    the searches reach its rewarded terminal nodes."""
+    if seats == 2:
+        return thex.Hex.initial(32, 5, device="cpu"), _models(seed=11)[1]
+    length = {1: 3, 3: 2, 4: 1}[seats]
+    return V.All.initial(32, n_seats=seats, length=length, device="cpu"), V.ProxyAgent()
+
+
+# at one seat both `backup_n` count one a visit
+@pytest.mark.parametrize("seats,backup_n", [(1, "seats")] + [(s, n) for s in (2, 3, 4)
+                                                             for n in ("seats", "visits")])
+def test_backup_path_matches_backup(monkeypatch, seats, backup_n):
     # backing up along the recorded path equals re-chasing parent pointers
     # over a whole real search: counts exact, value sums to f32 roundoff
-    world = thex.Hex.initial(32, 5, device="cpu")
-    _, teval = _models(seed=11)
-    cfg = TS.MCTSConfig(n_nodes=24)
-    tree_path = TS.mcts(world, teval, Draws(11, "cpu"), cfg)
+    world, agent = _backup_search(seats)
+    cfg = TS.MCTSConfig(n_nodes=24, backup_n=backup_n)
+    tree_path = TS.mcts(world, agent, Draws(11, "cpu"), cfg)
     monkeypatch.setattr(TS, "backup_path",
                         lambda tree, path, acts, leaves, npv: TS.backup(tree, leaves, npv))
-    tree_chase = TS.mcts(world, teval, Draws(11, "cpu"), cfg)
+    tree_chase = TS.mcts(world, agent, Draws(11, "cpu"), cfg)
+    assert tree_path.w.shape[-1] == seats
     _assert_same_tree(tree_path, tree_chase)
 
 
-@pytest.mark.parametrize("backup_kernel", ["ops", "delta", "dense"])
-def test_kernel_variants_match_default_route(backup_kernel):
+@pytest.mark.parametrize("twin", ["descend", "backup", "backup_dense"])
+def test_k1_kernel_twins_match_the_default_route(monkeypatch, twin):
+    # at every simulation of one 5x5 search, the kernel's CPU twin gives what
+    # the search does there: `descend` the walk's (parents, actions), each
+    # backup on a copy of the tree `backup_path`'s counts exactly and value
+    # sums to f32 roundoff
     world = _worlds(5, 16, 5, 3)
     tworld = thex.Hex(board=_t(world.board), seats=_t(world.seats))
     _, teval = _models(seed=3)
     cfg = TS.MCTSConfig(n_nodes=20)
-    ref = TS.mcts(tworld, teval, Draws(4, "cpu"), dataclasses.replace(cfg, backup_kernel="ops"))
-    var = TS.mcts(tworld, teval, Draws(4, "cpu"),
-                  dataclasses.replace(cfg, descend_kernel=True, backup_kernel=backup_kernel))
-    _assert_same_tree(ref, var, backup_kernel)
+    simulate, walk, backup_path = TS.simulate, TS._walk_any, TS.backup_path
+    descended, checked = [], []
+
+    def simulate_twin(tree, eval_fn, rands, cfg):
+        descended.append(kernels.descend(tree, rands))
+        return simulate(tree, eval_fn, rands, cfg)
+
+    def walk_checked(tree, acts, nxt):
+        out = walk(tree, acts, nxt)
+        parents, actions = descended.pop()
+        assert torch.equal(out[0], parents) and torch.equal(out[1], actions), len(checked)
+        checked.append(twin)
+        return out
+
+    def backup_checked(tree, path, acts, leaves, npv):
+        copy = dataclasses.replace(tree, **{k: getattr(tree, k).clone()
+                                            for k in ("n", "w", "n_edge", "w_edge")})
+        getattr(kernels, twin)(copy, leaves, npv)
+        backup_path(tree, path, acts, leaves, npv)
+        _assert_same_tree(tree, copy, f"{twin}, sim {len(checked)}")
+        checked.append(twin)
+        return tree
+
+    if twin == "descend":
+        monkeypatch.setattr(TS, "simulate", simulate_twin)
+        monkeypatch.setattr(TS, "_walk_any", walk_checked)
+    else:
+        monkeypatch.setattr(TS, "backup_path", backup_checked)
+    tree = TS.mcts(tworld, teval, Draws(4, "cpu"), cfg)
+    assert checked == [twin] * (cfg.n_nodes - 1) and tree.sim == cfg.n_nodes
+    assert int(tree.parents.amax()) > 2  # the trees grew deeper than the root's children
 
 
 class _OnTheCard(torch.Tensor):
@@ -179,16 +224,6 @@ class _OnTheCard(torch.Tensor):
         return True
 
 
-def _route_backup(descend_kernel, backup_kernel, card):
-    """The backup `simulate` calls: the kernels on every tree after
-    `descend`, after `walk` on a tree on the card; 'ops' in torch ops."""
-    if backup_kernel == "ops":
-        return "backup" if descend_kernel else "backup_path"
-    if descend_kernel or card:
-        return f"kernels.{'backup_dense' if backup_kernel == 'dense' else 'backup'}"
-    return "backup_path"
-
-
 def _launch_checks(tree, leaves, n_per_visit):
     """The checks a backup launch makes on a tree on the card, with every
     tensor of `tree` and `leaves` reporting the card."""
@@ -198,20 +233,19 @@ def _launch_checks(tree, leaves, n_per_visit):
                           n_per_visit)
 
 
-@pytest.mark.parametrize("seats", [2, 5])
+@pytest.mark.parametrize("backup_n", ["seats", "visits"])
+@pytest.mark.parametrize("seats", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("card", [False, True])
-@pytest.mark.parametrize("backup_kernel", ["ops", "delta", "dense"])
-@pytest.mark.parametrize("descend_kernel", [False, True])
-def test_simulate_calls_the_routes_backup(monkeypatch, descend_kernel, backup_kernel, card,
-                                          seats):
-    # the route is chosen by the tree's device alone; a kernel refuses a tree
-    # on the card with more seats than it takes (4)
+def test_simulate_calls_the_routes_backup(monkeypatch, card, seats, backup_n):
+    # the backup is chosen by the tree's device alone: the `backup` kernel on
+    # the card, whose launch checks refuse more than 4 seats, `backup_path`
+    # on the CPU; either with `backup_n`'s count a visit
     called = []
 
     def stand_in(label):
         def fn(tree, *args):
-            called.append(label)
-            if label.startswith("kernels.") and tree.n.is_cuda:
+            called.append((label, args[-1]))
+            if label == "kernels.backup":
                 _launch_checks(tree, *args)
         return fn
 
@@ -220,15 +254,14 @@ def test_simulate_calls_the_routes_backup(monkeypatch, descend_kernel, backup_ke
         monkeypatch.setattr(module, name,
                             stand_in(f"kernels.{name}" if module is kernels else name))
     world = V.All.initial(4, n_seats=seats, length=2, device="cpu")
-    cfg = TS.MCTSConfig(n_nodes=4, descend_kernel=descend_kernel, backup_kernel=backup_kernel)
+    cfg = TS.MCTSConfig(n_nodes=4, backup_n=backup_n)
     tree = TS.initialize(TS.build(world, cfg), V.ProxyAgent()(world), Draws(0, "cpu"), cfg,
                          world.valid)
     if card:
         tree.n = tree.n.as_subclass(_OnTheCard)
     assert tree.n.is_cuda == card and tree.w.shape[-1] == seats
-    want = _route_backup(descend_kernel, backup_kernel, card)
-    refused = card and seats > 4 and want.startswith("kernels.")
-    with (pytest.raises(ValueError, match="at most 4 seats") if refused
+    with (pytest.raises(ValueError, match="at most 4 seats") if card and seats > 4
           else contextlib.nullcontext()):
         TS.simulate(tree, V.ProxyAgent(), torch.rand(tree.parents.shape), cfg)
-    assert called == [want]
+    assert called == [("kernels.backup" if card else "backup_path",
+                       seats if backup_n == "seats" else 1)]

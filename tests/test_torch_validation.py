@@ -27,7 +27,6 @@ against the JAX package's, and the search cases of tests/test_mcts.py
   the planted-value games, are tests/test_torch_validation_search.py, with
   the helpers here.
 """
-import functools
 
 import numpy as np
 import jax
@@ -214,8 +213,8 @@ SEARCHES = {
 }
 ROUTES = {
     "k1": {},
-    "k1-descend-dense": {"descend_kernel": True, "backup_kernel": "dense"},
     "k8-grow": {"leaves_per_pass": 8, "grow_passes": True},
+    "k8-scan": {"leaves_per_pass": 8, "grow_passes": False},
 }
 PLANTED_ENVS = 128
 PLANTED = """
@@ -226,22 +225,19 @@ PLANTED = """
 
 
 def _jax_cfg(route, n_nodes, **kw):
-    if route.startswith("k1"):
+    if route == "k1":
         return S.MCTSConfig(n_nodes=n_nodes, use_pallas=False, pallas_nodes=False,
                             pallas_walk=False, **kw)
-    return S.MCTSConfig(n_nodes=n_nodes, leaves_per_pass=8, grow_passes=True, use_pallas=False,
-                        pallas_walk=False, sample_cum="shift", **kw)
+    return S.MCTSConfig(n_nodes=n_nodes, use_pallas=False, pallas_walk=False, sample_cum="shift",
+                        **ROUTES[route], **kw)
 
 
 def _draws(route, key, n_nodes):
-    return JaxK1Draws(key, n_nodes - 1) if route.startswith("k1") else JaxDraws(key)
+    return JaxK1Draws(key, n_nodes - 1) if route == "k1" else JaxDraws(key)
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_search(case, k1, seed):
-    """The JAX package's tree and root for a search case (K=1 or K=8 grow),
-    cached: both K=1 routes of the port hold against one JAX search."""
-    route = "k1" if k1 else "k8-grow"
+def _jax_search(case, route, seed):
+    """The JAX package's tree and root for a search case by `route`."""
     if case == "planted":
         world, agent = jhex.from_string(PLANTED), jval.RandomAgent()
         world = jax.tree.map(lambda x: jnp.repeat(x, PLANTED_ENVS, 0), world)
@@ -297,7 +293,7 @@ def planted_holds(logits):
 def test_planted_game(route):
     # a competitive 3x3 position where cells 2 and 5 are the key ones
     tt, troot = _port_search("planted", route, seed=3)
-    jt, jroot = _jax_search("planted", route == "k1", 3)
+    jt, jroot = _jax_search("planted", route, 3)
     _hold_against_jax(tt, jt, troot, jroot)
     holds = planted_holds(troot["logits"].numpy())
     np.testing.assert_array_equal(holds, planted_holds(jroot["logits"]))

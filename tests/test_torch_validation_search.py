@@ -1,13 +1,12 @@
 """The search cases of tests/test_mcts.py (`test_trivial`, `test_two_player`,
 `test_depth`, `test_multienv`, with two seats and the prisoner's dilemma
 besides) on the port's search, over the planted-value games of
-`envs/validation.py`, at K=1 (the default route, and the `descend` +
-`backup_dense` route, which backs up one-seat trees) and at K=8 with grow
-passes. Each root value is held against the analytic one (the JAX tests'
-values, to 1e-5; where every backed-up value is the planted one, the root's
-mean value too), and each tree against the JAX package's XLA search under
-the same draws: children, parents and visit counts equal, values to 1e-5.
-The helpers are tests/test_torch_validation.py's.
+`envs/validation.py`, at K=1 and at K=8 with grow passes and in scan mode
+(the JAX package's default K>1 mode). Each root value is held against the
+analytic one (the JAX tests' values, to 1e-5; where every backed-up value is
+the planted one, the root's mean value too), and each tree against the JAX
+package's XLA search by the same route under the same draws: children,
+parents and visit counts equal, values to 1e-5. The helpers are tests/test_torch_validation.py's.
 """
 import numpy as np
 import pytest
@@ -31,5 +30,5 @@ def test_search_cases_match_analytic_and_jax(case, route):
     if case in ("trivial", "two_player"):  # every backed-up value is the planted one
         visits = tt.n[:, :1] / tt.w.shape[-1]  # `backup_n='seats'`: n counts S a visit
         np.testing.assert_allclose((tt.w[:, 0] / visits).numpy(), value, atol=1e-5)
-    jt, jroot = _jax_search(case, route.startswith("k1"), 3)
+    jt, jroot = _jax_search(case, route, 3)
     _hold_against_jax(tt, jt, troot, jroot)

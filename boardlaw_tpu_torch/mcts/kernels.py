@@ -27,6 +27,14 @@ PyTorch twins and their launch counts.
   parent's seat is 0, else seat S-1's). Twin: `search.backup(...,
   edge="dense")`, bit for bit. No search launches it: it is held against
   its twin.
+* `backup_prefix` (csrc/backup_prefix.cu) replaces no Pallas kernel: one K>1
+  pass's backup of its K recorded walks per env, n, w, n_edge and w_edge in
+  place in one launch, where the JAX package contracts path one-hots in
+  plain XLA. Twin: `search.backup_paths_prefix`, bit for bit as it runs on
+  the card (its scatters' association); on the CPU n, w and n_edge bit for
+  bit and w_edge to float32 roundoff (the CPU adds each walk's term to
+  w_edge in turn, the card their sum). The K>1 `search.simulate_multi`
+  launches it once a pass on a tree on the card.
 * `solve_probs` (csrc/solve_probs.cu) replaces the Pallas `solve_probs`: the
   all-node solve alone, probs (B,R,A) or the roots alpha (B,R). Twin:
   `solve_probs_ref`, which is `search.node_probs`.
@@ -95,7 +103,8 @@ from . import search
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = ("walk.cu", "node_actions_multi.cu", "node_actions.cu", "descend.cu", "backup.cu",
-            "backup_dense.cu", "solve_probs.cu", "sample_children_multi.cu", "hex_step.cu")
+            "backup_dense.cu", "backup_prefix.cu", "solve_probs.cu", "sample_children_multi.cu",
+            "hex_step.cu")
 _HEADERS = ("row_solve.cuh", "backup_walk.cuh")
 _BUILD_DIR = _PKG / "_build"
 # -fmad=false: no fused multiply-adds, so each element's float arithmetic
@@ -171,6 +180,9 @@ def build(verbose=False):
     for name in ("backup_launch", "backup_dense_launch"):
         getattr(lib, name).argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, i, p, p]
         getattr(lib, name).restype = i
+    lib.backup_prefix_launch.argtypes = [p, p, q, q, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                         p, p, p, i, p, p]
+    lib.backup_prefix_launch.restype = i
     lib.solve_probs_launch.argtypes = [p, i, p, i, p, i, i, i, i, p, p, i, i, i, p, i, i, p]
     lib.solve_probs_launch.restype = i
     lib.sample_children_multi_launch.argtypes = [p, i, p, i, i, i, i, i, i, p, p, p, i, i, p]
@@ -242,7 +254,8 @@ def _is_f32(n_edge):
 
 # what each kernel reads of the tree: (l)ogits, (c)hildren, edge cou(n)ts
 READS = {"walk": "", "node_actions_multi": "lcn", "node_actions": "lcn", "descend": "lcn",
-         "backup": "n", "backup_dense": "n", "solve_probs": "ln", "sample_children_multi": "c"}
+         "backup": "n", "backup_dense": "n", "backup_prefix": "n", "solve_probs": "ln",
+         "sample_children_multi": "c"}
 
 
 def instance(name, logits=None, children=None, counts=None):
@@ -604,14 +617,29 @@ def descend(tree, rands):
 
 
 # --------------------------------------------------------------------------
-# backup and backup_dense (K=1)
+# backup and backup_dense (K=1), backup_prefix (K>1)
 # --------------------------------------------------------------------------
 
+def _check_backup_tensors(tensors, S, n_per_visit):
+    """The backup kernels' checks: each (name, tensor, dtype, shape) of
+    `tensors` in its storage type, whole and contiguous, at most 4 seats and
+    a whole `n_per_visit`, then each tensor on the card: storage type and
+    shape first, so the refusals are testable on the CPU."""
+    for name, x, dtype, shape in tensors:
+        _check_stored(x, name, dtype, shape)
+    if S > 4:
+        raise ValueError(f"the backup kernels take at most 4 seats, got {S}")
+    if int(n_per_visit) != n_per_visit:
+        raise ValueError(f"n_per_visit must be whole, got {n_per_visit}")
+    for name, x, _, _ in tensors:
+        if not x.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+
+
 def _check_backup(tree, leaves, n_per_visit):
-    """Every tensor the backup kernels read or write, in its storage type
-    (n_edge bf16 or f32), whole and contiguous: storage type and shape
-    first, then the device, so the refusals are testable on the CPU.
-    Returns (B, T, A, S)."""
+    """Every tensor the K=1 backup kernels read or write, in its storage
+    type (n_edge bf16 or f32), whole and contiguous, on the card
+    (`_check_backup_tensors`). Returns (B, T, A, S)."""
     B, T, S = tree.w.shape
     A = tree.n_edge.shape[-1]
     _check_stored(leaves, "leaves", torch.int32, (B,))
@@ -621,17 +649,9 @@ def _check_backup(tree, leaves, n_per_visit):
               ("terminal", torch.bool, (B, T)), ("rewards", torch.float32, (B, T, S)),
               ("n", torch.int32, (B, T)), ("w", torch.float32, (B, T, S)),
               ("n_edge", tree.n_edge.dtype, (B, T, A)), ("w_edge", torch.float32, (B, T, A)))
-    for name, dtype, shape in stored:
-        _check_stored(getattr(tree, name), name, dtype, shape)
-    if S > 4:
-        raise ValueError(f"the backup kernels take at most 4 seats, got {S}")
-    if int(n_per_visit) != n_per_visit:
-        raise ValueError(f"n_per_visit must be whole, got {n_per_visit}")
-    if not leaves.is_cuda:
-        raise ValueError("leaves must be a CUDA tensor")
-    for name, _, _ in stored:
-        if not getattr(tree, name).is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor")
+    _check_backup_tensors(((("leaves", leaves, torch.int32, (B,)),)
+                           + tuple((name, getattr(tree, name), dtype, shape)
+                                   for name, dtype, shape in stored)), S, n_per_visit)
     return B, T, A, S
 
 
@@ -672,6 +692,64 @@ def backup_dense(tree, leaves, n_per_visit):
         return search.backup(tree, leaves, n_per_visit, edge="dense")
     _backup_launch("backup_dense", tree, leaves, n_per_visit)
     _launched("backup_dense", n_edge=tree.n_edge)
+    return tree
+
+
+def _check_backup_prefix(tree, paths, acts, leaves, n_per_visit):
+    """Every tensor the `backup_prefix` kernel reads or writes: paths
+    (K,B,L) and leaves (K,B) int32, the tree's v, prew, terminal, rewards,
+    seats, n, w, n_edge (bf16 or f32) and w_edge in their storage types,
+    whole and contiguous; acts int32 (K,B,R), 1 <= R <= T, with a
+    contiguous last axis and any K and B strides; at most 4 seats; all on
+    the card, checked last. Returns (K, B, L, R, T, A, S)."""
+    B, T, S = tree.w.shape
+    A = tree.n_edge.shape[-1]
+    _check(paths.dim() == 3, f"paths must be (K,B,L), got {tuple(paths.shape)}")
+    K, _, L = paths.shape
+    _check(tree.prew is not None, "the tree has no prew: the prefix backup needs "
+                                  "backup_mode='prefix'")
+    _check(acts.dtype == torch.int32, f"acts must be torch.int32, got {acts.dtype}")
+    _check(acts.dim() == 3 and tuple(acts.shape[:2]) == (K, B) and 1 <= acts.shape[2] <= T
+           and (acts.stride(2) == 1 or acts.shape[2] == 1),
+           f"acts must be a (K,B,R) view with R <= {T} and a contiguous last axis, "
+           f"got {tuple(acts.shape)}")
+    _check_tree_dtypes(None, tree.n_edge)
+    stored = (("v", torch.float32, (B, T, S)), ("prew", torch.float32, (B, T, S)),
+              ("terminal", torch.bool, (B, T)), ("rewards", torch.float32, (B, T, S)),
+              ("seats", torch.int32, (B, T)), ("n", torch.int32, (B, T)),
+              ("w", torch.float32, (B, T, S)), ("n_edge", tree.n_edge.dtype, (B, T, A)),
+              ("w_edge", torch.float32, (B, T, A)))
+    _check_backup_tensors(((("paths", paths, torch.int32, (K, B, L)),
+                            ("leaves", leaves, torch.int32, (K, B)))
+                           + tuple((name, getattr(tree, name), dtype, shape)
+                                   for name, dtype, shape in stored)), S, n_per_visit)
+    _check(acts.is_cuda, "acts must be a CUDA tensor")
+    return K, B, L, acts.shape[2], T, A, S
+
+
+def backup_prefix(tree, paths, acts, leaves, n_per_visit):
+    """Back up one K>1 pass in place, in one launch: paths (K,B,L) int32
+    the walks' interior nodes (-1 padded, as `walk` records them), acts
+    (K,B,R) int32 the sampled action of each node row (the (K,B,R) view of
+    `node_actions_multi`'s (B,K,R) buffer as it is), leaves (K,B) int32.
+    n, w, n_edge and w_edge take the prefix identity's deltas at the path
+    nodes, their edges and the leaves only, each node and edge summed in
+    walk order as the twin's scatters sum them on the card: bit-equal to
+    `search.backup_paths_prefix` run on the card, up to 4 seats (on the CPU
+    the twin's w_edge differs by float32 roundoff). The paths must be a
+    search's: a node of an env at one level, no leaf on a path. Returns the
+    tree."""
+    if leaves.device.type == "cpu":
+        return search.backup_paths_prefix(tree, paths, acts, leaves, n_per_visit)
+    K, B, L, R, T, A, S = _check_backup_prefix(tree, paths, acts, leaves, n_per_visit)
+    err = build().backup_prefix_launch(
+        paths.data_ptr(), acts.data_ptr(), acts.stride(0), acts.stride(1), leaves.data_ptr(),
+        tree.v.data_ptr(), tree.prew.data_ptr(), tree.terminal.data_ptr(),
+        tree.rewards.data_ptr(), tree.seats.data_ptr(), B, T, A, S, K, L, R, int(n_per_visit),
+        tree.n.data_ptr(), tree.w.data_ptr(), tree.n_edge.data_ptr(), _is_f32(tree.n_edge),
+        tree.w_edge.data_ptr(), torch.cuda.current_stream(leaves.device).cuda_stream)
+    _raise_on(err, "backup_prefix")
+    _launched("backup_prefix", n_edge=tree.n_edge)
     return tree
 
 

@@ -10,8 +10,10 @@ tensors. Counterpart of boardlaw_tpu/mcts/search.py, for its two searches:
 * K > 1 (`simulate_multi`): each pass runs, over its R node rows, the
   all-node solve and K inverse-CDF draws per node, the K*B root->leaf chases
   in the `walk` kernel, dedup of walks that halt at one edge, the Hex step
-  and the network eval of the K*B leaf worlds, and one backup of the K paths
-  (`backup_paths_prefix`, or its spec `backup_paths`). With grow passes (the
+  and the network eval of the K*B leaf worlds, and one backup of the K paths:
+  on the card in the `backup_prefix` kernel, on the CPU in torch ops
+  (`backup_paths_prefix`), the tree's device alone picking, or by their
+  spec `backup_paths` (`backup_mode` 'einsum'). With grow passes (the
   production search for boards of 7 and up) pass p covers the first
   R = 1 + (p+1)K rows; in scan mode every pass covers all T rows. The solve
   and draws run fused in the `node_actions_multi` kernel, or split: the solve
@@ -740,7 +742,10 @@ def backup_paths_prefix(tree, paths, acts, leaves, n_per_visit):
 
     The sums are scatter-adds of the K*B*L path entries, not the JAX
     package's (K,B,T,A) compare-accumulate: the same values, n/n_edge exact
-    and w/w_edge to float32 roundoff."""
+    and w/w_edge to float32 roundoff. The plain twin of the `backup_prefix`
+    kernel, which makes its adds in the order and association they take on
+    the card (on the CPU w_edge takes each walk's term in turn, on the card
+    their sum)."""
     K, B, L = paths.shape
     dev = paths.device
     f32 = torch.float32
@@ -880,7 +885,13 @@ def simulate_multi(tree, eval_fn, rands, cfg: MCTSConfig, rows, max_levels):
 
     Walks that halt at the same (parent, action) edge collapse: only the
     first writes, the others take its leaf slot (and are backed up once per
-    draw). The walk records at most `max_levels` levels (`pass_shape`)."""
+    draw). The walk records at most `max_levels` levels (`pass_shape`).
+
+    With `backup_mode` 'prefix' a tree on the card backs up in the
+    `backup_prefix` kernel, one launch that updates n, w, n_edge and w_edge
+    at the pass's path nodes, edges and leaves in place, bit-equal to
+    `backup_paths_prefix` on the card (and refusing more than 4 seats); a
+    tree on the CPU in `backup_paths_prefix`'s torch ops."""
     K = cfg.leaves_per_pass
     B, _, A = tree.children.shape
     R = rows
@@ -942,7 +953,12 @@ def simulate_multi(tree, eval_fn, rands, cfg: MCTSConfig, rows, max_levels):
         tree.sim += K
 
     n_per_visit = tree.w.shape[-1] if cfg.backup_n == "seats" else 1
-    backup = backup_paths if cfg.backup_mode == "einsum" else backup_paths_prefix
+    if cfg.backup_mode == "einsum":
+        backup = backup_paths
+    elif tree.n.is_cuda:
+        backup = kernels.backup_prefix
+    else:
+        backup = backup_paths_prefix
     with span(BACKUP):
         return backup(tree, paths, acts, leaves, n_per_visit)
 

@@ -5,10 +5,10 @@
 
 Phases, each a hard failure with a non-zero exit, each printing its seconds:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-  2. build the nine CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a),
+  2. build the ten CUDA kernels from boardlaw_tpu_torch/csrc (nvcc, sm_90a),
      in every instantiation: four of them (`node_actions_multi`,
      `node_actions`, `descend`, `solve_probs`) also for bf16 logits, and
-     the seven that read children or edge counts also for the wide tree;
+     the eight that read children or edge counts also for the wide tree;
   3. the K=8 kernels against their plain PyTorch twins at the shapes of the
      9x9 main path's last pass, on a real mid-search tree:
      `node_actions_multi` draw for draw up to roundoff at CDF boundaries and
@@ -17,8 +17,13 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      grow pass's shapes ((R, L) = (9, 2) on a tree before its first pass,
      (65, 9) on the mid-search tree): every design of csrc/walk.cu
      (`kernels.WALK_DESIGNS`) bit-equal to the twin in all four outputs and
-     timed, with the byte counts of `walk_bytes`; a small 9x9 search on the
-     card against the same search on the CPU (twins);
+     timed, with the byte counts of `walk_bytes`; `backup_prefix` on the
+     inputs of a real search's last grow pass, bit-equal in n, w, n_edge and
+     w_edge to its twin `search.backup_paths_prefix` on the card and to a
+     second launch, in n, w and n_edge to the twin on the CPU (w_edge within
+     two orders' roundoff), timed beside the twin on the card and the byte
+     counts of `backup_prefix_bytes`; a small 9x9 search on the card against the
+     same search on the CPU (twins);
   3b. the split K=8 kernels at the 9x9 scan pass's shapes ((B,T,A) =
      (32768, 65, 81)), on a real tree after 5 scan passes: `solve_probs`
      probs against `search.node_probs` (rtol 1e-5, atol 1e-7), its alpha
@@ -61,7 +66,8 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      read just after, failing unless each of its kernels ran the expected
      number of times:
      a. 9x9 actor steps (`make_config(9, 512, 4)`: K=8 grow passes), 8
-        launches of `walk` and `node_actions_multi` per step, 128 root visits;
+        launches of `walk`, `node_actions_multi` and `backup_prefix` per step,
+        128 root visits;
      b. `--steps` (at least 2) K=1 actor steps at 6x6, 63 launches of
         `node_actions`, `walk` and `backup` per step, 126 root visits;
      d. the 9x9 learner: `make_train`, `init`, a full warmup (64 actor steps)
@@ -107,7 +113,8 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      draw), and 64 copies on the card equal to the CPU's;
   7. `train.run(9, 512, 4, max_steps=10)` (f32, `--envs` envs) in a
      temporary run root, then `resume=` that run to 12 steps, each with its
-     launch counts of `walk` and `node_actions_multi`: the latest payload's
+     launch counts of `walk`, `node_actions_multi` and `backup_prefix`: the
+     latest payload's
      step and sample count, a fresh `load_state_dict` of it equal to it bit
      for bit, the loop's stats channels, `count.samples` by the numpy
      reader; the set-up seconds, the median s/step inside `run` beside 5d's
@@ -122,7 +129,7 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      peak memory. On mid-search trees every wide instantiation against its
      twin by the rules of phases 3, 3b and 4 (the backups and `walk` bit
      for bit, `walk` at (K, R, L) = (1, 256, 256), (1, 128, 128) and
-     (8, 513, 65)), the bf16 ones bit-equal to the f32 ones on the logits'
+     (8, 513, 65), `backup_prefix.wide` on the last grow pass at 512 nodes), the bf16 ones bit-equal to the f32 ones on the logits'
      f32 copy, the sampler's child pointers above 256 equal to the twin's;
      searches on the card against the CPU's (64 envs; 16 at 256 nodes);
   9. evaluation on phase 7's run: agents of its latest and first snapshot
@@ -140,7 +147,8 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
         (`parallel.distributed.launch`, `initialize`), `make_config(9, 512,
         4)` with `--envs` envs in all, half a rank: `init`, the full warmup
         and 2 train steps through `Draws(seed).shard(rank, 2)`, each rank's
-        launches (8 of `walk` and `node_actions_multi` an actor step), held
+        launches (8 of `walk`, `node_actions_multi` and `backup_prefix` an
+        actor step), held
         against phase 5d's single process on the same draws: the ranks'
         parameters bit-equal, the pushed records equal env by env on all
         but `DP_DIVERGED_SHARE` of the envs (integer leaves equal, f32
@@ -167,8 +175,8 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      phases 7 and 9's run root, one agent row per snapshot; b.
      scripts/torch_scaling_study.py's `train` stage (`STUDY`: 9x9, 64x2 and
      512x4, 4,096 envs, 3 steps; two snapshots registered a run) and its
-     `evaluate` stage (K=8 grow, 8 launches of `walk` and
-     `node_actions_multi` a search; every ordered pair of the four agents; a
+     `evaluate` stage (K=8 grow, 8 launches of `walk`, `node_actions_multi`
+     and `backup_prefix` a search; every ordered pair of the four agents; a
      rerun adds nothing), `elos.solve` on the trials and `data.fit_model`
      on the card, with games/s, the fit's seconds and RMSE; c.
      `best.std_available(9)` and `best.evaluate(9, n_envs=256, rounds=1)`
@@ -187,7 +195,8 @@ Phases, each a hard failure with a non-zero exit, each printing its seconds:
      (`FLEET_DEADLINE_S`): never two jobs active at once, the second
      launched when the first is dead; each job's log names the card, has no
      traceback, and its `kernels.launches` line the launches of its
-     `train.run` (8 of `walk` and `node_actions_multi` an actor step, the
+     `train.run` (8 of `walk`, `node_actions_multi` and `backup_prefix` an
+     actor step, the
      warmup's included); the archive carries the parent's built kernels, so
      no job runs nvcc; `manage.fetch`: two runs of `max_steps` rows of
      `time.step` and a checkpoint each; `backup.backup` and `backup.fetch`
@@ -429,9 +438,11 @@ def search_launches(mcfg):
         return {"walk": sims, instance("node_actions", mcfg): sims,
                 instance("backup", mcfg): sims}
     P = mcfg.n_passes
-    if mcfg.solve_kernel == "fused":
-        return {"walk": P, instance("node_actions_multi", mcfg): P}
     out = {"walk": P}
+    if mcfg.backup_mode == "prefix":
+        out[instance("backup_prefix", mcfg)] = P
+    if mcfg.solve_kernel == "fused":
+        return out | {instance("node_actions_multi", mcfg): P}
     if mcfg.solve_kernel in ("probs", "alpha"):
         out[instance("solve_probs", mcfg)] = P
     if mcfg.sample_kernel:
@@ -830,6 +841,104 @@ def check_walk(tree, acts_bkt, nxt_bkt, first_tree, draws, mcfg, report):
     last = time_walk(f"9x9 grow pass {mcfg.n_passes - 1}", tree.terminal[:, :R],
                      acts_bkt[:, :, :R].permute(1, 0, 2), nxt_bkt[:, :, :R].permute(1, 0, 2), L)
     report["walk"] = dict(last, first_grow_pass=first)
+
+
+def backup_prefix_bytes(before, after, paths, leaves):
+    """Bytes a `backup_prefix` launch needs: per node it changes, n, w read
+    and written and its prew, rewards and seat (12 + 16S); per edge, n_edge
+    in its storage type and w_edge read and written; the whole paths array,
+    each path entry's action (4), and per walk its leaf, terminal flag,
+    value and prew (5 + 8S)."""
+    K, B, L = paths.shape
+    S = before.w.shape[-1]
+    nodes = int((after.n != before.n).sum())
+    edges = int((after.n_edge != before.n_edge).sum())
+    entries = int((paths >= 0).sum())
+    return (nodes * (12 + 16 * S) + edges * (2 * before.n_edge.element_size() + 8)
+            + K * B * L * 4 + entries * 4 + K * B * (5 + 8 * S))
+
+
+def check_backup_prefix(cfg, model, draws, report, key):
+    """`backup_prefix` on the inputs of the last grow pass of a real search
+    at `cfg`'s envs: n, w, n_edge and w_edge bit-equal to its twin
+    `search.backup_paths_prefix` on the card and to a second launch; against
+    the twin on the CPU (deterministic mode: its scatters add in entry
+    order) n, w and n_edge bit-equal and w_edge within what two orders of
+    adding the pass's terms may differ by; timed on the card beside the twin
+    on the card and the bytes bound."""
+    import torch
+    from boardlaw_tpu_torch.mcts import kernels, search
+    from boardlaw_tpu_torch.models.networks import make_eval_fn
+
+    mcfg = cfg.mcts_config()
+    K, B, P = mcfg.leaves_per_pass, cfg.n_envs, mcfg.n_passes
+    tree = mid_search_tree(cfg, model, draws, B, passes=P - 1)
+    captured = []
+    launch = kernels.backup_prefix
+
+    def capture(tree, paths, acts, leaves, npv):
+        captured.append((tree_copy(tree), paths.clone(), acts, leaves.clone(), npv))
+        return launch(tree, paths, acts, leaves, npv)
+
+    R, L = search.pass_shape(mcfg, P - 1)
+    kernels.backup_prefix = capture
+    try:
+        search.simulate_multi(tree, make_eval_fn(model), draws.pass_rands(P - 1, (K, B, R)),
+                              mcfg, rows=R, max_levels=L)
+    finally:
+        kernels.backup_prefix = launch
+    del tree
+    before, paths, acts, leaves, npv = captured[0]
+    label = f"9x9 grow pass {P - 1} (K,B,R,L) = ({K}, {B}, {R}, {L}), T = {before.n.shape[1]}"
+    out = kernels.backup_prefix(tree_copy(before), paths, acts, leaves, npv)
+    again = kernels.backup_prefix(tree_copy(before), paths, acts, leaves, npv)
+    card = search.backup_paths_prefix(tree_copy(before), paths, acts, leaves, npv)
+    sync()
+    cpu = search.Tree(**{k: (v.cpu() if torch.is_tensor(v) else v)
+                         for k, v in before.__dict__.items()})
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    try:
+        ref = search.backup_paths_prefix(tree_copy(cpu), paths.cpu(), acts.cpu(), leaves.cpu(),
+                                         npv)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    cpu_s = time.perf_counter() - t0
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int32: torch.int32}
+
+    def same(x, y):
+        return torch.equal(x.view(as_int[x.dtype]), y.view(as_int[y.dtype]))
+
+    differ = [k for k in BACKUP_STATS if not same(getattr(out, k), getattr(card, k))]
+    differ += [f"{k} (CPU)" for k in ("n", "w", "n_edge")
+               if not same(getattr(out, k).cpu(), getattr(ref, k))]
+    # the CPU adds each walk's term to w_edge in turn, the card their sum:
+    # two orders of at most K + 1 terms, C_k[seat] - prew[t, seat] each
+    term = float(cpu.v.abs().max() + 2 * cpu.prew.abs().max())
+    bound = 2 * (K + 1) * 2.0 ** -24 * (cpu.w_edge.abs() + K * term)
+    edge_err = (out.w_edge.cpu() - ref.w_edge).abs()
+    if not edge_err.le(bound).all():
+        differ.append("w_edge (CPU)")
+    err = float(edge_err.max())
+    if differ:
+        fail(f"{label}: {key} differs from its twin in {differ} (w_edge's max |difference| "
+             f"from the CPU twin {err:.3g})")
+    if not all(same(getattr(out, k), getattr(again, k)) for k in BACKUP_STATS):
+        fail(f"{label}: two launches of {key} on one input differ")
+    nbytes = backup_prefix_bytes(cpu, ref, paths.cpu(), leaves.cpu())
+    scratch = tree_copy(before)
+    r_ms = time_ms(lambda: search.backup_paths_prefix(scratch, paths, acts, leaves, npv), 3)
+    k_ms, k_call = both_ms(lambda: kernels.backup_prefix(scratch, paths, acts, leaves, npv), 20)
+    report[key] = dict(ms=k_call, device_ms=k_ms, plain_ms=r_ms, max_abs_err=err, bytes=nbytes,
+                       ops=0)
+    print(f"{label}: {key} bit-equal to the twin on the card in n, w, n_edge and w_edge and "
+          f"to a second launch, to the CPU twin in n, w and n_edge, w_edge within {err:.3g} of "
+          f"it ({int((ref.n - cpu.n).sum()) // npv} visits, {int((paths >= 0).sum())} path "
+          f"entries; the twin {cpu_s:.2f} s on the CPU); kernel {k_ms:.4f} ms on "
+          f"the card ({k_call:.4f} ms a call), the twin's torch ops {r_ms:.4f} ms a call on the "
+          f"card; {nbytes / 1e6:.2f} MB -> bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms",
+          flush=True)
 
 
 def check_walk_k1(tree, acts, nxt, report, seed):
@@ -2058,6 +2167,7 @@ def check_wide_tree(args, card, report):
                     kw=dict(n_iters=6, accel=True))
     del bf, rands_k
     torch.cuda.empty_cache()
+    check_backup_prefix(cfg512, model, draws, report, "backup_prefix.wide")
     for c in (cfg512, cfg512s):
         check_search_cpu_vs_gpu(c, model)
 
@@ -2630,13 +2740,13 @@ class Searches:
 
 def per_search(label, counts, searches):
     """Fails unless each search of `searches` launched its route's kernels
-    once a pass: 8 of `walk` and `node_actions_multi` a K=8 grow search at
-    64 nodes, 63 of `node_actions`, `walk` and `backup` a K=1 search, nothing
-    else."""
+    once a pass: 8 of `walk`, `node_actions_multi` and `backup_prefix` a K=8
+    grow search at 64 nodes, 63 of `node_actions`, `walk` and `backup` a K=1
+    search, nothing else."""
     k8 = sum(1 for k in searches if k == 8)
     k1 = sum(1 for k in searches if k == 1)
-    want = {"walk": 8 * k8 + 63 * k1, "node_actions_multi": 8 * k8, "node_actions": 63 * k1,
-            "backup": 63 * k1}
+    want = {"walk": 8 * k8 + 63 * k1, "node_actions_multi": 8 * k8, "backup_prefix": 8 * k8,
+            "node_actions": 63 * k1, "backup": 63 * k1}
     got = {k: v for k, v in search_counts(counts).items() if v}
     print(f"{label}: {k8} K=8 grow searches, {k1} K=1 searches; launches {got}", flush=True)
     if len(searches) != k8 + k1 or got != {k: v for k, v in want.items() if v}:
@@ -3144,7 +3254,8 @@ def check_fleet(card):
 
 
 # the kernels: route, source, the Pallas kernel each replaces (`hex_step`
-# replaces none: the JAX package steps Hex in plain XLA)
+# and `backup_prefix` replace none: the JAX package steps Hex and backs up a
+# K>1 pass in plain XLA)
 BASE_KERNELS = {
     "walk": ("cuda", "boardlaw_tpu_torch/csrc/walk.cu", "boardlaw_tpu/mcts/pallas_kernels.py:530"),
     "node_actions_multi": ("cuda", "boardlaw_tpu_torch/csrc/node_actions_multi.cu",
@@ -3157,6 +3268,7 @@ BASE_KERNELS = {
                "boardlaw_tpu/mcts/pallas_kernels.py:797"),
     "backup_dense": ("cuda", "boardlaw_tpu_torch/csrc/backup_dense.cu",
                      "boardlaw_tpu/mcts/pallas_kernels.py:909"),
+    "backup_prefix": ("cuda", "boardlaw_tpu_torch/csrc/backup_prefix.cu", None),
     "solve_probs": ("cuda", "boardlaw_tpu_torch/csrc/solve_probs.cu",
                     "boardlaw_tpu/mcts/pallas_kernels.py:75"),
     "sample_children_multi": ("cuda", "boardlaw_tpu_torch/csrc/sample_children_multi.cu",
@@ -3209,6 +3321,7 @@ def main(argv=None):
         first_tree = mid_search_tree(cfg9, model9, draws, cfg9.n_envs, passes=0)
         check_walk(tree, ka, kc, first_tree, draws, mcfg9, report)
         del tree, ka, kc, first_tree
+        check_backup_prefix(cfg9, model9, draws, report, "backup_prefix")
         check_search_cpu_vs_gpu(cfg9, model9)
         torch.cuda.empty_cache()
 
@@ -3265,7 +3378,7 @@ def main(argv=None):
             lambda: actor_steps(cfg9, model9, worlds, draws, args.steps,
                                 2 * mcfg9.leaves_per_pass * mcfg9.n_passes))
         launches.update(walk=c["walk"], node_actions_multi=c["node_actions_multi"],
-                        hex_step=c["hex_step"])
+                        backup_prefix=c["backup_prefix"], hex_step=c["hex_step"])
         sims = cfg9.n_envs * mcfg9.n_passes * mcfg9.leaves_per_pass / steady(step_s)
         f32_figures = {"actor": (steady(step_s), torch.cuda.max_memory_allocated() / 1e9)}
         print(f"actor step (9x9, 512x4, {cfg9.n_envs} envs, 64 nodes, K=8): steps {step_s} s, "

@@ -20,6 +20,16 @@ root, at three seats (both) and at one seat (`backup_dense`, whose twin is
 `search.backup(..., edge="dense")`). The K=1 search backs up in the
 `backup` kernel, one launch a simulation, and builds the tree that it
 builds with its twin `search.backup` in the kernel's place, bit for bit.
+`backup_prefix` backs up a K=8 pass: at every pass of real grow searches
+(64 nodes, int8 children and bf16 counts; 512 nodes, int32 and f32; f32
+and bf16 tree logits; `backup_n` 'seats' and 'visits'), with duplicate
+and terminal leaves and paths below the root's children, n, w, n_edge and
+w_edge equal the twin `search.backup_paths_prefix` run on the card (its
+index_put_'s association) and a second launch on the same input, bit for
+bit; against the twin on the CPU (deterministic mode) n, w and n_edge are
+bit-equal and w_edge within what two orders of adding a pass's terms may
+differ by. A K=8 search launches it once a pass, and two searches of one
+seed build the same tree bit for bit.
 `solve_probs` runs the solve of `node_actions_multi`: its
 probs agree with the twin's to rtol 1e-5 and its alpha is
 `node_actions_multi`'s, bit for bit; `sample_children_multi` adds in the
@@ -51,6 +61,7 @@ for bit. `walk` runs each design at the wide trees' shapes (T = 513 with
 L = 65 at K = 8, T = L = 256 at K = 1), and a dtype with no instantiation
 raises.
 """
+import contextlib
 from dataclasses import replace
 
 import numpy as np
@@ -436,6 +447,117 @@ def test_k1_search_backs_up_in_the_kernel(cuda, monkeypatch):
     assert launched == {"kernel": 63, "twin": 0}
     for name in ("children", "parents", "relation", "n", "w", "n_edge", "w_edge"):
         assert torch.equal(getattr(trees["kernel"], name), getattr(trees["twin"], name)), name
+
+
+def _same_bits(a, b):
+    """a and b hold the same bits: -0.0 is not 0.0 here."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(a.dtype)
+    return torch.equal(a.view(as_int), b.view(as_int)) if as_int else torch.equal(a, b)
+
+
+@contextlib.contextmanager
+def _serial_sums():
+    """The CPU's accumulating index_put_ adds one entry after another, in
+    entry order, only in deterministic mode (otherwise, on large inputs, in
+    parallel with atomics)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _order_bound(before, mcfg):
+    """What two orders of summing a pass's w_edge terms into w_edge may
+    differ by, per edge: 2 (K + 1) u (|w_edge| + K max|term|), u = 2^-24,
+    a term C_k[seat] - prew[t, seat] at most max|v| + 2 max|prew|."""
+    K = mcfg.leaves_per_pass
+    term = float(before.v.abs().max() + 2 * before.prew.abs().max())
+    return 2 * (K + 1) * 2.0 ** -24 * (before.w_edge.abs() + K * term)
+
+
+def _k8_search(cuda, nodes, n_envs, tree_dtype="float32", backup_n="seats", width=32):
+    """The worlds, eval function and config of a 9x9 K=8 grow search on the
+    card: `train.make_config`'s search, on worlds 60 random plies deep."""
+    from boardlaw_tpu_torch import learning, train
+    from boardlaw_tpu_torch.models.networks import make_eval_fn
+
+    cfg = train.make_config(9, width, 1, nodes=nodes, n_envs=n_envs, tree_dtype=tree_dtype)
+    mcfg = replace(cfg.mcts_config(), backup_n=backup_n)
+    model = train.build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+    worlds = learning.mix(thex.Hex.initial(n_envs, 9, device=cuda), Draws(1, cuda), 60)
+    return worlds, make_eval_fn(model), mcfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backup_n", ["seats", "visits"])
+@pytest.mark.parametrize("tree_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nodes,n_envs", [(64, 256), (512, 32)])
+def test_backup_prefix_matches_twin_mid_search(cuda, monkeypatch, nodes, n_envs, tree_dtype,
+                                               backup_n):
+    # at every pass of a real K=8 grow search (64 nodes: int8 children and
+    # bf16 counts; 512: int32 and f32), the kernel on the pass's inputs
+    # against the twin on the card and on the CPU, and a second launch
+    worlds, eval_fn, mcfg = _k8_search(cuda, nodes, n_envs, tree_dtype, backup_n)
+    inst = kernels.instance("backup_prefix", counts=search.tree_dtypes(mcfg)[1])
+    assert inst == ("backup_prefix" if nodes == 64 else "backup_prefix.wide")
+    kernel = kernels.backup_prefix
+    seen = {"passes": 0, "duplicate leaves": 0, "terminal leaves": 0, "deepest path": 0}
+
+    def checked(tree, paths, acts, leaves, npv):
+        before = _tree_to(tree, "cpu")
+        again = _tree_to(tree, cuda)
+        card = search.backup_paths_prefix(_tree_to(tree, cuda), paths, acts, leaves, npv)
+        n0 = kernels.launches[inst]
+        out = kernel(tree, paths, acts, leaves, npv)
+        kernel(again, paths, acts, leaves, npv)
+        torch.cuda.synchronize()
+        assert kernels.launches[inst] == n0 + 2
+        with _serial_sums():
+            ref = search.backup_paths_prefix(_tree_to(before, "cpu"), paths.cpu(), acts.cpu(),
+                                             leaves.cpu(), npv)
+        for name in ("n", "w", "n_edge", "w_edge"):  # the twin's adds on the card
+            assert _same_bits(getattr(out, name), getattr(card, name)), name
+            assert _same_bits(getattr(again, name), getattr(out, name)), name
+        for name in ("n", "w", "n_edge"):  # the CPU's adds: the same association
+            assert _same_bits(getattr(out, name).cpu(), getattr(ref, name)), name
+        # w_edge: the CPU adds each walk's term to w_edge in turn, the card
+        # adds their sum; two orders of at most K + 1 terms
+        assert (out.w_edge.cpu() - ref.w_edge).abs().le(_order_bound(before, mcfg)).all()
+        lv = leaves.cpu()
+        seen["passes"] += 1
+        seen["duplicate leaves"] += int((lv[:, None] == lv[None]).sum() - lv.numel())
+        seen["terminal leaves"] += int(before.terminal.gather(1, lv.t().long()).sum())
+        seen["deepest path"] = max(seen["deepest path"], int((paths >= 0).sum(-1).max()))
+        return out
+
+    monkeypatch.setattr(kernels, "backup_prefix", checked)
+    search.mcts(worlds, eval_fn, Draws(2, cuda), mcfg)
+    assert seen["passes"] == mcfg.n_passes
+    # duplicate and terminal leaves, and paths below the root's children
+    assert seen["duplicate leaves"] and seen["terminal leaves"], seen
+    assert seen["deepest path"] >= 3, seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nodes,n_envs", [(64, 1024), (512, 64)])
+def test_k8_search_backs_up_in_the_kernel_and_repeats(cuda, nodes, n_envs):
+    # the K=8 search launches `backup_prefix` once a pass on a card tree,
+    # and, every sum now in a fixed order, two searches of one seed build
+    # the same tree bit for bit
+    worlds, eval_fn, mcfg = _k8_search(cuda, nodes, n_envs, width=64)
+    inst = kernels.instance("backup_prefix", counts=search.tree_dtypes(mcfg)[1])
+    trees = []
+    for _ in range(2):
+        n0 = kernels.launches[inst]
+        trees.append(search.mcts(worlds, eval_fn, Draws(2, cuda), mcfg))
+        torch.cuda.synchronize()
+        assert kernels.launches[inst] - n0 == mcfg.n_passes
+    for name in ("children", "parents", "relation", "n", "w", "n_edge", "w_edge", "prew"):
+        assert _same_bits(getattr(trees[0], name), getattr(trees[1], name)), name
 
 
 def _solve_inputs(inp):

@@ -7,8 +7,9 @@ only. Entry points run on the CUDA card unless the caller passes
 
 The port carries the learner's `train.train_step` for `train.run`'s
 configurations: the Hex env, the ReZero FCModel (float32 or bf16 compute)
-with the space-driven heads, the sequential K=1 MCTS (boards below 7) and
-the K-leaf MCTS (7 and up; grow or scan passes, a fused or split solve and
+with the space-driven heads, AlphaGo Zero's convolutional tower with batch
+norm (`networks.AZTower`, `TrainConfig.net="az"`; no JAX counterpart), the
+sequential K=1 MCTS (boards below 7) and the K-leaf MCTS (7 and up; grow or scan passes, a fused or split solve and
 sampler; float32 or bf16 tree logits) with their eight hand-written kernels
 (`mcts/kernels.py`, `csrc/`), the returns, entropy and noise-scale utilities
 of `learning`, and the circular buffer, losses and Adam step of `train`.

@@ -88,7 +88,7 @@ _MODELS = {}
 
 def _shared_model(cfg, device):
     """One network per architecture and device, shared by its agents."""
-    key = (cfg.boardsize, cfg.width, cfg.depth, cfg.dtype, str(device))
+    key = (cfg.net, cfg.boardsize, cfg.width, cfg.depth, cfg.dtype, str(device))
     if key not in _MODELS:
         _MODELS[key] = train.build_model(cfg, device=device)
         _MODELS[key].eval()

@@ -98,8 +98,9 @@ def shard_train_state(state, mesh):
     """This rank's part of a whole `train.TrainState` (the same on every
     rank): the worlds' env axis 0 and the buffer's env axis 1 (its leaves
     are (T, B, ...)) sliced to this rank's block, and a copy of the model
-    and of its Adam state on the rank's device, broadcast from rank 0. The
-    returned state carries the mesh, which `train_step` reads."""
+    (its weights and buffers) and of its Adam state on the rank's device,
+    broadcast from rank 0. The returned state carries the mesh, which
+    `train_step` reads."""
     from ..train import TrainState
 
     world_shard, buffer_shard = env_sharding(mesh, 0), env_sharding(mesh, 1)
@@ -114,6 +115,8 @@ def shard_train_state(state, mesh):
         for s in optimizer.state.get(p, {}).values():
             if torch.is_tensor(s):
                 place(s)
+    for b in model.buffers():
+        place(b)
     counters = place(torch.tensor([state.ptr, state.step], dtype=torch.int64))
     return TrainState(worlds=_map_world(state.worlds, world_shard), buffer=buffer,
                       ptr=int(counters[0]), model=model, optimizer=optimizer,

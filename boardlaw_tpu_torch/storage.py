@@ -64,7 +64,12 @@ def flops_per_sample(params, n_nodes):
     """Estimated forward FLOPs per training sample: n_nodes net evals, each
     costing one multiply-add per weight plus one add per bias, the 0-d
     parameters (the ReZero alphas) not counted. `params` is a model, a state
-    dict, or any nested dicts/lists of tensors or arrays."""
+    dict, or any nested dicts/lists of tensors or arrays. A model that
+    counts its own multiply-adds (`macs()`: `networks.AZTower`, whose
+    convolutions take each weight at every output position and whose batch
+    norm statistics are buffers) is counted by them."""
+    if hasattr(params, "macs"):
+        return n_nodes * params.macs()
     count = 0
     for p in _leaves(params):
         if np.ndim(p) >= 1:

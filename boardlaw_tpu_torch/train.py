@@ -46,7 +46,7 @@ from .envs import hex
 from .mcts import MCTSConfig, mcts as run_mcts, root as mcts_root, n_leaves
 from .mcts.search import _map_world
 from .models import convert
-from .models.networks import FCModel, make_eval_fn
+from .models.networks import AZTower, FCModel, make_eval_fn
 from .pavlov import device as pdevice, logs, runs, stats, storage as pstorage
 from .utils import resolve_device
 from .utils.profiling import count, span
@@ -83,7 +83,10 @@ class TrainConfig:
     port's counterparts of the JAX `pallas_nodes`/`pallas_solve` and
     `pallas_sample` switches. `dtype` (the network's compute type) and
     `tree_dtype` (the tree's logits) are torch dtype names, "float32" or
-    "bfloat16" (the JAX flagship runs both in bf16)."""
+    "bfloat16" (the JAX flagship runs both in bf16). `net` is the network
+    (`NETS`): "fc", the paper's ReZero tower, or "az", AlphaGo Zero's
+    convolutional residual tower with batch norm (`width` filters, `depth`
+    residual blocks)."""
 
     boardsize: int
     width: int
@@ -109,6 +112,7 @@ class TrainConfig:
     sample_cum: str = "matmul"
     solve_kernel: str = "fused"
     sample_kernel: bool = False
+    net: str = "fc"
 
     @property
     def compute_dtype(self):
@@ -151,11 +155,19 @@ def best_config(boardsize, **overrides):
     return make_config(boardsize, width, depth, nodes=nodes, c_puct=c_puct, **overrides)
 
 
+NETS = {"fc": FCModel, "az": AZTower}
+
+
 def build_model(cfg: TrainConfig, device=None, generator=None):
+    """The config's network (`cfg.net`), in eval mode: only the learner's
+    forward (`losses`) runs it in train mode."""
+    if cfg.net not in NETS:
+        raise ValueError(f"no network {cfg.net!r}; there are {sorted(NETS)}")
     world = hex.Hex.initial(1, cfg.boardsize, device="cpu")
-    return FCModel(world.obs_space, world.action_space, width=cfg.width, depth=cfg.depth,
-                   n_seats=world.n_seats, dtype=cfg.compute_dtype, device=device,
-                   generator=generator)
+    model = NETS[cfg.net](world.obs_space, world.action_space, width=cfg.width, depth=cfg.depth,
+                          n_seats=world.n_seats, dtype=cfg.compute_dtype, device=device,
+                          generator=generator)
+    return model.eval()
 
 
 def make_optimizer(cfg: TrainConfig, params):
@@ -229,7 +241,7 @@ class TrainState:
     worlds: object
     buffer: dict  # tensors (buffer_len, n_envs, ...), circular over axis 0
     ptr: int  # next write slot of the circular buffer
-    model: FCModel
+    model: torch.nn.Module
     optimizer: torch.optim.Adam
     step: int  # learner steps taken
     mesh: object = None  # a parallel.Mesh: this state is one rank's block of the envs
@@ -291,13 +303,13 @@ def ordered(tree, ptr):
 def init(cfg: TrainConfig, model, draws: Draws, mesh=None):
     """A fresh train state: `init_worlds` from `draws`, a copy of `model`'s
     weights, its Adam optimizer and an empty buffer. On a mesh: the rank's
-    block of the worlds (`draws` the sharded view), the weights broadcast
-    from rank 0."""
+    block of the worlds (`draws` the sharded view), the weights and buffers
+    broadcast from rank 0."""
     model = copy.deepcopy(model)
     worlds = init_worlds(cfg, draws, mesh)
     if mesh is not None:
-        for p in model.parameters():
-            mesh.broadcast(p.data)
+        for t in (*model.parameters(), *model.buffers()):
+            mesh.broadcast(t.data)
     return TrainState(worlds=worlds, buffer=empty_buffer(cfg, worlds), ptr=0, model=model,
                       optimizer=make_optimizer(cfg, model.parameters()), step=0, mesh=mesh)
 
@@ -318,9 +330,16 @@ def losses(model, batch):
     """(loss, aux, v): policy cross-entropy against the stored root policy
     plus the value MSE against reward-to-go, the learner telemetry and the
     network's (detached) values. The -inf logits of invalid actions are
-    masked to 0; bf16 targets are upcast."""
+    masked to 0; bf16 targets are upcast. The forward runs in train mode,
+    the model's mode restored after it: batch norm takes the batch's
+    statistics and moves its running ones."""
     worlds = batch["worlds"]
-    d = model(worlds.obs, worlds.valid, worlds.seats)
+    was = model.training
+    model.train()
+    try:
+        d = model(worlds.obs, worlds.valid, worlds.seats)
+    finally:
+        model.train(was)
 
     zeros = torch.zeros_like(d["logits"])
     l = torch.where(d["logits"] > -torch.inf, d["logits"], zeros)
@@ -416,7 +435,12 @@ def train_step(cfg: TrainConfig, state: TrainState, draws: Draws):
     On a mesh (`state.mesh`, `draws` its sharded view): the rank's block is
     searched, pushed and sampled, its gradient all-reduced (one flat
     buffer, averaged) before the Adam step, and the aux made the whole
-    batch's (`_global_aux`)."""
+    batch's (`_global_aux`). Each rank's train-mode batch norm normalises
+    by its own block's statistics, as DDP without SyncBatchNorm does; the
+    running statistics are then averaged over the ranks (one flat buffer),
+    so every rank searches with the same ones. Over equal blocks that makes
+    the first batch norm's running-mean update the whole batch's; a deeper
+    one averages statistics of activations each rank normalised alone."""
     _check_draws(draws, state.mesh)
     with span(STEP, step=state.step):
         worlds, record = actor_record(cfg, state.model, state.worlds, draws, mesh=state.mesh)
@@ -460,6 +484,7 @@ def _learn(cfg: TrainConfig, state: TrainState, draws: Draws, record):
         mesh.all_reduce(gflat).div_(mesh.size)
         for p, g in zip(params, gflat.split([p.numel() for p in params])):
             p.grad.copy_(g.view_as(p))
+        _average_buffers(mesh, state.model)
     state.optimizer.step()
     uflat = torch.cat([(p.detach() - b).reshape(-1) for p, b in zip(params, before)])
 
@@ -486,6 +511,17 @@ def _learn(cfg: TrainConfig, state: TrainState, draws: Draws, record):
              "corr.penultimate": (osmall["v"][:-1], osmall["rewards"][1:], tb[1:])})
     state.ptr = ptr
     return aux
+
+
+def _average_buffers(mesh, model):
+    """The model's buffers (batch norm's running statistics) averaged over
+    the ranks, in place; nothing for a network without buffers."""
+    bufs = list(model.buffers())
+    if not bufs:
+        return
+    flat = mesh.all_reduce(torch.cat([b.reshape(-1) for b in bufs])).div_(mesh.size)
+    for b, x in zip(bufs, flat.split([b.numel() for b in bufs])):
+        b.copy_(x.view_as(b))
 
 
 def make_train(cfg: TrainConfig, device=None, mesh=None):
@@ -530,8 +566,12 @@ def load_state_dict(state: TrainState, sd) -> TrainState:
     """Load a checkpoint's agent part into `state` in place: the port's
     (`state_dict`), or the JAX package's, whose params are a flax tree and
     whose `opt` is the flat `jax.tree.leaves` list of its optax adam state
-    (carried over by `models.convert`)."""
+    (carried over by `models.convert`), which holds the FC network alone:
+    for another network it raises ValueError."""
     if isinstance(sd["opt"], list):
+        if not isinstance(state.model, FCModel):
+            raise ValueError(f"a JAX checkpoint holds the FC network; this state's network is "
+                             f"{type(state.model).__name__}")
         params = sd["params"]
         state.model.load_state_dict(convert.from_flax(params))
         convert.adam_from_optax(convert.adam_from_leaves(params, sd["opt"]), state.model,
@@ -648,7 +688,8 @@ def _train(cfg, desc, storer, max_steps, resume, arena, arena_ladder, device, me
         run_name = runs.new_run(description=desc, boardsize=cfg.boardsize, width=cfg.width,
                                 depth=cfg.depth, nodes=cfg.n_nodes, c_puct=cfg.c_puct, lr=cfg.lr,
                                 n_envs=cfg.n_envs)
-        pstorage.save_raw(run_name, "model", {"cfg": dict(cfg.__dict__), "kind": "FCModel"})
+        pstorage.save_raw(run_name, "model",
+                          {"cfg": dict(cfg.__dict__), "kind": type(state.model).__name__})
 
     t0 = time.perf_counter()
     state = warmup_fn(state, draws)

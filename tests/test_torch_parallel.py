@@ -22,6 +22,11 @@ processes joined over gloo, each with a free port, a bounded init
   step: records and worlds exactly, aux to rtol 1e-5 / atol 1e-7,
   gradients and parameters to atol 1e-6 (the all-reduce sums in another
   order).
+* AlphaGo Zero's tower (`net="az"`, batch norm) on 2 ranks: after 2
+  steps both ranks hold equal weights and equal buffers, the running
+  statistics averaged over the ranks after each learner step; after 1 the
+  intake's running mean, whose input no batch norm has normalised by a
+  rank's block, is the single process's (the whole batch's) to atol 1e-6.
 * `train.run(n_devices=2, device="cpu")` and its resume; `initialize` from
   the FLEET_* variables with `worker_main` in two processes (the
   assertions of tests/test_distributed.py); `neural.evaluate_parallel`
@@ -304,6 +309,29 @@ def test_sharded_step_equals_single_process(world_of_two, name):
     for k, p in single.model.named_parameters():
         np.testing.assert_allclose(outs[0]["grads"][k], p.grad.numpy(), rtol=0, atol=1e-6)
         np.testing.assert_allclose(outs[0]["params"][k], p.detach().numpy(), rtol=0, atol=1e-6)
+
+
+AZ = dict(nodes=8, n_envs=8, buffer_len=3, mix_steps=5, net="az")
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_tower_ranks_hold_equal_weights_and_buffers(steps):
+    cfg = train.make_config(5, 8, 2, **AZ)
+    ranks = distributed.launch(torch_workers.tower_steps_rank, 2, device="cpu",
+                               args=(cfg, steps), timeout=DEADLINE)
+    for kind in ("params", "buffers"):
+        assert ranks[0][kind].keys() == ranks[1][kind].keys() and ranks[0][kind]
+        for k, x in ranks[0][kind].items():
+            np.testing.assert_array_equal(ranks[1][kind][k], x, err_msg=k)
+    if steps == 1:
+        # the intake's running mean moves by the whole batch's mean; the
+        # deeper ones see activations each rank normalised by its own block
+        _, _, init, warmup, step = train.make_train(cfg, device="cpu")
+        draws = Draws(cfg.seed, "cpu")
+        state, _ = step(warmup(init(draws), draws), draws)
+        k = "intake.bn.running_mean"
+        np.testing.assert_allclose(ranks[0]["buffers"][k], state.model.intake.bn.running_mean
+                                   .numpy(), rtol=0, atol=1e-6, err_msg=k)
 
 
 # --------------------------------------------------------------------------

@@ -98,3 +98,16 @@ def square(x):
 def visible_cards(_):
     """The CUDA_VISIBLE_DEVICES a pool worker runs with."""
     return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def tower_steps_rank(mesh, cfg, steps):
+    """`steps` train steps of this rank's block of `cfg` (the sharded view
+    of `cfg.seed`'s draws) after init and warmup. Returns the rank's
+    parameters and buffers, as numpy."""
+    _, _, init, warmup, step = train.make_train(cfg, mesh=mesh)
+    draws = Draws(cfg.seed, mesh.device).shard(mesh.rank, mesh.size)
+    state = warmup(init(draws), draws)
+    for _ in range(steps):
+        state, _ = step(state, draws)
+    return {"params": {k: _np(p) for k, p in state.model.named_parameters()},
+            "buffers": {k: _np(b) for k, b in state.model.named_buffers()}}
